@@ -1,0 +1,1 @@
+"""graph of the torch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""nn of the torch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""utils of the torch port (see the package docstring)."""
