@@ -167,6 +167,10 @@ cudaError_t launch(const int* nbr, const float* wgt, const int* ldst,
 
 }  // namespace
 
+// feature columns one CTA covers, the width of its [dt, cols] f32 shared
+// accumulator (the wrapper's shared-memory check reads it)
+extern "C" int nts_bsp_ell_cols() { return kCols; }
+
 // nbr [B,K,R] / ldst [B,R] / blk_key [B] / tile_ptr [t_dst+1] int32, wgt
 // [B,K,R] f32, x [n_src, f] and out [v_num, f] f32 or bf16 (is_bf16).
 extern "C" int nts_bsp_ell(const void* nbr, const void* wgt, const void* ldst,

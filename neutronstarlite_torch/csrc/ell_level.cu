@@ -138,6 +138,9 @@ void launch(const int* nbr, const float* wgt, const T* x, const int* rows_vertex
 
 }  // namespace
 
+// feature columns one warp covers (the wrapper's split-K policy reads it)
+extern "C" int nts_ell_level_cols() { return kChunk; }
+
 // nbr/rows_vertex int32, wgt/scratch f32, x/out f32 or bf16 (is_bf16);
 // scratch holds splits * n_rows * f floats when splits > 1 (else unused).
 extern "C" int nts_ell_level(const void* nbr, const void* wgt, const void* x,

@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_cols: Dict[str, int] = {}
 
 VP = ctypes.c_void_p
 I32 = ctypes.c_int
@@ -48,6 +49,9 @@ _SIGNATURES = {
         ],
     },
 }
+# the feature columns one warp (ell_level) or one CTA (bsp_ell) covers,
+# exported by each kernel so that its wrapper reads the kernel's own value
+_COLS_FN = {"ell_level": "nts_ell_level_cols", "bsp_ell": "nts_bsp_ell_cols"}
 
 
 def nvcc_path() -> str:
@@ -110,8 +114,18 @@ def load(name: str) -> ctypes.CDLL:
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = I32
+    cols = getattr(lib, _COLS_FN[name])
+    cols.argtypes, cols.restype = [], I32
+    _cols[name] = cols()
     _libs[name] = lib
     return lib
+
+
+def kernel_cols(name: str) -> int:
+    """The feature columns one work unit of kernel ``name`` covers, as
+    the built kernel reports it."""
+    load(name)
+    return _cols[name]
 
 
 def check(err: int, what: str) -> None:

@@ -43,7 +43,6 @@ DEFAULT_DT = 512  # dst tile rows (the shared-memory accumulator height)
 DEFAULT_VT = 4096  # src tile rows
 DEFAULT_K = 8  # slots per packed row
 DEFAULT_R = 128  # rows per block
-_KERNEL_COLS = 64  # feature columns per CTA in csrc/bsp_ell.cu
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 CTA may use
 _MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y (the dst tiles)
 _PLAIN_CHUNK_ELEMS = 1 << 26  # bound on one [blocks, K, R, f] intermediate
@@ -214,10 +213,11 @@ def _check_inputs(t: BspEll, x: torch.Tensor) -> None:
             f"bsp_ell launches one CTA row per dst tile; {t.t_dst} tiles exceed "
             f"the grid's {_MAX_GRID_Y} (raise dt)"
         )
-    if t.dt * _KERNEL_COLS * 4 > _SMEM_LIMIT:
+    smem = t.dt * _build.kernel_cols("bsp_ell") * 4
+    if smem > _SMEM_LIMIT:
         raise ValueError(
-            f"bsp dst tile dt={t.dt} needs {t.dt * _KERNEL_COLS * 4} B of shared "
-            f"memory, over the {_SMEM_LIMIT} B a CTA may use"
+            f"bsp dst tile dt={t.dt} needs {smem} B of shared memory, over the "
+            f"{_SMEM_LIMIT} B a CTA may use"
         )
 
 

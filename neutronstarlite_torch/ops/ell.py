@@ -14,7 +14,9 @@ The tables are filled by the JAX module's NumPy branch, so they are bitwise
 the JAX tables. ``ell_tables_aggregate`` is the plain PyTorch version of
 the ELL-level kernel (``ops/ell_kernel.py``, ``csrc/ell_level.cu``): f32
 products and accumulation whatever the input dtype, one cast to
-``x.dtype``, zero rows for a K=0 level. The JAX module's byte-budget
+``x.dtype``, zero rows for a K=0 level; it works through each level in
+pieces of rows (and of slots, for a hub row) so that its gathered
+intermediate stays bounded at any graph size. The JAX module's byte-budget
 chunking (``NTS_ELL_CHUNK_MIB``) bounds TPU VMEM intermediates and is not
 ported.
 """
@@ -30,10 +32,28 @@ import torch
 from neutronstarlite_torch.graph.storage import CSCGraph
 
 _MIN_K = 4
+_PLAIN_CHUNK_ELEMS = 1 << 26  # bound on one [rows, slots, f] intermediate
 
 
 def _next_pow2(x: int) -> int:
     return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def _level_sum(x: torch.Tensor, nbr: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
+    """f32 [Nk, f] = sum_k wgt[r, k] * x[nbr[r, k]], in pieces of rows (and,
+    for a row wider than the budget, of slots) whose [rows, slots, f]
+    intermediate stays within ``_PLAIN_CHUNK_ELEMS``."""
+    n_rows, k = nbr.shape
+    f = x.shape[1]
+    acc = torch.zeros((n_rows, f), dtype=torch.float32, device=x.device)
+    row_step = max(1, _PLAIN_CHUNK_ELEMS // max(k * f, 1))
+    k_step = min(k, max(1, _PLAIN_CHUNK_ELEMS // max(f, 1)))
+    for r0 in range(0, n_rows, row_step):
+        for k0 in range(0, k, k_step):
+            nb = nbr[r0:r0 + row_step, k0:k0 + k_step]
+            w = wgt[r0:r0 + row_step, k0:k0 + k_step]
+            acc[r0:r0 + row_step] += (x[nb].float() * w[:, :, None]).sum(dim=1)
+    return acc
 
 
 def ell_tables_aggregate(
@@ -48,8 +68,7 @@ def ell_tables_aggregate(
         if k == 0:
             outs.append(torch.zeros((n_rows, f), dtype=x.dtype, device=x.device))
             continue
-        vals = x[nbr].float() * wgt[:, :, None]
-        outs.append(vals.sum(dim=1).to(x.dtype))
+        outs.append(_level_sum(x, nbr, wgt).to(x.dtype))
     if not outs:
         return torch.zeros((0, f), dtype=x.dtype, device=x.device)
     return torch.cat(outs, dim=0)

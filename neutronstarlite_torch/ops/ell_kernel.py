@@ -3,9 +3,10 @@ the counterpart of ``neutronstarlite_tpu/ops/pallas_kernels.py``.
 
 ``ell_level_aggregate(buckets, x)`` aggregates over every level of an
 ``EllBuckets`` (``ops/ell.py``): on a CUDA tensor it launches
-``csrc/ell_level.cu`` once per level, every level included (hub levels run
-split-K inside the kernel's launch, zero-degree levels launch nothing and
-stay zero); on a CPU tensor it takes the plain version
+``csrc/ell_level.cu`` once per level, every level included (a hub level
+runs split-K: the split sums, then a reduction kernel, two launches;
+zero-degree levels launch nothing and stay zero). ``launches`` counts
+every kernel launched, the reductions included. On a CPU tensor it takes the plain version
 ``EllBuckets.plain`` (``ops/ell.ell_tables_aggregate``). There is no
 fallback from one to the other. ``EllAggregate`` pairs the forward over the
 CSC tables with the backward over the CSR tables.
@@ -27,15 +28,15 @@ from neutronstarlite_torch.ops.ell import EllBuckets
 _SPLIT_MIN_K = 2048  # levels wider than this may split K across CTAs
 _SPLIT_SLOTS = 1024  # least slots per split
 _SPLIT_TARGET_WARPS = 4096  # parallelism a split hub level aims for
-_CHUNK_COLS = 128  # columns per warp in csrc/ell_level.cu
 
 
-def split_count(n_rows: int, k: int, f: int) -> int:
-    """Number of K splits for one level (1 = no split). Fixed by the
-    shape, so a level's summation order is the same on every run."""
+def split_count(n_rows: int, k: int, f: int, warp_cols: int) -> int:
+    """Number of K splits for one level (1 = no split), given the columns
+    one warp of the kernel covers. Fixed by the shape, so a level's
+    summation order is the same on every run."""
     if k <= _SPLIT_MIN_K:
         return 1
-    warps = n_rows * math.ceil(f / _CHUNK_COLS)
+    warps = n_rows * math.ceil(f / warp_cols)
     want = math.ceil(_SPLIT_TARGET_WARPS / max(warps, 1))
     return max(1, min(math.ceil(k / _SPLIT_SLOTS), want, 65535))
 
@@ -63,6 +64,7 @@ def ell_level_aggregate(buckets: EllBuckets, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"ell_level runs on cuda or cpu tensors, got {x.device}")
     _check_inputs(buckets, x)
     lib = _build.load("ell_level")
+    warp_cols = _build.kernel_cols("ell_level")
     v_num, f = x.shape
     has_empty = any(n.shape[1] == 0 for n in buckets.nbr)
     out = (torch.zeros if has_empty else torch.empty)(
@@ -75,7 +77,7 @@ def ell_level_aggregate(buckets: EllBuckets, x: torch.Tensor) -> torch.Tensor:
         n_rows, k = nbr.shape
         if n_rows == 0 or k == 0:
             continue  # zero-degree level: zero rows, no launch
-        splits = split_count(n_rows, k, f)
+        splits = split_count(n_rows, k, f, warp_cols)
         scratch = (
             torch.empty(splits * n_rows * f, dtype=torch.float32, device=x.device)
             if splits > 1 else None
@@ -86,7 +88,8 @@ def ell_level_aggregate(buckets: EllBuckets, x: torch.Tensor) -> torch.Tensor:
             n_rows, k, f, splits, int(x.dtype == torch.bfloat16), stream,
         )
         _build.check(err, f"ell_level [{n_rows}, {k}] f={f}")
-        ell_level_aggregate.launches += 1
+        # a split level runs two kernels: the split sums, then their reduction
+        ell_level_aggregate.launches += 2 if splits > 1 else 1
     return out
 
 

@@ -24,6 +24,7 @@ import torch
 from neutronstarlite_torch.graph.dataset import GNNDatum
 from neutronstarlite_torch.graph.storage import build_graph
 from neutronstarlite_torch.models.gcn import GCNTrainer
+from neutronstarlite_torch.ops import _build
 from neutronstarlite_torch.ops import bsp_ell as t_bsp
 from neutronstarlite_torch.ops import ell as t_ell
 from neutronstarlite_torch.ops import ell_kernel as t_ellk
@@ -68,7 +69,8 @@ def test_cuda_kernel_matches_plain(cuda_device, kernel, dtype, f):
     if kernel == "ell":
         pair = t_ell.EllPair.from_host(g, device=cuda_device)
         n_rows, k = pair.fwd.nbr[-1].shape
-        assert t_ellk.split_count(n_rows, k, f) > 1  # the hub level runs split-K
+        # the hub level runs split-K
+        assert t_ellk.split_count(n_rows, k, f, _build.kernel_cols("ell_level")) > 1
         fn, plain = t_ellk.EllAggregate.apply, lambda b, v: b.plain(v)
     else:
         # default tiles: a 128 KB shared accumulator (above the 48 KB default)
@@ -99,8 +101,14 @@ def test_cuda_wrappers_count_their_launches(cuda_device):
     t_ellk.ell_level_aggregate(ell, x)
     t_bsp.bsp_aggregate(bsp, x)
     torch.cuda.synchronize()
-    levels = sum(1 for n in ell.nbr if n.shape[0] and n.shape[1])
-    assert t_ellk.ell_level_aggregate.launches - e0 == levels
+    cols = _build.kernel_cols("ell_level")
+    # one launch per non-empty level, two (sums, reduction) for a split one
+    want = sum(
+        2 if t_ellk.split_count(*n.shape, 8, cols) > 1 else 1
+        for n in ell.nbr if n.shape[0] and n.shape[1]
+    )
+    assert want > sum(1 for n in ell.nbr if n.shape[0] and n.shape[1])
+    assert t_ellk.ell_level_aggregate.launches - e0 == want
     assert t_bsp.bsp_aggregate.launches - b0 == 1
 
 

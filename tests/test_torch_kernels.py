@@ -144,12 +144,25 @@ def test_ell_wrapper_counts_only_cuda_launches():
 
 
 def test_ell_split_count():
-    assert t_ellk.split_count(1000, 64, 128) == 1
-    assert t_ellk.split_count(1, 2048, 602) == 1
+    assert t_ellk.split_count(1000, 64, 128, 128) == 1
+    assert t_ellk.split_count(1, 2048, 602, 128) == 1
     # a single-row hub level at Reddit scale splits, and deterministically
-    s = t_ellk.split_count(1, 1 << 19, 602)
-    assert s > 1 and s == t_ellk.split_count(1, 1 << 19, 602)
-    assert t_ellk.split_count(1, 1 << 30, 602) <= 65535
+    s = t_ellk.split_count(1, 1 << 19, 602, 128)
+    assert s > 1 and s == t_ellk.split_count(1, 1 << 19, 602, 128)
+    assert t_ellk.split_count(1, 1 << 30, 602, 128) <= 65535
+
+
+@pytest.mark.parametrize("budget", [1, 40, 5000])
+def test_ell_plain_in_pieces_matches_whole(monkeypatch, budget):
+    """The plain version bounds its intermediate by cutting a level into
+    pieces of rows and, for a hub row, of slots; the pieces add up to the
+    whole level's sum."""
+    tg, _ = _graph(**GRAPHS["hub"])
+    buckets = t_ell.EllPair.from_host(tg).fwd
+    x = torch.from_numpy(_x(5, tg.v_num, 7))
+    want = buckets.plain(x)
+    monkeypatch.setattr(t_ell, "_PLAIN_CHUNK_ELEMS", budget)
+    np.testing.assert_allclose(_np(buckets.plain(x)), _np(want), **F32_TOL)
 
 
 # ---- block-sparse kernel ---------------------------------------------------
