@@ -9,7 +9,8 @@ Phases (each prints its lines; any failure exits non-zero):
 2. build: both CUDA kernels from neutronstarlite_torch/csrc with nvcc;
 3. kernel checks: each kernel, f32 and bf16, forward and backward through
    its autograd.Function, against its plain PyTorch version on the card, on
-   a synthetic power-law graph with a hub row (split-K), f in {41, 128, 602};
+   a synthetic power-law graph with a hub row (split-K) and a bsp dst tile
+   that runs in several pieces, f in {41, 128, 602};
 4. main path: GCN 602-128-41 (the widths of configs/gcn_reddit_full.cfg,
    PRECISION:bfloat16) on a synthetic power-law graph at --scale of Reddit
    (0.1: V=23,296, E=11,461,589), built through from_arrays and trained by
@@ -17,15 +18,19 @@ Phases (each prints its lines; any failure exits non-zero):
    route (OPTIM_KERNEL:1 PALLAS:1) and on the ELL route (the same with
    NTS_PALLAS_RESIDENT=1), all from the same seeded parameters with
    drop_rate 0. Each kernel route's first forward's logits are held
-   against the plain route's, and its first-epoch loss too; each kernel
-   route's launch count is read from that run;
+   against the plain route's, and its first-epoch loss too (a disagreement
+   there is printed at once and fails the run after phase 6, so that a
+   failing run still prints its numbers); each kernel route's launch count
+   is read from that run;
 5. the Cora fixture through the CLI entry point (run.main) on the card
    with OPTIM_KERNEL:1 PALLAS:1;
 6. main-path checks and timing: on the trainers' own tables, for every
    (tables, width) pair one training epoch runs (forward at 602 and 128,
    backward at 128), each kernel against its plain version (bf16), then
    the CUDA-event times of the kernel, the plain version and one
-   torch.sparse.mm call on the same inputs, beside the bound.
+   torch.sparse.mm call on the same inputs, beside the bound; and the bsp
+   launch geometry of each pair (pieces, the heaviest piece's blocks, CTAs,
+   shared bytes per CTA, CTAs per SM from the CUDA occupancy API).
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -109,6 +114,36 @@ def bound_ms(g, f: int, elem_bytes: int):
     return moved / HBM_BYTES_PER_S * 1e3, 2.0 * g.e_num * f / F32_FLOPS * 1e3
 
 
+def bsp_geometry(tables, f: int, dtype) -> dict:
+    """The bsp kernel's launch at width f over these tables: its pieces,
+    the heaviest piece's blocks, the tiles split into several pieces, the
+    CTAs, and the kernel instance's occupancy."""
+    import numpy as np
+
+    from neutronstarlite_torch.ops import _build
+    from neutronstarlite_torch.ops.bsp_ell import occupancy
+
+    ptr = tables.pieces(f).cpu().numpy()
+    tile_ptr = tables.tile_ptr.cpu().numpy()
+    sizes = np.diff(ptr)
+    per_tile = np.bincount(np.searchsorted(tile_ptr, ptr[:-1], side="right") - 1)
+    chunks = -(-f // _build.kernel_cols("bsp_ell"))
+    return {
+        "pieces": len(sizes), "heaviest_blocks": int(sizes.max(initial=0)),
+        "data_blocks": int(tile_ptr[-1]), "tiles": len(tile_ptr) - 1,
+        "split_tiles": int((per_tile > 1).sum()), "ctas": chunks * len(sizes),
+        **occupancy(dtype, f),
+    }
+
+
+def bsp_geometry_text(g: dict) -> str:
+    return (f"{g['pieces']} pieces of its {g['data_blocks']} data blocks in {g['tiles']} "
+            f"dst tiles ({g['split_tiles']} split), heaviest piece {g['heaviest_blocks']} "
+            f"blocks, {g['ctas']} CTAs, {g['smem_bytes']} shared bytes per CTA, "
+            f"{g['ctas_per_sm']} CTAs per SM (CUDA occupancy API; {g['regs']} registers, "
+            f"{g['local_bytes']} spill bytes per thread)")
+
+
 def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
     import torch
 
@@ -146,6 +181,13 @@ def phase_kernel_checks(dev, seed: int) -> dict:
         f"top ELL level {tuple(top)} in {splits} K splits at f=602")
     if top[1] <= 2048:
         raise AssertionError("the check graph has no hub level to split")
+    for f in (41, 128, 602):
+        for direction in ("fwd", "bwd"):
+            geo = bsp_geometry(getattr(bsp, direction), f, torch.float32)
+            if geo["split_tiles"] <= 0:
+                raise AssertionError(f"the check graph's bsp {direction} tables split "
+                                     f"no dst tile at f={f}")
+            log(f"check graph bsp {direction} tables at f={f}: {bsp_geometry_text(geo)}")
     rng = np.random.default_rng(seed)
     worst = {}
     cases = {
@@ -219,10 +261,22 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
         f"({plain.epoch_times[0]:.3f} s)")
     del plain
     counters = {"bsp": bsp_aggregate, "ell": ell_level_aggregate}
+    # a route that disagrees with the plain route fails the run at its end,
+    # after the later phases have run and printed their numbers
+    failures = results["failures"] = []
+
+    def defer(msg):
+        failures.append(msg)
+        log(f"FAILED {msg} (the later phases still run; the script fails at the end)")
+
     for route in ("bsp", "ell"):
         tr = trainer(route, epochs)
-        logits_err = check_close(f"route {route} first logits", tr.eval_logits(),
-                                 plain_logits, LOGITS_TOL)
+        try:
+            logits_err = check_close(f"route {route} first logits", tr.eval_logits(),
+                                     plain_logits, LOGITS_TOL)
+        except AssertionError as exc:
+            defer(str(exc))
+            logits_err = float("nan")
         rms = float(plain_logits.pow(2).mean().sqrt())
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
@@ -240,9 +294,7 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
             raise AssertionError(f"route {route}: non-finite loss {losses}")
         ref = results["plain"]["losses"][0]
         if abs(losses[0] - ref) > LOSS_RTOL * abs(ref):
-            raise AssertionError(
-                f"route {route}: epoch-0 loss {losses[0]} vs plain {ref}"
-            )
+            defer(f"route {route}: epoch-0 loss {losses[0]} vs plain {ref}")
         if launches[route] <= 0:
             raise AssertionError(f"route {route}: its kernel was never launched")
         other = "ell" if route == "bsp" else "bsp"
@@ -364,6 +416,9 @@ def phase_timing(dev, g, results, check_errs: dict, seed: int):
                            ("bound_ms", max(t_bytes, t_ops)), ("bytes_ms", t_bytes),
                            ("ops_ms", t_ops)):
                 tot[k] += val
+            if name == "bsp_ell":
+                log(f"main path bsp_ell {direction} f={f} bf16 launch: "
+                    f"{bsp_geometry_text(bsp_geometry(tables, f, x.dtype))}")
             log(f"main path {name} {direction} tables V={v} E={g.e_num} f={f} bf16 "
                 f"({tables.slot_count()} table slots): max abs err {e:.3e} against "
                 f"the plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -418,6 +473,10 @@ def main(argv=None) -> int:
     g, results = phase_main_path(dev, args.scale, args.epochs, args.seed)
     phase_cora_cli(dev)
     rows = phase_timing(dev, g, results, check_errs, args.seed)
+    if results["failures"]:
+        for msg in results["failures"]:
+            log(f"FAILED {msg}")
+        return 1
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

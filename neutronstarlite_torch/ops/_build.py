@@ -44,13 +44,17 @@ _SIGNATURES = {
     },
     "bsp_ell": {
         "nts_bsp_ell": [
-            VP, VP, VP, VP, VP, VP, VP,
+            VP, VP, VP, VP, VP, VP, VP, VP,
             I32, I32, I32, I32, I32, I32, I32, I32, I32, I32, VP,
         ],
+        "nts_bsp_ell_geometry": [VP],
+        "nts_bsp_ell_occupancy": [I32, I32, VP],
     },
 }
 # the feature columns one warp (ell_level) or one CTA (bsp_ell) covers,
 # exported by each kernel so that its wrapper reads the kernel's own value
+# (bsp_ell also exports the rest of its launch geometry, read by
+# ops/bsp_ell.py)
 _COLS_FN = {"ell_level": "nts_ell_level_cols", "bsp_ell": "nts_bsp_ell_cols"}
 
 

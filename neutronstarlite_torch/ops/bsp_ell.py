@@ -11,10 +11,16 @@ weights ``wgt [B, K, R]``, each row's tile-local destination ``ldst [B, R]``
 and one key ``blk_key [B] = dst_tile * t_src + src_tile``. Data blocks come
 first, grouped per dst tile in tile order; then one zero-weight filler block
 per empty tile; then zero-weight padding to a multiple of 8 blocks. Apart
-from ``tile_ptr`` (the [t_dst+1] range of each tile's data blocks, which the
-CUDA kernel walks) the tables are bitwise those of the JAX module's NumPy
-fill in its unsegmented form (one segment: ``b_seg`` = all blocks,
-``t_seg = t_dst``).
+from ``tile_ptr`` (the [t_dst+1] range of each tile's data blocks) the
+tables are bitwise those of the JAX module's NumPy fill in its unsegmented
+form (one segment: ``b_seg`` = all blocks, ``t_seg = t_dst``).
+
+The CUDA kernel does not walk whole tiles: ``bsp_pieces`` cuts the data
+blocks into pieces (contiguous block ranges inside one dst tile), a tile
+splitting only where the card would not be filled or where it is heavier
+than the mean tile, and the kernel runs one CTA per (column chunk, piece).
+The pieces combine by f32 atomic adds into an f32 buffer, cast to x's
+dtype by a second kernel (``csrc/bsp_ell.cu``).
 
 Numeric policy (the TPU kernel's): each weight rounds to ``x.dtype`` before
 the product; products and accumulation are f32, across all of a tile's
@@ -28,7 +34,9 @@ form (the distributed per-shard case) comes with the distributed slice.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -39,12 +47,11 @@ from neutronstarlite_torch.utils.logging import get_logger
 
 log = get_logger("bsp_ell")
 
-DEFAULT_DT = 512  # dst tile rows (the shared-memory accumulator height)
+DEFAULT_DT = 512  # dst tile rows
 DEFAULT_VT = 4096  # src tile rows
 DEFAULT_K = 8  # slots per packed row
 DEFAULT_R = 128  # rows per block
-_SMEM_LIMIT = 232448  # bytes of shared memory one H100 CTA may use
-_MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y (the dst tiles)
+_MAX_CTAS = 2 ** 31 - 1  # CUDA's limit on gridDim.x (chunks x pieces)
 _PLAIN_CHUNK_ELEMS = 1 << 26  # bound on one [blocks, K, R, f] intermediate
 
 
@@ -60,6 +67,8 @@ class BspEll:
     v_num: int
     dt: int
     vt: int
+    # piece lists of the CUDA launch, by column-chunk count (see ``pieces``)
+    _pieces: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def t_dst(self) -> int:
@@ -175,25 +184,104 @@ class BspEll:
     def slot_count(self) -> int:
         return int(self.nbr.numel())
 
+    def pieces(self, f: int) -> torch.Tensor:
+        """The CUDA launch's piece list at width f (``bsp_pieces`` with the
+        built kernel's geometry), on the tables' device; cached per
+        column-chunk count."""
+        cols, geo = _build.kernel_cols("bsp_ell"), geometry()
+        chunks = -(-f // cols)
+        ptr = self._pieces.get(chunks)
+        if ptr is None:
+            ptr = torch.from_numpy(bsp_pieces(
+                self.tile_ptr.cpu().numpy(), f, cols, geo.target_ctas,
+                geo.min_piece_blocks,
+            )).to(self.tile_ptr.device)
+            self._pieces[chunks] = ptr
+        return ptr
 
-def bsp_tables_aggregate(t: BspEll, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of ``csrc/bsp_ell.cu``: [V, f] -> [V, f].
-    Blocks are processed in chunks that bound the [blocks, K, R, f]
-    intermediate; fillers and padding carry weight 0 and add nothing."""
+
+def bsp_pieces(
+    tile_ptr: np.ndarray, f: int, cols: int, target_ctas: int, min_blocks: int
+) -> np.ndarray:
+    """The piece list ``piece_ptr [P+1]`` (int32): piece p holds data blocks
+    ``piece_ptr[p]:piece_ptr[p+1]``, all of one dst tile, in tile order, and
+    together the pieces cover every data block once.
+
+    A piece holds at most ``cap`` blocks, where ``cap`` is the least of the
+    mean blocks per non-empty tile and the blocks that spread the launch's
+    work (blocks x column chunks) over ``target_ctas`` CTAs, but at least
+    ``min_blocks``. A tile of more than ``cap`` blocks splits into
+    ``ceil(n / cap)`` pieces of near-equal size; a lighter tile stays whole.
+    A pure function of the tables' tile ranges, f and the kernel's geometry
+    (``cols`` per CTA, ``target_ctas``, ``min_blocks``)."""
+    tile_ptr = np.asarray(tile_ptr, np.int64)
+    n = int(tile_ptr[-1])
+    if n == 0:
+        return np.zeros(1, np.int32)
+    counts = np.diff(tile_ptr)
+    busy = counts > 0
+    mean = -(-n // int(busy.sum()))
+    spread = -(-n * -(-f // cols) // target_ctas)
+    cap = max(min_blocks, min(mean, spread))
+    c, lo = counts[busy], tile_ptr[:-1][busy]
+    parts = -(-c // cap)
+    tile = np.repeat(np.arange(len(c)), parts)
+    i = np.arange(len(tile)) - np.repeat(np.cumsum(parts) - parts, parts)
+    starts = lo[tile] + (c[tile] * i) // parts[tile]
+    return np.append(starts, n).astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class BspGeometry:
+    """The launch geometry the built kernel exports."""
+
+    max_k: int  # most slots per packed row
+    target_ctas: int  # the CTA count a launch's piece list aims for
+    min_piece_blocks: int  # least blocks per piece
+
+
+@functools.lru_cache(maxsize=None)
+def geometry() -> BspGeometry:
+    g = (ctypes.c_int * 3)()
+    _build.load("bsp_ell").nts_bsp_ell_geometry(g)
+    return BspGeometry(*g)
+
+
+def occupancy(dtype: torch.dtype, f: int) -> dict:
+    """The kernel instance that runs x of ``dtype`` at width f: CTAs per SM
+    from the CUDA occupancy API, registers per thread, shared bytes per CTA
+    and local (spill) bytes per thread."""
+    o = (ctypes.c_int * 4)()
+    err = _build.load("bsp_ell").nts_bsp_ell_occupancy(int(dtype == torch.bfloat16), f, o)
+    _build.check(err, f"bsp_ell occupancy f={f}")
+    return {"ctas_per_sm": o[0], "regs": o[1], "smem_bytes": o[2], "local_bytes": o[3]}
+
+
+def bsp_blocks_aggregate(t: BspEll, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The f32 sums of blocks ``lo:hi`` alone: [t_dst * dt, f]. Blocks are
+    processed in chunks that bound the [blocks, K, R, f] intermediate;
+    fillers and padding carry weight 0 and add nothing."""
     f = x.shape[1]
-    n_blocks, k, r = t.nbr.shape
+    _, k, r = t.nbr.shape
     out = torch.zeros((t.t_dst * t.dt, f), dtype=torch.float32, device=x.device)
     step = max(1, _PLAIN_CHUNK_ELEMS // max(k * r * f, 1))
-    for lo in range(0, n_blocks, step):
-        key = t.blk_key[lo:lo + step].long()
-        src = (key % t.t_src)[:, None, None] * t.vt + t.nbr[lo:lo + step].long()
-        dst = (key // t.t_src)[:, None] * t.dt + t.ldst[lo:lo + step].long()
-        w = t.wgt[lo:lo + step].to(x.dtype).float()
+    for a in range(lo, hi, step):
+        b = min(a + step, hi)
+        key = t.blk_key[a:b].long()
+        src = (key % t.t_src)[:, None, None] * t.vt + t.nbr[a:b].long()
+        dst = (key // t.t_src)[:, None] * t.dt + t.ldst[a:b].long()
+        w = t.wgt[a:b].to(x.dtype).float()
         valid = src < t.v_num
         src = torch.where(valid, src, torch.zeros_like(src))
         w = torch.where(valid, w, torch.zeros_like(w))
         rows = (x[src].float() * w[..., None]).sum(dim=1)  # [b, R, f]
         out.index_add_(0, dst.reshape(-1), rows.reshape(-1, f))
+    return out
+
+
+def bsp_tables_aggregate(t: BspEll, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/bsp_ell.cu``: [V, f] -> [V, f]."""
+    out = bsp_blocks_aggregate(t, x, 0, t.nbr.shape[0])
     return out[: t.v_num].to(x.dtype)
 
 
@@ -205,25 +293,25 @@ def _check_inputs(t: BspEll, x: torch.Tensor) -> None:
     if not x.is_contiguous():
         raise ValueError("bsp_ell needs a contiguous x")
     for a, dt in ((t.nbr, torch.int32), (t.wgt, torch.float32), (t.ldst, torch.int32),
-                  (t.blk_key, torch.int32), (t.tile_ptr, torch.int32)):
+                  (t.blk_key, torch.int32)):
         if a.device != x.device or a.dtype != dt or not a.is_contiguous():
             raise ValueError("bsp tables must be contiguous int32/float32 on x's device")
-    if t.t_dst > _MAX_GRID_Y:
+    max_k = geometry().max_k
+    if t.nbr.shape[1] > max_k:
         raise ValueError(
-            f"bsp_ell launches one CTA row per dst tile; {t.t_dst} tiles exceed "
-            f"the grid's {_MAX_GRID_Y} (raise dt)"
+            f"bsp_ell holds a packed row's slots in registers: K={t.nbr.shape[1]} "
+            f"slots exceed its {max_k}"
         )
-    smem = t.dt * _build.kernel_cols("bsp_ell") * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"bsp dst tile dt={t.dt} needs {smem} B of shared memory, over the "
-            f"{_SMEM_LIMIT} B a CTA may use"
-        )
+    ctas = -(-x.shape[1] // _build.kernel_cols("bsp_ell")) * (t.pieces(x.shape[1]).numel() - 1)
+    if ctas > _MAX_CTAS:
+        raise ValueError(f"bsp_ell would launch {ctas} CTAs, over the grid's {_MAX_CTAS}")
 
 
 def bsp_aggregate(t: BspEll, x: torch.Tensor) -> torch.Tensor:
     """The wrapper: the CUDA kernel on a CUDA tensor, the plain version on
-    a CPU tensor; [V, f] -> [V, f]."""
+    a CPU tensor; [V, f] -> [V, f]. On the card it runs two kernels, the
+    aggregation into an f32 buffer and its cast to x's dtype (only the cast
+    when the tables hold no edge); ``launches`` counts both."""
     if x.device.type == "cpu":
         return bsp_tables_aggregate(t, x)
     if x.device.type != "cuda":
@@ -234,15 +322,18 @@ def bsp_aggregate(t: BspEll, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((t.v_num, f), dtype=x.dtype, device=x.device)
     if f == 0 or t.v_num == 0:
         return out
+    piece_ptr = t.pieces(f)
+    n_pieces = piece_ptr.numel() - 1
+    acc = torch.empty(t.v_num * (-(-f // 4) * 4), dtype=torch.float32, device=x.device)
     k, r = t.nbr.shape[1], t.nbr.shape[2]
     err = lib.nts_bsp_ell(
-        t.nbr.data_ptr(), t.wgt.data_ptr(), t.ldst.data_ptr(),
-        t.blk_key.data_ptr(), t.tile_ptr.data_ptr(), x.data_ptr(), out.data_ptr(),
-        t.t_dst, t.t_src, t.dt, t.vt, k, r, t.v_num, t.v_num, f,
+        t.nbr.data_ptr(), t.wgt.data_ptr(), t.ldst.data_ptr(), t.blk_key.data_ptr(),
+        piece_ptr.data_ptr(), x.data_ptr(), acc.data_ptr(), out.data_ptr(), n_pieces,
+        t.t_src, t.dt, t.vt, k, r, t.v_num, t.v_num, f,
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, f"bsp_ell B={t.nbr.shape[0]} f={f}")
-    bsp_aggregate.launches += 1
+    bsp_aggregate.launches += 2 if n_pieces else 1
     return out
 
 

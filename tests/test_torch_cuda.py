@@ -61,6 +61,14 @@ def _np(t):
     return t.detach().float().cpu().numpy()
 
 
+def _split_tiles(tables, f):
+    """How many dst tiles the kernel's piece list at width f splits."""
+    tile_ptr = tables.tile_ptr.cpu().numpy()
+    starts = tables.pieces(f).cpu().numpy()[:-1]
+    per_tile = np.bincount(np.searchsorted(tile_ptr, starts, side="right") - 1)
+    return int((per_tile > 1).sum())
+
+
 @pytest.mark.parametrize("f", [41, 130])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kernel", ["ell", "bsp_small_tiles", "bsp_default_tiles"])
@@ -73,9 +81,11 @@ def test_cuda_kernel_matches_plain(cuda_device, kernel, dtype, f):
         assert t_ellk.split_count(n_rows, k, f, _build.kernel_cols("ell_level")) > 1
         fn, plain = t_ellk.EllAggregate.apply, lambda b, v: b.plain(v)
     else:
-        # default tiles: a 128 KB shared accumulator (above the 48 KB default)
+        # default tiles: one dst tile, split into several pieces
         dt, vt = (32, 64) if kernel == "bsp_small_tiles" else (512, 4096)
         pair = t_bsp.BspEllPair.from_host(g, dt=dt, vt=vt, device=cuda_device)
+        for tables in (pair.fwd, pair.bwd):  # a dst tile runs in several pieces
+            assert _split_tiles(tables, f) > 0
         fn, plain = t_bsp.BspAggregate.apply, t_bsp.bsp_tables_aggregate
     tdt = getattr(torch, dtype)
     rng = np.random.default_rng(10)
@@ -109,7 +119,28 @@ def test_cuda_wrappers_count_their_launches(cuda_device):
     )
     assert want > sum(1 for n in ell.nbr if n.shape[0] and n.shape[1])
     assert t_ellk.ell_level_aggregate.launches - e0 == want
-    assert t_bsp.bsp_aggregate.launches - b0 == 1
+    # two kernels: the aggregation over the pieces, then the combine's cast
+    assert _split_tiles(bsp, 8) > 0
+    assert t_bsp.bsp_aggregate.launches - b0 == 2
+    empty = np.zeros(0, np.uint32)
+    g0 = build_graph(empty, empty, V)
+    out = t_bsp.bsp_aggregate(t_bsp.BspEllPair.from_host(g0, device=cuda_device).fwd, x)
+    assert t_bsp.bsp_aggregate.launches - b0 == 3  # no piece: the cast alone
+    torch.cuda.synchronize()
+    assert out.shape == (V, 8) and not out.any()
+
+
+@pytest.mark.parametrize("f", [41, 130, 602])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bsp_geometry_and_occupancy(cuda_device, dtype, f):
+    """The exported geometry the piece list reads, and the occupancy the
+    launch gets: no shared memory, and at least the three CTAs per SM the
+    kernel's launch bounds ask for."""
+    geo = t_bsp.geometry()
+    assert _build.kernel_cols("bsp_ell") == 128 and geo.max_k >= t_bsp.DEFAULT_K
+    occ = t_bsp.occupancy(getattr(torch, dtype), f)
+    assert occ["smem_bytes"] == 0
+    assert occ["ctas_per_sm"] >= 3 and occ["regs"] <= 80
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):

@@ -255,13 +255,120 @@ def test_wrappers_refuse_other_devices():
         t_bsp.bsp_aggregate(t_bsp.BspEllPair.from_host(tg).fwd, x)
 
 
-def test_bsp_checks_refuse_what_the_kernel_cannot_launch():
-    v = 70000  # dt=1: one dst tile per vertex, more than gridDim.y allows
-    empty = np.zeros(0, np.uint32)
-    g = t_storage.build_graph(empty, empty, v)
-    t = t_bsp.BspEll.build(v, g.column_offset, g.row_indices, g.edge_weight_forward,
-                           dt=1, vt=4096, k_slots=1, r_rows=1)
-    with pytest.raises(ValueError, match="gridDim|grid"):
-        t_bsp._check_inputs(t, torch.zeros((v, 2)))
+def test_bsp_checks_refuse_what_the_kernel_cannot_launch(monkeypatch):
+    """The kernel holds a packed row's K slots in registers, so tables of
+    more slots per row than its geometry allows are refused. (The geometry
+    is the built kernel's export; there is no kernel to ask on the CPU.)"""
+    monkeypatch.setattr(t_bsp, "geometry", lambda: t_bsp.BspGeometry(
+        max_k=8, target_ctas=2048, min_piece_blocks=2))
+    tg, _ = _graph(**GRAPHS["random"])
+    t = t_bsp.BspEll.build(tg.v_num, tg.column_offset, tg.row_indices,
+                           tg.edge_weight_forward, dt=8, vt=16, k_slots=16, r_rows=8)
+    with pytest.raises(ValueError, match="slots"):
+        t_bsp._check_inputs(t, torch.zeros((tg.v_num, 2)))
     with pytest.raises(TypeError):
-        t_bsp._check_inputs(t, torch.zeros((v, 2), dtype=torch.float64))
+        t_bsp._check_inputs(t, torch.zeros((tg.v_num, 2), dtype=torch.float64))
+
+
+# ---- the bsp kernel's piece list -------------------------------------------
+
+# (cols, target_ctas, min_blocks): the built kernel's geometry, and others
+PIECE_GEOMS = [(128, 2048, 2), (128, 64, 1), (64, 4, 3)]
+
+
+def _cap(tile_ptr, f, cols, target, min_blocks):
+    counts = np.diff(tile_ptr)
+    n = int(tile_ptr[-1])
+    mean = -(-n // int((counts > 0).sum()))
+    return max(min_blocks, min(mean, -(-n * -(-f // cols) // target)))
+
+
+def _tile_ptrs():
+    tg, _ = _graph(**GRAPHS["hub"])
+    yield t_bsp.BspEll.build(tg.v_num, tg.column_offset, tg.row_indices,
+                             tg.edge_weight_forward, 8, 16, 4, 8).tile_ptr.numpy()
+    # the 0.1-scale Reddit forward tables' shape: 46 tiles, the heaviest 648
+    rng = np.random.default_rng(0)
+    counts = rng.integers(150, 330, size=46)
+    counts[7], counts[20] = 648, 0
+    yield np.concatenate([[0], np.cumsum(counts)])
+    yield np.zeros(5, np.int64)  # no edges
+
+
+@pytest.mark.parametrize("geom", PIECE_GEOMS)
+@pytest.mark.parametrize("f", [41, 128, 602])
+def test_bsp_pieces_cover_every_block_once_within_cap(geom, f):
+    for tile_ptr in _tile_ptrs():
+        ptr = t_bsp.bsp_pieces(tile_ptr, f, *geom)
+        n = int(tile_ptr[-1])
+        assert ptr.dtype == np.int32 and ptr[0] == 0 and ptr[-1] == n
+        if n == 0:
+            assert len(ptr) == 1
+            continue
+        sizes = np.diff(ptr)
+        assert (sizes > 0).all()  # in order, each block once
+        assert set(tile_ptr.tolist()) <= set(ptr.tolist())  # no piece spans two tiles
+        assert sizes.max() <= _cap(tile_ptr, f, *geom)
+        counts = np.diff(tile_ptr)
+        # a tile within the cap stays whole; a heavier one splits evenly
+        for lo, c in zip(tile_ptr[:-1], counts):
+            inside = sizes[(ptr[:-1] >= lo) & (ptr[:-1] < lo + c)]
+            assert inside.sum() == c
+            assert len(inside) == (-(-c // _cap(tile_ptr, f, *geom)) if c else 0)
+            if len(inside):
+                assert inside.max() - inside.min() <= 1
+
+
+def test_bsp_pieces_split_only_what_needs_it():
+    tile_ptr = list(_tile_ptrs())[1]
+    # a launch wide enough to fill the card alone: only tiles over the mean split
+    ptr = t_bsp.bsp_pieces(tile_ptr, 4096, 128, 256, 2)
+    counts = np.diff(tile_ptr)
+    mean = -(-int(tile_ptr[-1]) // int((counts > 0).sum()))
+    assert len(ptr) - 1 == sum(-(-c // mean) for c in counts)
+    assert np.diff(ptr).max() <= mean < 648
+
+
+@pytest.mark.parametrize("f", [41, 602])
+def test_bsp_pieces_same_on_two_builds(f):
+    tg, _ = _graph(**GRAPHS["hub"])
+    ptrs = [
+        t_bsp.bsp_pieces(
+            t_bsp.BspEll.build(tg.v_num, tg.column_offset, tg.row_indices,
+                               tg.edge_weight_forward, 8, 16, 4, 8).tile_ptr.numpy(),
+            f, *PIECE_GEOMS[0],
+        )
+        for _ in range(2)
+    ]
+    np.testing.assert_array_equal(*ptrs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bsp_pieces_combined_match_whole_and_pallas(dtype):
+    """The plain version run piece by piece over the kernel's piece list and
+    combined as the kernel combines (f32 adds into one f32 buffer, one cast)
+    equals the whole plain version and the Pallas kernel in interpret mode,
+    on a graph whose hub tile splits."""
+    dt, vt, K, R = BSP_GEOMS["tiny"]
+    tg, jg = _graph(**GRAPHS["hub"])
+    f = 9
+    x = _x(11, tg.v_num, f)
+    if dtype == "bfloat16":
+        x = x.astype(ml_dtypes.bfloat16).astype(np.float32)
+    ours = t_bsp.BspEll.build(tg.v_num, tg.column_offset, tg.row_indices,
+                              tg.edge_weight_forward, dt, vt, K, R)
+    tile_ptr = ours.tile_ptr.numpy()
+    ptr = t_bsp.bsp_pieces(tile_ptr, f, *PIECE_GEOMS[0])
+    per_tile = np.bincount(np.searchsorted(tile_ptr, ptr[:-1], side="right") - 1)
+    assert per_tile.max() > 1  # a tile splits
+    xt = _to_torch(x, getattr(torch, dtype))
+    acc = torch.zeros((ours.t_dst * dt, f), dtype=torch.float32)
+    for lo, hi in zip(ptr[:-1], ptr[1:]):
+        acc += t_bsp.bsp_blocks_aggregate(ours, xt, int(lo), int(hi))
+    got = acc[: tg.v_num].to(xt.dtype)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(got), _np(t_bsp.bsp_tables_aggregate(ours, xt)), **tol)
+    ref = jax_bsp.BspEll.build(jg.v_num, jg.column_offset, jg.row_indices,
+                               jg.edge_weight_forward, dt=dt, vt=vt, k_slots=K, r_rows=R)
+    want = ref.aggregate(jnp.asarray(x, dtype=getattr(jnp, dtype)), interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
