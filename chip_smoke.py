@@ -9,8 +9,9 @@ Phases (each prints its lines; any failure exits non-zero):
 2. build: both CUDA kernels from neutronstarlite_torch/csrc with nvcc;
 3. kernel checks: each kernel, f32 and bf16, forward and backward through
    its autograd.Function, against its plain PyTorch version on the card, on
-   a synthetic power-law graph with a hub row (split-K) and a bsp dst tile
-   that runs in several pieces, f in {41, 128, 602};
+   a synthetic power-law graph with a hub row (split into pieces by the ELL
+   work list) and a bsp dst tile that runs in several pieces, f in
+   {41, 128, 602};
 4. main path: GCN 602-128-41 (the widths of configs/gcn_reddit_full.cfg,
    PRECISION:bfloat16) on a synthetic power-law graph at --scale of Reddit
    (0.1: V=23,296, E=11,461,589), built through from_arrays and trained by
@@ -28,9 +29,11 @@ Phases (each prints its lines; any failure exits non-zero):
    (tables, width) pair one training epoch runs (forward at 602 and 128,
    backward at 128), each kernel against its plain version (bf16), then
    the CUDA-event times of the kernel, the plain version and one
-   torch.sparse.mm call on the same inputs, beside the bound; and the bsp
-   launch geometry of each pair (pieces, the heaviest piece's blocks, CTAs,
-   shared bytes per CTA, CTAs per SM from the CUDA occupancy API).
+   torch.sparse.mm call on the same inputs, beside the bound; and each
+   kernel's launch geometry for each pair (bsp: pieces, the heaviest
+   piece's blocks, CTAs, shared bytes per CTA; ELL: work items, the
+   heaviest item's slots, split rows and their pieces, scratch bytes,
+   warps; both: CTAs per SM from the CUDA occupancy API, registers, spills).
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -144,6 +147,33 @@ def bsp_geometry_text(g: dict) -> str:
             f"{g['local_bytes']} spill bytes per thread)")
 
 
+def ell_geometry(tables, f: int, dtype) -> dict:
+    """The ELL kernel's launch at width f over these tables: its work items,
+    the heaviest item's live slots, the split rows and their pieces, the
+    f32 scratch bytes, the warps launched, and the kernel instance's
+    occupancy."""
+    from neutronstarlite_torch.ops import _build
+    from neutronstarlite_torch.ops.ell_kernel import occupancy, work_list
+
+    w = work_list(tables, f)
+    items = w.items.cpu().numpy()
+    return {
+        "items": w.n_items, "heaviest_slots": int((items[:, 3] - items[:, 2]).max(initial=0)),
+        "cap": w.cap, "split_rows": w.n_split, "pieces": w.n_pieces,
+        "scratch_bytes": w.n_pieces * f * 4,
+        "warps": w.n_items * -(-f // _build.kernel_cols("ell_level")),
+        **occupancy(dtype, f),
+    }
+
+
+def ell_geometry_text(g: dict) -> str:
+    return (f"{g['items']} work items (cap {g['cap']} live slots, heaviest "
+            f"{g['heaviest_slots']}), {g['split_rows']} split rows in {g['pieces']} pieces, "
+            f"{g['scratch_bytes']} scratch bytes, {g['warps']} warps, {g['ctas_per_sm']} "
+            f"CTAs per SM (CUDA occupancy API; {g['regs']} registers, {g['local_bytes']} "
+            f"spill bytes per thread)")
+
+
 def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
     import torch
 
@@ -166,23 +196,23 @@ def phase_kernel_checks(dev, seed: int) -> dict:
 
     from neutronstarlite_torch.graph.storage import build_graph
     from neutronstarlite_torch.graph.synthetic import synthetic_power_law_graph
-    from neutronstarlite_torch.ops import _build
     from neutronstarlite_torch.ops.bsp_ell import BspAggregate, BspEllPair, bsp_tables_aggregate
     from neutronstarlite_torch.ops.ell import EllPair
-    from neutronstarlite_torch.ops.ell_kernel import EllAggregate, split_count
+    from neutronstarlite_torch.ops.ell_kernel import EllAggregate
 
     v, e = 30000, 600000
     g = build_graph(*synthetic_power_law_graph(v, e, seed=seed + 7), v)
     ell = EllPair.from_host(g, device=dev)
     bsp = BspEllPair.from_host(g, device=dev)
-    top = ell.fwd.nbr[-1].shape
-    splits = split_count(top[0], top[1], 602, _build.kernel_cols("ell_level"))
     log(f"check graph V={v} E={g.e_num} max in-degree {int(g.in_degree.max())}, "
-        f"top ELL level {tuple(top)} in {splits} K splits at f=602")
-    if top[1] <= 2048:
-        raise AssertionError("the check graph has no hub level to split")
+        f"top ELL level {tuple(ell.fwd.nbr[-1].shape)}")
     for f in (41, 128, 602):
         for direction in ("fwd", "bwd"):
+            geo = ell_geometry(getattr(ell, direction), f, torch.float32)
+            if geo["split_rows"] <= 0:
+                raise AssertionError(f"the check graph's ELL {direction} work list "
+                                     f"splits no row at f={f}")
+            log(f"check graph ELL {direction} tables at f={f}: {ell_geometry_text(geo)}")
             geo = bsp_geometry(getattr(bsp, direction), f, torch.float32)
             if geo["split_tiles"] <= 0:
                 raise AssertionError(f"the check graph's bsp {direction} tables split "
@@ -419,6 +449,9 @@ def phase_timing(dev, g, results, check_errs: dict, seed: int):
             if name == "bsp_ell":
                 log(f"main path bsp_ell {direction} f={f} bf16 launch: "
                     f"{bsp_geometry_text(bsp_geometry(tables, f, x.dtype))}")
+            else:
+                log(f"main path ell_level {direction} f={f} bf16 launch: "
+                    f"{ell_geometry_text(ell_geometry(tables, f, x.dtype))}")
             log(f"main path {name} {direction} tables V={v} E={g.e_num} f={f} bf16 "
                 f"({tables.slot_count()} table slots): max abs err {e:.3e} against "
                 f"the plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "

@@ -40,7 +40,9 @@ I32 = ctypes.c_int
 # C signatures: pointers and the stream as void*, sizes as int
 _SIGNATURES = {
     "ell_level": {
-        "nts_ell_level": [VP, VP, VP, VP, VP, VP, I32, I32, I32, I32, I32, VP],
+        "nts_ell_level": [VP, VP, I32, VP, VP, I32, VP, VP, VP, I32, I32, VP],
+        "nts_ell_level_geometry": [VP],
+        "nts_ell_level_occupancy": [I32, I32, VP],
     },
     "bsp_ell": {
         "nts_bsp_ell": [
@@ -53,8 +55,8 @@ _SIGNATURES = {
 }
 # the feature columns one warp (ell_level) or one CTA (bsp_ell) covers,
 # exported by each kernel so that its wrapper reads the kernel's own value
-# (bsp_ell also exports the rest of its launch geometry, read by
-# ops/bsp_ell.py)
+# (each also exports the rest of its launch geometry and its occupancy,
+# read by ops/ell_kernel.py and ops/bsp_ell.py)
 _COLS_FN = {"ell_level": "nts_ell_level_cols", "bsp_ell": "nts_bsp_ell_cols"}
 
 

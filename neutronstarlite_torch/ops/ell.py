@@ -80,7 +80,9 @@ class EllBuckets:
 
     ``nbr[i]`` [Nk, K_i] int32 neighbour ids, ``wgt[i]`` [Nk, K_i] float32
     weights, ``rows_vertex[i]`` [Nk] int32 the vertex of each table row,
-    ``inv_perm`` [V] int64 vertex -> row of the bucket-ordered concatenation.
+    ``inv_perm`` [V] int64 vertex -> row of the bucket-ordered concatenation,
+    ``deg[i]`` [Nk] int32 each table row's degree: its live slots are the
+    prefix ``[:deg]``, the rest is padding.
     """
 
     nbr: List[torch.Tensor]
@@ -88,6 +90,11 @@ class EllBuckets:
     rows_vertex: List[torch.Tensor]
     inv_perm: torch.Tensor
     v_num: int
+    deg: List[torch.Tensor]
+    # the CUDA kernel's work lists and the level pointers it reads, by
+    # column-chunk count (ops/ell_kernel.py): the tables are not replaced
+    # once built
+    _work: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @staticmethod
     def build(
@@ -100,13 +107,14 @@ class EllBuckets:
         deg = np.diff(offsets).astype(np.int64)
         order = np.argsort(deg, kind="stable")
         sdeg = deg[order]
-        nbrs, wgts, perm_parts = [], [], []
+        nbrs, wgts, perm_parts, degs = [], [], [], []
         i = 0
         j0 = int(np.searchsorted(sdeg, 0, side="right"))
         if j0 > 0:  # zero-degree rows: a K=0 level, no slots
             nbrs.append(np.zeros((j0, 0), dtype=np.int32))
             wgts.append(np.zeros((j0, 0), dtype=np.float32))
             perm_parts.append(order[:j0])
+            degs.append(np.zeros(j0, dtype=np.int32))
             i = j0
         while i < v_num:
             K = max(_next_pow2(max(int(sdeg[i]), 1)), _MIN_K)
@@ -123,6 +131,7 @@ class EllBuckets:
             nbrs.append(nbr)
             wgts.append(wgt)
             perm_parts.append(ids)
+            degs.append(d.astype(np.int32))
             i = j
         perm = np.concatenate(perm_parts) if perm_parts else np.zeros(0, np.int64)
         inv = np.empty(v_num, dtype=np.int64)
@@ -135,6 +144,7 @@ class EllBuckets:
             ],
             inv_perm=torch.from_numpy(inv).to(device),
             v_num=int(v_num),
+            deg=[torch.from_numpy(d).to(device) for d in degs],
         )
 
     def slot_count(self) -> int:

@@ -44,16 +44,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _hub_graph():
-    """Random edges plus one vertex with 3000 in- and out-edges (a K=4096
-    ELL level, which runs split-K) and self loops."""
+def _hub_graph(hub: int = 3000):
+    """Random edges plus one vertex with ``hub`` in- and out-edges (3000: a
+    K=4096 ELL level, whose row splits into pieces) and self loops."""
     rng = np.random.default_rng(2)
     src = rng.integers(0, V, size=1200, dtype=np.uint32)
     dst = rng.integers(0, V, size=1200, dtype=np.uint32)
-    many = rng.integers(0, V, size=3000, dtype=np.uint32)
+    many = rng.integers(0, V, size=hub, dtype=np.uint32)
     loops = np.arange(V, dtype=np.uint32)
-    src = np.concatenate([src, many, np.full(3000, 5, np.uint32), loops])
-    dst = np.concatenate([dst, np.full(3000, 5, np.uint32), many, loops])
+    src = np.concatenate([src, many, np.full(hub, 5, np.uint32), loops])
+    dst = np.concatenate([dst, np.full(hub, 5, np.uint32), many, loops])
     return src, dst, build_graph(src, dst, V)
 
 
@@ -76,9 +76,8 @@ def test_cuda_kernel_matches_plain(cuda_device, kernel, dtype, f):
     _, _, g = _hub_graph()
     if kernel == "ell":
         pair = t_ell.EllPair.from_host(g, device=cuda_device)
-        n_rows, k = pair.fwd.nbr[-1].shape
-        # the hub level runs split-K
-        assert t_ellk.split_count(n_rows, k, f, _build.kernel_cols("ell_level")) > 1
+        for tables in (pair.fwd, pair.bwd):  # the hub row splits into pieces
+            assert t_ellk.work_list(tables, f).n_split > 0
         fn, plain = t_ellk.EllAggregate.apply, lambda b, v: b.plain(v)
     else:
         # default tiles: one dst tile, split into several pieces
@@ -111,14 +110,14 @@ def test_cuda_wrappers_count_their_launches(cuda_device):
     t_ellk.ell_level_aggregate(ell, x)
     t_bsp.bsp_aggregate(bsp, x)
     torch.cuda.synchronize()
-    cols = _build.kernel_cols("ell_level")
-    # one launch per non-empty level, two (sums, reduction) for a split one
-    want = sum(
-        2 if t_ellk.split_count(*n.shape, 8, cols) > 1 else 1
-        for n in ell.nbr if n.shape[0] and n.shape[1]
-    )
-    assert want > sum(1 for n in ell.nbr if n.shape[0] and n.shape[1])
-    assert t_ellk.ell_level_aggregate.launches - e0 == want
+    # one launch over all levels, and the split rows' reduction
+    assert t_ellk.work_list(ell, 8).n_split > 0
+    assert t_ellk.ell_level_aggregate.launches - e0 == 2
+    # no row over the cap: the one launch alone
+    flat = t_ell.EllPair.from_host(_hub_graph(hub=0)[2], device=cuda_device).fwd
+    assert t_ellk.work_list(flat, 8).n_split == 0
+    t_ellk.ell_level_aggregate(flat, x)
+    assert t_ellk.ell_level_aggregate.launches - e0 == 3
     # two kernels: the aggregation over the pieces, then the combine's cast
     assert _split_tiles(bsp, 8) > 0
     assert t_bsp.bsp_aggregate.launches - b0 == 2
@@ -141,6 +140,43 @@ def test_cuda_bsp_geometry_and_occupancy(cuda_device, dtype, f):
     occ = t_bsp.occupancy(getattr(torch, dtype), f)
     assert occ["smem_bytes"] == 0
     assert occ["ctas_per_sm"] >= 3 and occ["regs"] <= 80
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ell_matches_plain_at_602(cuda_device, dtype):
+    """The main path's widest layer: f = 602 rows start 4-byte aligned, so
+    the gathers load in 4-byte halves."""
+    test_cuda_kernel_matches_plain(cuda_device, "ell", dtype, 602)
+
+
+@pytest.mark.parametrize("f", [41, 130, 602])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ell_geometry_and_occupancy(cuda_device, dtype, f):
+    """The exported geometry the work list reads, and the occupancy the
+    launch gets: no shared memory, and at least the six 4-warp CTAs per SM
+    the kernel's launch bounds ask for."""
+    geo = t_ellk.geometry()
+    assert _build.kernel_cols("ell_level") == 128 and geo.warps_per_cta == 4
+    assert 0 < geo.min_cap <= geo.max_cap and geo.target_warps > 0
+    occ = t_ellk.occupancy(getattr(torch, dtype), f)
+    assert occ["smem_bytes"] == 0
+    assert occ["ctas_per_sm"] >= 6 and occ["regs"] <= 80
+
+
+@pytest.mark.parametrize("f", [41, 602])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ell_two_calls_bitwise_equal(cuda_device, dtype, f):
+    """Split rows combine in piece order, without atomics: the same call
+    twice gives the same bits."""
+    _, _, g = _hub_graph()
+    ell = t_ell.EllPair.from_host(g, device=cuda_device).fwd
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal((V, f), dtype=np.float32))
+    x = x.to(cuda_device, getattr(torch, dtype))
+    a = t_ellk.ell_level_aggregate(ell, x)
+    b = t_ellk.ell_level_aggregate(ell, x)
+    torch.cuda.synchronize()
+    assert t_ellk.work_list(ell, f).n_split > 0
+    assert torch.equal(a, b)
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):

@@ -143,13 +143,122 @@ def test_ell_wrapper_counts_only_cuda_launches():
     assert t_ellk.ell_level_aggregate.launches == before
 
 
-def test_ell_split_count():
-    assert t_ellk.split_count(1000, 64, 128, 128) == 1
-    assert t_ellk.split_count(1, 2048, 602, 128) == 1
-    # a single-row hub level at Reddit scale splits, and deterministically
-    s = t_ellk.split_count(1, 1 << 19, 602, 128)
-    assert s > 1 and s == t_ellk.split_count(1, 1 << 19, 602, 128)
-    assert t_ellk.split_count(1, 1 << 30, 602, 128) <= 65535
+# ---- the ELL kernel's work list ---------------------------------------------
+
+# (target_warps, min_cap, max_cap): the built kernel's geometry, and a small
+# cap that splits most rows
+WORK_GEOMS = {"kernel": (3072, 128, 4096), "small_cap": (4, 4, 8)}
+
+
+def _work(buckets, f, geom):
+    return t_ellk.ell_work([d.numpy() for d in buckets.deg],
+                           [r.numpy() for r in buckets.rows_vertex], f, 128,
+                           *WORK_GEOMS[geom])
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_ell_deg_is_each_rows_degree(name):
+    """The per-row degree the tables carry is the row's in- (fwd) or out-
+    (bwd) degree, and every slot past it is padding (index 0, weight 0)."""
+    tg, _ = _graph(**GRAPHS[name])
+    pair = t_ell.EllPair.from_host(tg)
+    for b, offsets in ((pair.fwd, tg.column_offset), (pair.bwd, tg.row_offset)):
+        want = np.diff(offsets)
+        for nbr, wgt, rows, deg in zip(b.nbr, b.wgt, b.rows_vertex, b.deg):
+            assert deg.dtype == torch.int32 and deg.shape == rows.shape
+            np.testing.assert_array_equal(deg.numpy(), want[rows.numpy()])
+            pad = np.arange(nbr.shape[1])[None, :] >= deg.numpy()[:, None]
+            assert not nbr.numpy()[pad].any() and not wgt.numpy()[pad].any()
+
+
+@pytest.mark.parametrize("geom", list(WORK_GEOMS))
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_ell_work_covers_every_live_slot_once(name, geom):
+    """Every live slot of every row is in exactly one item, a row's items in
+    slot order; no item reaches into padding or exceeds the cap; items come
+    heaviest first; the list is the same on two builds of the tables."""
+    tg, _ = _graph(**GRAPHS[name])
+    for f in (41, 602):
+        for side in ("fwd", "bwd"):
+            b = getattr(t_ell.EllPair.from_host(tg), side)
+            w = _work(b, f, geom)
+            again = _work(getattr(t_ell.EllPair.from_host(tg), side), f, geom)
+            for a, c in ((w.items, again.items), (w.split_ptr, again.split_ptr),
+                         (w.split_out, again.split_out)):
+                np.testing.assert_array_equal(a, c)
+            _, min_cap, max_cap = WORK_GEOMS[geom]
+            assert min_cap <= w.cap <= max_cap
+            lvl, row, lo, hi, target = w.items.T.astype(np.int64)
+            size = hi - lo
+            assert (size > 0).all() and (size <= w.cap).all()
+            assert (np.diff(size) <= 0).all()  # heaviest first
+            deg = [d.numpy() for d in b.deg]
+            verts = [r.numpy() for r in b.rows_vertex]
+            assert w.live_rows == sum(int((d > 0).sum()) for d in deg)
+            split_of = {int(v): j for j, v in enumerate(w.split_out)}
+            seen = set()
+            for key in sorted(set(zip(lvl.tolist(), row.tolist()))):
+                mine = np.nonzero((lvl == key[0]) & (row == key[1]))[0]
+                mine = mine[np.argsort(lo[mine])]
+                d, v = int(deg[key[0]][key[1]]), int(verts[key[0]][key[1]])
+                bounds = np.concatenate([lo[mine][:1], hi[mine]])
+                # contiguous ranges from slot 0 to the degree: no padding
+                np.testing.assert_array_equal(lo[mine][1:], hi[mine][:-1])
+                assert bounds[0] == 0 and bounds[-1] == d
+                if len(mine) == 1:
+                    assert target[mine[0]] == v and v not in split_of
+                else:  # the pieces' scratch rows, in slot order
+                    j = split_of[v]
+                    np.testing.assert_array_equal(
+                        -1 - target[mine], np.arange(w.split_ptr[j], w.split_ptr[j + 1]))
+                seen.add(key)
+            want = {(i, r) for i, d in enumerate(deg) for r in np.nonzero(d > 0)[0].tolist()}
+            assert seen == want
+            assert w.n_pieces == w.split_ptr[-1] == int((target < 0).sum())
+            if geom == "small_cap" and name in ("hub", "random"):
+                assert w.n_split > 0
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_work_combined_matches_whole_and_pallas(name, dtype):
+    """The plain version run item by item over the work list (a small cap,
+    so rows split) and combined as the kernel combines (a whole row's f32
+    sum cast once; a split row's f32 partials summed in piece order, then
+    cast once) equals the whole plain version, and on the hub graph the
+    Pallas kernels in interpret mode."""
+    tg, jg = _graph(**GRAPHS[name])
+    f = 9
+    x = _x(12, tg.v_num, f)
+    if dtype == "bfloat16":
+        x = x.astype(ml_dtypes.bfloat16).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    xt = _to_torch(x, tdt)
+    b = t_ell.EllPair.from_host(tg).fwd
+    w = _work(b, f, "small_cap")
+    got = torch.zeros((tg.v_num, f), dtype=tdt)
+    scratch = torch.zeros((w.n_pieces, f), dtype=torch.float32)
+    for lvl, row, lo, hi, target in w.items.tolist():
+        part = t_ell._level_sum(xt, b.nbr[lvl][row:row + 1, lo:hi],
+                                b.wgt[lvl][row:row + 1, lo:hi])[0]
+        if target >= 0:
+            got[target] = part.to(tdt)
+        else:
+            scratch[-1 - target] = part
+    for j, v in enumerate(w.split_out.tolist()):
+        acc = torch.zeros(f, dtype=torch.float32)
+        for p in range(w.split_ptr[j], w.split_ptr[j + 1]):
+            acc += scratch[p]
+        got[v] = acc.to(tdt)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(got), _np(b.plain(xt)), **tol)
+    if name == "hub":
+        assert w.n_split > 0
+        want = jax_pk.gather_dst_from_src_pallas(
+            jax_ell.EllPair.from_host(jg), jnp.asarray(x, dtype=getattr(jnp, dtype)),
+            row_tile=8, interpret=True,
+        )
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
 
 
 @pytest.mark.parametrize("budget", [1, 40, 5000])
