@@ -23,8 +23,8 @@ Phases (each prints its lines; any failure exits non-zero):
    there is printed at once and fails the run after phase 6, so that a
    failing run still prints its numbers); each kernel route's launch count
    is read from that run;
-5. the Cora fixture through the CLI entry point (run.main) on the card
-   with OPTIM_KERNEL:1 PALLAS:1;
+5. the Cora fixture through the CLI entry point (run.main) on the card:
+   GCN with OPTIM_KERNEL:1 PALLAS:1, and GAT with OPTIM_KERNEL:1;
 6. main-path checks and timing: on the trainers' own tables, for every
    (tables, width) pair one training epoch runs (forward at 602 and 128,
    backward at 128), each kernel against its plain version (bf16), then
@@ -33,18 +33,38 @@ Phases (each prints its lines; any failure exits non-zero):
    kernel's launch geometry for each pair (bsp: pieces, the heaviest
    piece's blocks, CTAs, shared bytes per CTA; ELL: work items, the
    heaviest item's slots, split rows and their pieces, scratch bytes,
-   warps; both: CTAs per SM from the CUDA occupancy API, registers, spills).
+   warps; both: CTAs per SM from the CUDA occupancy API, registers, spills);
+7. GAT 602-128-41 f32 on a unit-weight build of the main path's edges: one
+   epoch on the edge chain, --epochs on the ELL attention (OPTIM_KERNEL:1)
+   from the same parameters, whose first logits and first-epoch loss are
+   held against the chain's, and whose ell_level launches per epoch must
+   be at most 8; then each of an epoch's four ELL calls on runtime
+   weights (fwd 128, fwd 41, bwd 41, bwd 128) on the trainer's own tables
+   against its plain version, timed beside it, one torch.sparse.mm with
+   the alpha values and the bound; the plain grad_alpha pass and the row
+   softmax of an epoch timed; one epoch under torch.profiler (device busy
+   time, idle share, time by kernel);
+8. GIN and CommNet 602-128-41 f32: one epoch on the scatter route, then 2
+   on the ELL route and 2 on the bsp route, each kernel route's
+   first-epoch loss held against the scatter route's, 3 more epochs timed
+   and one profiled;
+9. GGCN 602-128-41 f32 on its edge chain, 2 epochs at 0.2 x --scale; its
+   peak device memory.
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
 offsets, x read once and the output written once) over 3.35 TB/s, or its
 2*E*f float32 operations over 67 TFLOP/s, whichever is larger. In the
 {"kernels": [...]} line, ms, plain_ms, library_ms and bound_ms are those of
-one training epoch's aggregation calls: the sums over the pairs above.
+one training epoch's aggregation calls: the sums over the pairs above
+(phase 6 for ell_level and bsp_ell, phase 7 for ell_level_gat, the same
+kernel on runtime weights).
 
 Tolerances scale with the reference: atol is a fraction of the reference's
 root mean square, so a wrong kernel cannot hide under a fixed atol when the
-outputs are small.
+outputs are small. The f32 runtime-weight checks add a fraction of each
+output's absolute sum of terms: a sum of ~400k terms that cancels keeps
+its rounding error.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
@@ -71,15 +91,33 @@ F32_TOL = (4e-5, 1e-4)  # summation order differs
 BF16_TOL = (2.0 ** -7, 2.0 ** -7)  # one bf16 ulp of rounding either way
 LOGITS_TOL = (2.0 ** -4, 2.0 ** -4)  # bf16 GCN logits after two bf16 layers
 LOSS_RTOL = 1e-3  # first-epoch loss, bf16 kernel route vs plain route
+# f32 sums of many terms in two orders: the kernel sums pieces of up to
+# ~4k slots one after another (worst case 4096 * 2^-24 = 2.4e-4 of the
+# terms' absolute sum, typically ~60 * 2^-24), the plain version sums a
+# row at once; an output that cancels to near zero keeps that error, so
+# the GAT runtime-weight checks allow 1e-4 of the absolute sum on top
+F32_SUM_TOL = 1e-4
+# GAT ELL route vs its edge chain, f32: the chain's softmax denominators
+# and weighted sums add up to ~400k terms per hub row (0.1 scale) with
+# atomics in a varying order, the kernel in pieces. On an H100 the worst
+# first logit sat 3.8e-3 of the logits' rms apart at 0.1 scale (longest
+# row 399,835 slots) and 3.0e-2 at full scale (1,858,017): the gap grows
+# with the longest row, so the rms term is taken per GAT_ROW slots of it
+GAT_LOGITS_TOL = (1e-2, 1e-3)
+GAT_ROW = 399_835
+GAT_LOSS_RTOL = 1e-5
+FAMILY_LOSS_RTOL = 1e-4  # GIN / CommNet kernel routes vs scatter, f32
 
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def check_close(name, got, want, tol) -> float:
+def check_close(name, got, want, tol, abs_sum=None) -> float:
     """Max abs error of got against want; raises where an element is off
-    by more than tol[0] * rms(want) + tol[1] * |want|."""
+    by more than tol[0] * rms(want) + tol[1] * |want|, plus
+    F32_SUM_TOL * abs_sum where ``abs_sum`` (the sum of the absolute
+    values of each output's terms) is given."""
     import torch
 
     got, want = got.detach().float(), want.detach().float()
@@ -91,7 +129,10 @@ def check_close(name, got, want, tol) -> float:
         return 0.0
     rms = float(want.pow(2).mean().sqrt())
     err = (got - want).abs()
-    bad = err > tol[0] * rms + tol[1] * want.abs()
+    limit = tol[0] * rms + tol[1] * want.abs()
+    if abs_sum is not None:
+        limit = limit + F32_SUM_TOL * abs_sum.detach().float()
+    bad = err > limit
     if bool(bad.any()):
         raise AssertionError(
             f"{name}: {int(bad.sum())} elements off, max abs err "
@@ -282,7 +323,7 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
         return GCNTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device=dev,
                                       host_graph=g)
 
-    results = {}
+    results = {"edges": (src, dst), "datum": datum}
     plain = trainer("plain", 1)
     plain_logits = plain.eval_logits()  # drop_rate 0: the first forward's logits
     plain.run()
@@ -350,42 +391,52 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
 
 
 def phase_cora_cli(dev) -> None:
+    """The Cora fixture through run.main on the card: GCN on the bsp route
+    and GAT on its ELL attention, each with its kernel's count set to 0
+    just before and read just after."""
     import torch
 
     from neutronstarlite_torch import run
     from neutronstarlite_torch.ops.bsp_ell import bsp_aggregate
+    from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
 
     fix = os.path.join(REPO, "tests", "fixtures", "cora")
-    lines = []
+    runs = (
+        ("GCNCPU", "PALLAS:1\n", bsp_aggregate, "bsp"),
+        ("GATCPU", "", ell_level_aggregate, "ell_level"),
+    )
+    for algorithm, extra, counter, kernel in runs:
+        lines = []
 
-    class Grab(logging.Handler):
-        def emit(self, record):
-            lines.append(record.getMessage())
+        class Grab(logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
 
-    grab = Grab()
-    logging.getLogger("nts_torch").addHandler(grab)
-    bsp_aggregate.launches = 0
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            cfg = os.path.join(tmp, "cora_bsp.cfg")
-            with open(cfg, "w") as fh:
-                fh.write(
-                    "ALGORITHM:GCNCPU\nVERTICES:2708\nLAYERS:1433-16-7\nEPOCHS:5\n"
-                    f"EDGE_FILE:{fix}/cora.2708.edge.self\n"
-                    f"LABEL_FILE:{fix}/cora.labeltable\nMASK_FILE:{fix}/cora.mask\n"
-                    "LEARN_RATE:0.01\nWEIGHT_DECAY:0.0001\nDECAY_EPOCH:-1\n"
-                    "DROP_RATE:0.5\nOPTIM_KERNEL:1\nPALLAS:1\n"
-                )
-            os.environ["NTS_PALLAS_RESIDENT"] = "0"
-            rc = run.main([cfg, "--device", dev.type])
-    finally:
-        logging.getLogger("nts_torch").removeHandler(grab)
-    torch.cuda.synchronize()
-    acc = [ln for ln in lines if ln.startswith("Train Acc:")]
-    if rc != 0 or not acc or bsp_aggregate.launches <= 0:
-        raise AssertionError(f"Cora CLI run: rc {rc}, {len(acc)} Train Acc lines, "
-                             f"{bsp_aggregate.launches} bsp launches")
-    log(f"Cora CLI on {dev}: rc 0, {acc[-1]}, {bsp_aggregate.launches} bsp launches")
+        grab = Grab()
+        logging.getLogger("nts_torch").addHandler(grab)
+        counter.launches = 0
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                cfg = os.path.join(tmp, "cora.cfg")
+                with open(cfg, "w") as fh:
+                    fh.write(
+                        f"ALGORITHM:{algorithm}\nVERTICES:2708\nLAYERS:1433-16-7\nEPOCHS:5\n"
+                        f"EDGE_FILE:{fix}/cora.2708.edge.self\n"
+                        f"LABEL_FILE:{fix}/cora.labeltable\nMASK_FILE:{fix}/cora.mask\n"
+                        "LEARN_RATE:0.01\nWEIGHT_DECAY:0.0001\nDECAY_EPOCH:-1\n"
+                        f"DROP_RATE:0.5\nOPTIM_KERNEL:1\n{extra}"
+                    )
+                os.environ["NTS_PALLAS_RESIDENT"] = "0"
+                rc = run.main([cfg, "--device", dev.type])
+        finally:
+            logging.getLogger("nts_torch").removeHandler(grab)
+        torch.cuda.synchronize()
+        launches = counter.launches
+        acc = [ln for ln in lines if ln.startswith("Train Acc:")]
+        if rc != 0 or not acc or launches <= 0:
+            raise AssertionError(f"Cora CLI {algorithm} run: rc {rc}, {len(acc)} Train Acc "
+                                 f"lines, {launches} {kernel} launches")
+        log(f"Cora CLI {algorithm} on {dev}: rc 0, {acc[-1]}, {launches} {kernel} launches")
 
 
 def phase_timing(dev, g, results, check_errs: dict, seed: int):
@@ -473,6 +524,395 @@ def phase_timing(dev, g, results, check_errs: dict, seed: int):
     return rows
 
 
+def gat_epoch_calls(tr):
+    """One GAT ELL epoch's four kernel calls on the trainer's own tables,
+    at its current parameters: (tables, f, x, runtime weights). Forward at
+    each layer's output width over the CSC tables with that layer's
+    alphas, backward over the CSR tables with the same alphas laid out
+    there (the gradients are random, of the right shape)."""
+    import torch
+
+    from neutronstarlite_torch.models.gat import LEAKY_SLOPE
+    from neutronstarlite_torch.ops.ell_gat import gat_ell_alpha, runtime_weighted_aggregate
+
+    gep = tr.compute_graph
+    gen = torch.Generator(device=tr.device).manual_seed(tr.seed + 5)
+    calls, x, layers = [], tr.feature, []
+    with torch.no_grad():
+        for i, layer in enumerate(tr.params):
+            h = x @ layer["W"]
+            f = h.shape[1]
+            al, ar = (h @ layer["a"][:f])[:, 0], (h @ layer["a"][f:])[:, 0]
+            alphas = gat_ell_alpha(gep, al, ar, LEAKY_SLOPE)
+            layers.append((f, h, al, ar, alphas))
+            out = runtime_weighted_aggregate(gep, alphas, h)
+            x = out if i == len(tr.params) - 1 else torch.relu(out)
+    for f, h, _, _, alphas in layers:
+        calls.append(("fwd", f, h, alphas))
+    for f, h, _, _, alphas in reversed(layers):
+        g = torch.randn(h.shape, generator=gen, device=h.device)
+        calls.append(("bwd", f, g, gep.transpose_alphas(alphas)))
+    return calls, layers
+
+
+def gat_sparse(g, gep, alphas, direction: str):
+    """torch.sparse CSR of the alphas over the graph's edges: A[dst, src]
+    (fwd) or its transpose (bwd), the values taken from the forward slots
+    of each edge."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch.ops.ell_gat import _edge_flat_slots
+
+    dev = gep.fwd_row_vertex.device
+    flat = torch.cat([a.reshape(-1) for a in alphas])
+    if direction == "fwd":
+        slots = torch.from_numpy(_edge_flat_slots(
+            g.column_offset, g.dst_of_edge.astype(np.int64), gep.pair.fwd)).to(dev)
+        ptr, idx = g.column_offset, g.row_indices
+    else:
+        bwd_slots = torch.from_numpy(_edge_flat_slots(
+            g.row_offset, g.src_of_edge.astype(np.int64), gep.pair.bwd)).to(dev)
+        slots = gep.bwd_idx_flat[bwd_slots].long()
+        ptr, idx = g.row_offset, g.column_indices
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(ptr).to(dev), torch.from_numpy(idx.astype(np.int64)).to(dev),
+        flat[slots], size=(g.v_num, g.v_num),
+    )
+
+
+def profile_step(step, top: int = 8) -> dict:
+    """One call of ``step`` (a training epoch) under torch.profiler: the
+    host wall time around it (ended by a synchronise), the device's busy
+    time (the union of its kernels' intervals) and idle share, the device
+    time of the ELL kernel and of the GEMM kernels, and the ``top``
+    kernels by device time. Empty when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a kernel of its own opens the trace: without it the step's first
+        # kernel was at times missing from the trace
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # the union of the kernels' intervals, in us
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    total = sum(by_name.values())
+    host = sorted(((a.key, a.self_cpu_time_total) for a in prof.key_averages()),
+                  key=lambda kv: -kv[1])[:top]
+    ell = sum(t for n, t in by_name.items() if "ell_work_kernel" in n or "ell_split_reduce" in n)
+    gemm = sum(t for n, t in by_name.items() if "gemm" in n.lower() or "cutlass" in n.lower())
+    return {
+        "wall_ms": wall_ms, "busy_ms": busy / 1e3, "kernel_ms": total / 1e3,
+        "idle_share": max(0.0, 1.0 - busy / 1e3 / wall_ms), "ell_ms": ell / 1e3,
+        "gemm_ms": gemm / 1e3, "kernels": len(kernels),
+        "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top], "host": host,
+    }
+
+
+def profile_text(p: dict) -> str:
+    if not p:
+        return "device time not measured (the trace holds no device events)"
+    top = "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in p["top"])
+    host = "; ".join(f"{n[:40]} {t / 1e3:.3f} ms" for n, t in p["host"])
+    return (f"host wall {p['wall_ms']:.3f} ms, device busy {p['busy_ms']:.3f} ms (idle share "
+            f"{p['idle_share']:.3f}), {p['kernels']} kernels summing {p['kernel_ms']:.3f} ms: "
+            f"ell_level {p['ell_ms']:.3f}, GEMM {p['gemm_ms']:.3f}, the rest "
+            f"{p['kernel_ms'] - p['ell_ms'] - p['gemm_ms']:.3f}; top kernels: {top}; top host "
+            f"ops by self CPU time: {host}")
+
+
+def phase_gat(dev, epochs: int, seed: int, results, failures):
+    """GAT 602-128-41 f32 with drop_rate 0 on a unit-weight build of the
+    main path's edges: one epoch on the edge chain, --epochs on the ELL
+    attention (OPTIM_KERNEL:1) from the same parameters; the ELL route's
+    first logits and first-epoch loss against the chain's. Then, on the
+    ELL trainer's own tables, each of an epoch's four runtime-weight
+    kernel calls against its plain version, timed beside the plain
+    version, one torch.sparse.mm with the alpha values and the bound; and
+    the plain grad_alpha passes and the row softmax of an epoch."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch.graph.storage import build_graph
+    from neutronstarlite_torch.models.gat import GATTrainer, LEAKY_SLOPE
+    from neutronstarlite_torch.ops.bsp_ell import bsp_aggregate
+    from neutronstarlite_torch.ops.ell import ell_tables_aggregate
+    from neutronstarlite_torch.ops.ell_gat import gat_ell_alpha
+    from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    src, dst = results["edges"]
+    datum = results["datum"]
+    v = datum.feature.shape[0]
+    t0 = time.perf_counter()
+    g1 = build_graph(src, dst, v, weight="ones")
+    log(f"GAT graph (unit weights) V={v} E={g1.e_num}: host build "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def trainer(route: str, n_epochs: int):
+        cfg = InputInfo(
+            algorithm="GAT", vertices=v, layer_string="602-128-41", epochs=n_epochs,
+            drop_rate=0.0, learn_rate=0.01, weight_decay=1e-4, decay_rate=0.97,
+            decay_epoch=100, optim_kernel=route == "ell",
+        )
+        return GATTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device=dev,
+                                      host_graph=g1)
+
+    chain = trainer("chain", 1)
+    chain_logits = chain.eval_logits()  # drop_rate 0: the first forward's logits
+    params = [{k: t.detach().clone() for k, t in layer.items()} for layer in chain.params]
+    torch.cuda.reset_peak_memory_stats()
+    chain.run()
+    chain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref = chain.loss_history[0]
+    log(f"GAT edge chain: epoch-0 loss {ref:.6f} ({chain.epoch_times[0]:.3f} s, peak "
+        f"device memory {chain_peak:.2f} GiB)")
+    del chain
+    tr = trainer("ell", epochs)
+    tr.load_params(params)
+    try:
+        row = max(1.0, float(g1.in_degree.max()) / GAT_ROW)
+        logits_err = check_close("GAT ELL first logits", tr.eval_logits(), chain_logits,
+                                 (GAT_LOGITS_TOL[0] * row, GAT_LOGITS_TOL[1]))
+    except AssertionError as exc:
+        failures.append(str(exc))
+        log(f"FAILED {exc}")
+        logits_err = float("nan")
+    rms = float(chain_logits.pow(2).mean().sqrt())
+    del chain_logits
+    torch.cuda.reset_peak_memory_stats()
+    ell_level_aggregate.launches = bsp_aggregate.launches = 0
+    tr.run()
+    torch.cuda.synchronize()
+    launches, stray = ell_level_aggregate.launches, bsp_aggregate.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ell_level_aggregate.launches = 0
+    tr.train_step()
+    torch.cuda.synchronize()
+    per_epoch = ell_level_aggregate.launches
+    losses = tr.loss_history
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"GAT ELL: non-finite loss {losses}")
+    if launches <= 0 or stray:
+        raise AssertionError(f"GAT ELL: {launches} ell_level launches, {stray} bsp launches")
+    if per_epoch > 8:
+        raise AssertionError(f"GAT ELL: {per_epoch} ell_level launches per epoch (> 8)")
+    if abs(losses[0] - ref) > GAT_LOSS_RTOL * abs(ref):
+        failures.append(f"GAT ELL: epoch-0 loss {losses[0]} vs edge chain {ref}")
+        log(f"FAILED {failures[-1]}")
+    log(f"GAT ELL: first logits max abs err {logits_err:.3e} against the edge chain's "
+        f"(their rms {rms:.3e}); epoch-0 loss {losses[0]:.6f} vs chain {ref:.6f} (rel "
+        f"{abs(losses[0] - ref) / abs(ref):.2e})")
+    log(f"GAT ELL: losses {[round(x, 6) for x in losses]}; {launches} ell_level launches "
+        f"in {epochs} epochs + eval, {per_epoch} per training epoch; epochs (s) "
+        f"{[round(t, 4) for t in tr.epoch_times]}; host table build "
+        f"{tr.phase_times.get('build_model', 0.0):.1f} s; peak device memory {peak:.2f} GiB")
+
+    # the runtime-weight kernel on the trainer's own tables
+    gep = tr.compute_graph
+    calls, layers = gat_epoch_calls(tr)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "bytes_ms": 0.0, "ops_ms": 0.0}
+    err = 0.0
+    for direction, f, x, w in calls:
+        tables = getattr(gep.pair, direction)
+        got = ell_level_aggregate(tables, x, w)
+        want = ell_tables_aggregate(x, tables.nbr, w)[tables.inv_perm]
+        abs_sum = ell_tables_aggregate(x.abs(), tables.nbr, w)[tables.inv_perm]
+        e = check_close(f"GAT ell_level {direction} f={f}", got, want, F32_TOL, abs_sum)
+        del abs_sum
+        err = max(err, e)
+        ms = cuda_ms(lambda: ell_level_aggregate(tables, x, w))
+        plain_ms = cuda_ms(lambda: ell_tables_aggregate(x, tables.nbr, w)[tables.inv_perm],
+                           n=3, warmup=1)
+        layer_alphas = next(a for lf, _, _, _, a in layers if lf == f)
+        a = gat_sparse(g1, gep, layer_alphas, direction)
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(a, x))
+        lib_dev = float((torch.sparse.mm(a, x) - got).abs().max())
+        del a
+        t_bytes, t_ops = bound_ms(g1, f, 4)
+        for k, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bound_ms", max(t_bytes, t_ops)), ("bytes_ms", t_bytes),
+                       ("ops_ms", t_ops)):
+            tot[k] += val
+        log(f"GAT ell_level {direction} f={f} f32 runtime weights launch: "
+            f"{ell_geometry_text(ell_geometry(tables, f, x.dtype))}")
+        log(f"GAT ell_level {direction} tables V={v} E={g1.e_num} f={f} f32: max abs err "
+            f"{e:.3e} against the plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.sparse.mm {lib_ms:.4f} ms (max abs deviation from the kernel "
+            f"{lib_dev:.3e}), bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
+            f"f32 ops {t_ops:.4f})")
+    # the plain pieces of a GAT epoch: grad_alpha at both layers, and the
+    # row softmax (forward and backward) at both layers
+    gens = torch.Generator(device=dev).manual_seed(seed + 6)
+    grads = [torch.randn(h.shape, generator=gens, device=dev) for _, h, _, _, _ in layers]
+    grad_alpha_ms = sum(
+        cuda_ms(lambda: gep.grad_alphas(gr, h), n=3, warmup=1)
+        for gr, (_, h, _, _, _) in zip(grads, layers)
+    )
+
+    def softmax_pass(al, ar):
+        al, ar = al.detach().requires_grad_(True), ar.detach().requires_grad_(True)
+        alphas = gat_ell_alpha(gep, al, ar, LEAKY_SLOPE)
+        torch.autograd.backward(alphas, [torch.ones_like(a) for a in alphas])
+
+    softmax_ms = sum(cuda_ms(lambda: softmax_pass(al, ar), n=3, warmup=1)
+                     for _, _, al, ar, _ in layers)
+    log(f"GAT ELL training epoch under torch.profiler: {profile_text(profile_step(tr.train_step))}")
+    epoch_ms = 1e3 * float(np.mean(tr.epoch_times[1:] or tr.epoch_times))
+    log(f"timing GAT ELL epoch ({epoch_ms:.3f} ms, host clock around the synchronised "
+        f"step): ell_level runtime-weight calls {[(d, f) for d, f, _, _ in calls]} "
+        f"{tot['ms']:.4f} ms (plain {tot['plain_ms']:.4f}, torch.sparse.mm "
+        f"{tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}: bytes {tot['bytes_ms']:.4f}, "
+        f"f32 ops {tot['ops_ms']:.4f}); plain grad_alpha, both layers {grad_alpha_ms:.4f} ms; "
+        f"row softmax forward+backward, both layers {softmax_ms:.4f} ms; launches per epoch "
+        f"{per_epoch}")
+    row = {
+        "name": "ell_level_gat", "route": "cuda",
+        "source": "neutronstarlite_torch/csrc/ell_level.cu",
+        "replaces": "neutronstarlite_tpu/ops/pallas_kernels.py:91",
+        "launches": launches, "max_abs_err": err, "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+        "library_ms": tot["library_ms"],
+    }
+    del tr, gep, calls, layers, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_gin_commnet(dev, g, epochs: int, seed: int, results, failures) -> None:
+    """GIN and CommNet 602-128-41 f32, drop_rate 0, from one seed: one epoch
+    on the scatter route, then --epochs on the ELL and bsp routes; each
+    kernel route's first-epoch loss against the scatter route's (a
+    relative tolerance: f32, and the bsp kernel's atomics add in a varying
+    order)."""
+    import torch
+
+    from neutronstarlite_torch.models.commnet import CommNetTrainer
+    from neutronstarlite_torch.models.gin import GINTrainer
+    from neutronstarlite_torch.ops.bsp_ell import bsp_aggregate
+    from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    src, dst = results["edges"]
+    datum = results["datum"]
+    v = g.v_num
+    counters = {"bsp": bsp_aggregate, "ell": ell_level_aggregate}
+    for name, cls in (("GIN", GINTrainer), ("COMMNET", CommNetTrainer)):
+        ref = None
+        for route, n_epochs in (("scatter", 1), ("ell", epochs), ("bsp", epochs)):
+            cfg = InputInfo(
+                algorithm=name, vertices=v, layer_string="602-128-41", epochs=n_epochs,
+                drop_rate=0.0, learn_rate=0.01, weight_decay=1e-4, decay_rate=0.97,
+                decay_epoch=100, optim_kernel=route != "scatter",
+                pallas_kernel=route == "bsp",
+            )
+            os.environ["NTS_PALLAS_RESIDENT"] = "0"
+            tr = cls.from_arrays(cfg, src, dst, datum, seed=seed, device=dev, host_graph=g)
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            tr.run()
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            per_epoch, steady = 0, []
+            if route != "scatter":
+                counters[route].launches = 0
+                for i in range(3):  # steady epochs, host clock around a synchronised step
+                    t0 = time.perf_counter()
+                    tr.train_step()
+                    torch.cuda.synchronize()
+                    steady.append(time.perf_counter() - t0)
+                    if i == 0:
+                        per_epoch = counters[route].launches
+                log(f"{name} {route} training epoch under torch.profiler: "
+                    f"{profile_text(profile_step(tr.train_step))}")
+            losses = tr.loss_history
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"{name} {route}: non-finite loss {losses}")
+            if route == "scatter":
+                ref = losses[0]
+                if any(launches.values()):
+                    raise AssertionError(f"{name} scatter launched a kernel: {launches}")
+            else:
+                other = "ell" if route == "bsp" else "bsp"
+                if launches[route] <= 0 or launches[other]:
+                    raise AssertionError(f"{name} {route}: launches {launches}")
+                if abs(losses[0] - ref) > FAMILY_LOSS_RTOL * abs(ref):
+                    failures.append(f"{name} {route}: epoch-0 loss {losses[0]} vs scatter {ref}")
+                    log(f"FAILED {failures[-1]}")
+            log(f"{name} {route}: losses {[round(x, 6) for x in losses]} (scatter epoch-0 "
+                f"{ref:.6f}); {launches.get(route, 0)} launches, {per_epoch} per training "
+                f"epoch; epochs (s) {[round(t, 4) for t in tr.epoch_times]}, then "
+                f"{[round(t, 4) for t in steady]}; host table build "
+                f"{tr.phase_times.get('build_model', 0.0):.1f} s; peak device memory "
+                f"{peak:.2f} GiB")
+            del tr
+            torch.cuda.empty_cache()
+
+
+def phase_ggcn(dev, scale: float, seed: int) -> None:
+    """GGCN 602-128-41 f32 on its edge chain, 2 epochs, at a fifth of the
+    main path's scale: its [E, 128] f32 edge tensors (5.9 GB each at 0.1 of
+    Reddit) are kept several times over by autograd."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch.graph.dataset import GNNDatum
+    from neutronstarlite_torch.graph.synthetic import reddit_scaled, synthetic_power_law_graph
+    from neutronstarlite_torch.models.ggcn import GGCNTrainer
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    v, e = reddit_scaled(scale * 0.2)
+    src, dst = synthetic_power_law_graph(v, e, seed=seed + 11)
+    rng = np.random.default_rng(seed + 11)
+    datum = GNNDatum(
+        feature=rng.standard_normal((v, 602), dtype=np.float32) * 0.1,
+        label=rng.integers(0, 41, size=v, dtype=np.int32),
+        mask=(np.arange(v) % 3).astype(np.int32),
+    )
+    cfg = InputInfo(
+        algorithm="GGCN", vertices=v, layer_string="602-128-41", epochs=2, drop_rate=0.0,
+        learn_rate=0.01, weight_decay=1e-4, decay_rate=0.97, decay_epoch=100,
+    )
+    tr = GGCNTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    out = tr.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    logits = tr.eval_logits()
+    if tuple(logits.shape) != (v, 41) or not torch.isfinite(logits).all():
+        raise AssertionError(f"GGCN: logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    if not all(math.isfinite(x) for x in tr.loss_history):
+        raise AssertionError(f"GGCN: non-finite loss {tr.loss_history}")
+    log(f"GGCN edge chain V={v} E={tr.host_graph.e_num}: losses "
+        f"{[round(x, 6) for x in tr.loss_history]}, train acc {out['acc']['train']:.4f}; "
+        f"epochs (s) {[round(t, 4) for t in tr.epoch_times]}; peak device memory "
+        f"{peak:.2f} GiB")
+    del tr, logits
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1, help="fraction of Reddit's V and E")
@@ -506,6 +946,13 @@ def main(argv=None) -> int:
     g, results = phase_main_path(dev, args.scale, args.epochs, args.seed)
     phase_cora_cli(dev)
     rows = phase_timing(dev, g, results, check_errs, args.seed)
+    for route in ("bsp", "ell"):  # free the GCN trainers' tables
+        results[route].pop("trainer")
+    torch.cuda.empty_cache()
+    rows.append(phase_gat(dev, args.epochs, args.seed, results,
+                          results["failures"]))
+    phase_gin_commnet(dev, g, 2, args.seed, results, results["failures"])
+    phase_ggcn(dev, args.scale, args.seed)
     if results["failures"]:
         for msg in results["failures"]:
             log(f"FAILED {msg}")

@@ -6,8 +6,8 @@ kernels are hand-written CUDA C++ for Hopper (``csrc/``). It imports
 neither jax nor anything of the JAX package: what it needs from that
 package's host modules it keeps as its own copy.
 
-Slice 1 covers full-batch GCN training on one device (``GCNCPU``/``GCN``
-and the transform-first ``GCNCPUEAGER``):
+It trains the single-device full-batch families: GCN (both orders), GAT,
+GIN, CommNet and GGCN:
 
     python -m neutronstarlite_torch.run <file.cfg> [--device cpu|cuda]
 """

@@ -1,6 +1,7 @@
 """Toolkit lifecycle — port of ``neutronstarlite_tpu/models/base.py``.
 
-``init_graph`` (edge list -> dual CSC/CSR with the GCN weights), ``init_nn``
+``init_graph`` (edge list -> dual CSC/CSR with the trainer's edge weights,
+``weight_mode``: the GCN norm, or ones where attention supplies them), ``init_nn``
 (features, labels, masks -> device, then ``build_model``), ``from_arrays``
 (the same from in-memory arrays: tests and the chip smoke), the masked NLL
 loss, per-split accuracy and the report lines. Trainers are registered by

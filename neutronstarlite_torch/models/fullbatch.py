@@ -12,6 +12,12 @@ Aggregation routes (``build_model``):
   and PALLAS+RESIDENT through the Pallas kernel; both compute the same
   function, which the port runs through its one hand-written kernel.
 
+The kernel routes are taken only by trainers that declare
+``supports_optim_kernel`` (GCN, GIN, CommNet, GAT); GAT wraps the ELL
+tables as ``ops.ell_gat.GatEllPair`` (``adapt_ell_graph``) and refuses the
+bsp tables. GGCN keeps the edge arrays on every route. ``PRECISION`` is
+read by the GCN family alone; the others log a warning and run f32.
+
 The step is forward -> masked NLL -> ``backward()`` -> ``adam_update`` (in
 place). Each epoch's loss and the training forward's logits come from
 before the update, as in JAX; the cadence accuracy lines use those
@@ -37,11 +43,19 @@ from neutronstarlite_torch.utils.logging import get_logger
 log = get_logger("fullbatch")
 
 
+# every family's parameter names, in the order their tensors are flattened
+PARAM_NAMES = ("W", "a", "W1", "W2", "C", "H", "Ws", "Wd")
+
+
 def param_leaves(params: List[Dict[str, Any]]) -> List[torch.Tensor]:
-    """Flat list of parameter tensors, layer by layer: W, then bn gamma, beta."""
+    """Flat list of parameter tensors, layer by layer: the named matrices in
+    ``PARAM_NAMES`` order, then bn gamma, beta."""
+    unknown = {k for layer in params for k in layer} - set(PARAM_NAMES) - {"bn"}
+    if unknown:
+        raise ValueError(f"unknown parameter names {sorted(unknown)}")
     out = []
     for layer in params:
-        out.append(layer["W"])
+        out += [layer[k] for k in PARAM_NAMES if k in layer]
         if "bn" in layer:
             out += [layer["bn"]["gamma"], layer["bn"]["beta"]]
     return out
@@ -50,34 +64,53 @@ def param_leaves(params: List[Dict[str, Any]]) -> List[torch.Tensor]:
 class FullBatchTrainer(ToolkitBase):
     """Template for single-device full-batch models."""
 
+    # models whose only graph op is the weighted aggregation run it through
+    # the kernel tables under OPTIM_KERNEL:1; GAT runs its attention over
+    # the ELL tables (adapt_ell_graph); the others (GGCN) keep the edge
+    # arrays whatever OPTIM_KERNEL says
+    supports_optim_kernel = False
+    # trainers whose forward consumes PRECISION (the GCN family); the others
+    # warn and run f32, as in JAX
+    supports_precision = False
+
     def init_params(self, generator: torch.Generator):
         raise NotImplementedError
 
     def model_forward(self, params, graph, x: torch.Tensor, train: bool) -> torch.Tensor:
         raise NotImplementedError
 
+    def adapt_ell_graph(self, compute_graph):
+        """Hook: wrap or replace the OPTIM_KERNEL tables with the trainer's
+        own (GAT adds its attention slot maps)."""
+        return compute_graph
+
     def build_compute_graph(self):
         cfg, g, dev = self.cfg, self.host_graph, self.device
         resident = os.environ.get("NTS_PALLAS_RESIDENT", "0") == "1"
         check_supported(cfg, resident)
-        if cfg.optim_kernel and cfg.pallas_kernel and not resident:
+        if not (cfg.optim_kernel and type(self).supports_optim_kernel):
+            return ScatterGraph.from_host(g, device=dev)
+        if cfg.pallas_kernel and not resident:
             pair = BspEllPair.from_host(g, vt=cfg.kernel_tile or DEFAULT_VT, device=dev)
             log.info(
                 "OPTIM_KERNEL: block-sparse aggregation kernel (%d fwd blocks, "
                 "dt=%d vt=%d)", pair.fwd.nbr.shape[0], pair.fwd.dt, pair.fwd.vt,
             )
-            return pair
-        if cfg.optim_kernel:
+        else:
             pair = EllPair.from_host(g, device=dev)
             log.info(
                 "OPTIM_KERNEL: ELL-level aggregation kernel (%d fwd buckets)",
                 len(pair.fwd.nbr),
             )
-            return pair
-        return ScatterGraph.from_host(g, device=dev)
+        return self.adapt_ell_graph(pair)
 
     def build_model(self) -> None:
         cfg = self.cfg
+        if cfg.precision == "bfloat16" and not type(self).supports_precision:
+            log.warning(
+                "PRECISION:bfloat16 is not implemented for the single-chip %s "
+                "trainer; running f32", cfg.algorithm,
+            )
         # full-float32 matmuls on the card (TF32 keeps ~3 decimal digits)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -91,6 +91,8 @@ def gcn_forward(
 @register_algorithm(*GCN_ALGORITHMS)
 class GCNTrainer(FullBatchTrainer):
     eager = False
+    supports_optim_kernel = True
+    supports_precision = True  # gcn_forward consumes cfg.precision
 
     def init_params(self, generator: torch.Generator):
         return init_gcn_params(self.cfg.layer_sizes(), generator)

@@ -12,6 +12,15 @@ On a CPU tensor it takes the plain version ``EllBuckets.plain``
 other. ``EllAggregate`` pairs the forward over the CSC tables with the
 backward over the CSR tables.
 
+Runtime weights (GAT's attention): ``ell_level_aggregate(buckets, x,
+weights)`` reads per-level weights computed at run time instead of the
+tables' own. The work list depends only on the rows' degrees and f, so it
+is reused as it is; only the [levels, 3] pointer array is made afresh for
+the call (``runtime_levels``), and the cached one stays the tables'.
+``EllWeightedAggregate`` is the autograd pairing for that case: the
+caller supplies the weights' layout over the backward tables and the
+weights' gradient.
+
 Not ported, because they exist only for Mosaic's compile count and VMEM:
 ``merge_low_k_levels``/``effective_min_k``, ``MAX_PALLAS_K`` (the JAX
 executor sends K > 1024 levels to XLA) and the feature-column chunking.
@@ -22,13 +31,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from neutronstarlite_torch.ops import _build
-from neutronstarlite_torch.ops.ell import EllBuckets
+from neutronstarlite_torch.ops.ell import EllBuckets, ell_tables_aggregate
 
 _MAX_CTAS = 2 ** 31 - 1  # CUDA's limit on gridDim.x
 
@@ -162,7 +171,7 @@ def work_list(buckets: EllBuckets, f: int) -> EllWork:
     return work
 
 
-def _check_inputs(buckets: EllBuckets, x: torch.Tensor) -> None:
+def _check_inputs(buckets: EllBuckets, x: torch.Tensor, weights) -> None:
     if x.dim() != 2 or x.shape[0] != buckets.v_num:
         raise ValueError(f"x must be [{buckets.v_num}, f], got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -175,15 +184,45 @@ def _check_inputs(buckets: EllBuckets, x: torch.Tensor) -> None:
                 raise ValueError(
                     "ELL tables must be contiguous int32/float32/int32 on x's device"
                 )
+    if weights is None:
+        return
+    if len(weights) != len(buckets.nbr):
+        raise ValueError(f"{len(weights)} weight levels for {len(buckets.nbr)} table levels")
+    for nbr, w in zip(buckets.nbr, weights):
+        if (w.shape != nbr.shape or w.dtype != torch.float32 or w.device != x.device
+                or not w.is_contiguous()):
+            raise ValueError(
+                "runtime weights must be contiguous float32 on x's device, one "
+                "level per table level and of its shape"
+            )
 
 
-def ell_level_aggregate(buckets: EllBuckets, x: torch.Tensor) -> torch.Tensor:
-    """[V, f] -> [V, f]: out[v] = sum over v's table row of w * x[nbr]."""
+def runtime_levels(buckets: EllBuckets, weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """[n_levels, 3] int64 (nbr base pointer, weight base pointer, K) on the
+    tables' device, the weights taken from ``weights`` instead of the
+    tables: the cached ``EllWork.levels`` is left as it is. Copied from
+    pinned memory without blocking the host; the caching allocators keep
+    the source and the weights' memory until the stream has used them."""
+    rows = [[n.data_ptr(), w.data_ptr(), n.shape[1]] for n, w in zip(buckets.nbr, weights)]
+    host = torch.tensor(rows, dtype=torch.int64).pin_memory()
+    return host.to(buckets.inv_perm.device, non_blocking=True)
+
+
+def ell_level_aggregate(
+    buckets: EllBuckets, x: torch.Tensor, weights: Optional[Sequence[torch.Tensor]] = None
+) -> torch.Tensor:
+    """[V, f] -> [V, f]: out[v] = sum over v's table row of w * x[nbr].
+
+    ``weights``: per-level weights computed at run time (same shapes as
+    ``buckets.wgt``, float32, contiguous, on x's device) in place of the
+    tables' own; only the live slots ``[:deg]`` of a row are read."""
     if x.device.type == "cpu":
-        return buckets.plain(x)
+        if weights is None:
+            return buckets.plain(x)
+        return ell_tables_aggregate(x, buckets.nbr, list(weights))[buckets.inv_perm]
     if x.device.type != "cuda":
         raise ValueError(f"ell_level runs on cuda or cpu tensors, got {x.device}")
-    _check_inputs(buckets, x)
+    _check_inputs(buckets, x, weights)
     lib = _build.load("ell_level")
     v_num, f = x.shape
     if f == 0:
@@ -194,6 +233,7 @@ def ell_level_aggregate(buckets: EllBuckets, x: torch.Tensor) -> torch.Tensor:
     )
     if not work.n_items:
         return out
+    levels = work.levels if weights is None else runtime_levels(buckets, weights)
     ctas = -(-work.n_items * -(-f // _build.kernel_cols("ell_level"))
              // geometry().warps_per_cta)
     if ctas > _MAX_CTAS:
@@ -201,7 +241,7 @@ def ell_level_aggregate(buckets: EllBuckets, x: torch.Tensor) -> torch.Tensor:
     scratch = (torch.empty(work.n_pieces * f, dtype=torch.float32, device=x.device)
                if work.n_split else None)
     err = lib.nts_ell_level(
-        work.levels.data_ptr(), work.items.data_ptr(), work.n_items,
+        levels.data_ptr(), work.items.data_ptr(), work.n_items,
         work.split_ptr.data_ptr(), work.split_out.data_ptr(), work.n_split,
         x.data_ptr(), out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
         f, int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
@@ -227,3 +267,31 @@ class EllAggregate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ell_level_aggregate(ctx.bwd, g.contiguous()), None, None
+
+
+class EllWeightedAggregate(torch.autograd.Function):
+    """Aggregation over ``fwd`` tables with runtime weights, differentiable
+    in x and in the weights. The caller supplies the backward's two halves:
+    ``transpose(weights)`` gives the same weights laid out over the ``bwd``
+    tables (x's gradient is the kernel over them), and
+    ``weight_grad(g, x)`` gives the weights' gradient, one tensor per level.
+
+    ``EllWeightedAggregate.apply(x, fwd, bwd, transpose, weight_grad, *weights)``"""
+
+    @staticmethod
+    def forward(ctx, x, fwd: EllBuckets, bwd: EllBuckets, transpose: Callable,
+                weight_grad: Callable, *weights):
+        x = x.contiguous()
+        ctx.bwd, ctx.transpose, ctx.weight_grad = bwd, transpose, weight_grad
+        ctx.save_for_backward(x, *weights)
+        return ell_level_aggregate(fwd, x, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *weights = ctx.saved_tensors
+        g = g.contiguous()
+        gx = (ell_level_aggregate(ctx.bwd, g, ctx.transpose(weights))
+              if ctx.needs_input_grad[0] else None)
+        gw = (ctx.weight_grad(g, x) if any(ctx.needs_input_grad[5:])
+              else [None] * len(weights))
+        return (gx, None, None, None, None, *gw)

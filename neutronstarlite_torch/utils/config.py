@@ -7,7 +7,9 @@ key and every ALGORITHM the port does not implement yet with a one-line
 ``ValueError``: a knob that would be silently ignored lets a user benchmark
 a path that never runs.
 
-Slice 1 honours the full-batch GCN keys. ``PROC_CUDA`` and ``LOCK_FREE`` are
+The port honours the single-device full-batch keys (GCN, GAT, GIN,
+CommNet, GGCN). ``KERNEL`` is accepted empty (the edge chain); its
+``fused_edge`` kernel belongs to a later slice of the port and is refused. ``PROC_CUDA`` and ``LOCK_FREE`` are
 reference compatibility flags that the single-device trainer has no use for
 (the JAX trainer ignores them too; the port's device comes from
 ``--device``); ``PROC_OVERLAP``, ``PROC_LOCAL``, ``PROC_REP`` and
@@ -21,10 +23,18 @@ import dataclasses
 import os
 from typing import List, Optional
 
-# ALGORITHM strings of slice 1 (models/gcn.py registers the same names)
+# ALGORITHM strings of the single-device full-batch trainers (models/
+# registers the same names)
 GCN_ALGORITHMS = ("GCNCPU", "GCN", "GCNTPU")
 GCN_EAGER_ALGORITHMS = ("GCNCPUEAGER", "GCNEAGER", "GCNEAGERSINGLE", "GCN_CPU_EAGER")
-SUPPORTED_ALGORITHMS = GCN_ALGORITHMS + GCN_EAGER_ALGORITHMS
+GAT_ALGORITHMS = ("GATCPU", "GAT", "GATSINGLE")
+GIN_ALGORITHMS = ("GINCPU", "GINGPU", "GIN")
+COMMNET_ALGORITHMS = ("COMMNETGPU", "COMMNETCPU", "COMMNET")
+GGCN_ALGORITHMS = ("GGCNCPU", "GGCN", "GGNN")
+SUPPORTED_ALGORITHMS = (
+    GCN_ALGORITHMS + GCN_EAGER_ALGORITHMS + GAT_ALGORITHMS + GIN_ALGORITHMS
+    + COMMNET_ALGORITHMS + GGCN_ALGORITHMS
+)
 
 _INT_KEYS = {
     "VERTICES": "vertices",
@@ -85,6 +95,7 @@ class InputInfo:
     kernel_tile: int = 0  # PALLAS:1 -> the bsp kernel's source-tile height
     precision: str = "float32"  # or "bfloat16"
     sublinear: bool = False  # activation recomputation (torch.utils.checkpoint)
+    kernel: str = ""  # KERNEL: "" (the edge chain); fused_edge is not ported
 
     @staticmethod
     def read_from_cfg_file(path: str) -> "InputInfo":
@@ -114,6 +125,9 @@ class InputInfo:
             setattr(self, _BOOL_KEYS[key], bool(int(value)))
         elif key in _STR_KEYS:
             setattr(self, _STR_KEYS[key], value)
+        elif key == "KERNEL":
+            self.kernel = value.strip().lower()
+            _check_kernel(self.kernel)
         elif key == "PRECISION":
             if value not in ("float32", "bfloat16"):
                 raise ValueError(
@@ -166,6 +180,18 @@ class InputInfo:
         return "\n".join(lines)
 
 
+def _check_kernel(value: str) -> None:
+    if value == "fused_edge":
+        raise ValueError(
+            "KERNEL:fused_edge (the blocked streaming SDDMM+softmax+SpMM "
+            "kernel) is not ported yet: it comes with the blocked ELL route "
+            "in a later slice of the torch port; drop KERNEL to run the "
+            "edge chain, or OPTIM_KERNEL:1 for GAT's ELL attention"
+        )
+    if value:
+        raise ValueError(f"KERNEL must be empty for the torch port, got {value!r}")
+
+
 def check_supported(cfg: InputInfo, resident: bool) -> None:
     """Cross-key refusals at the trainer's lifecycle funnel (cfgs built in
     code skip the file parser, so the per-key checks repeat here).
@@ -180,6 +206,7 @@ def check_supported(cfg: InputInfo, resident: bool) -> None:
         raise ValueError(
             f"PRECISION must be float32 or bfloat16, got {cfg.precision!r}"
         )
+    _check_kernel(cfg.kernel)
     if cfg.pallas_kernel and not cfg.optim_kernel:
         raise ValueError(
             "PALLAS:1 requires OPTIM_KERNEL:1 (the kernels are layouts of the "

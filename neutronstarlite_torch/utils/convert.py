@@ -1,13 +1,17 @@
-"""Carry GCN parameters across from the JAX package.
+"""Carry parameters across from the JAX package.
 
-``gcn_params_from_jax(params, trainer)`` takes the JAX trainer's parameter
-pytree as numpy arrays — ``[{"W": [in, out], "bn": {"gamma", "beta"}}, ...]``
-(``jax.tree.map(np.asarray, trainer.params)``) — and returns the port's
-parameters. W keeps the JAX ``[in, out]`` layout (the port computes
-``h @ W`` too), so the conversion is by name, with no transpose. Given a
-trainer, it also writes them into it (``FullBatchTrainer.load_params``).
-The parity tests start both packages from the same initial parameters
-this way, since torch cannot reproduce JAX's random draws.
+``params_from_jax(params, trainer)`` takes a JAX full-batch trainer's
+parameter pytree as numpy arrays (``jax.tree.map(np.asarray,
+trainer.params)``): a list of per-layer dicts whose names are those of
+every family (GCN ``W`` + ``bn``; GAT ``W``, ``a``; GIN ``W1``, ``W2``,
+``bn``; CommNet ``C``, ``H``; GGCN ``W``, ``Ws``, ``Wd``), bn being
+``{"gamma", "beta"}``. It returns the port's parameters, converted by
+name with no transpose: the port computes ``h @ W`` in the JAX layout
+too. Given a trainer, it also writes them into it
+(``FullBatchTrainer.load_params``). The parity tests start both packages
+from the same initial parameters this way, since torch cannot reproduce
+JAX's random draws. ``gcn_params_from_jax`` is the same function under
+its first name.
 """
 
 from __future__ import annotations
@@ -22,13 +26,16 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def gcn_params_from_jax(params, trainer=None) -> List[Dict[str, Any]]:
+def params_from_jax(params, trainer=None) -> List[Dict[str, Any]]:
     out = []
     for layer in params:
-        new: Dict[str, Any] = {"W": _t(layer["W"])}
-        if "bn" in layer:
-            new["bn"] = {"gamma": _t(layer["bn"]["gamma"]), "beta": _t(layer["bn"]["beta"])}
-        out.append(new)
+        out.append({
+            k: ({n: _t(t) for n, t in v.items()} if isinstance(v, dict) else _t(v))
+            for k, v in layer.items()
+        })
     if trainer is not None:
         trainer.load_params(out)
     return out
+
+
+gcn_params_from_jax = params_from_jax

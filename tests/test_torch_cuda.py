@@ -10,7 +10,10 @@ package, so it also runs where only PyTorch is installed. The suite's
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances, kernel against plain version on the same card: float32
-rtol=1e-5, atol=1e-6 (the two sum in different orders); bfloat16
+rtol=1e-5, atol=1e-6 (the two sum in different orders), except that the
+bsp kernel's f32 atol is 4e-5 of the reference's rms (its f32 atomics add
+in a varying order, so a sum that cancels to near zero can sit a few
+ulps of its terms away; the rule ``chip_smoke.py`` applies); bfloat16
 rtol=atol=2**-7 (both accumulate in f32 and round once, so the order can
 move a result by one bf16 ulp).
 """
@@ -23,10 +26,12 @@ import torch
 
 from neutronstarlite_torch.graph.dataset import GNNDatum
 from neutronstarlite_torch.graph.storage import build_graph
+from neutronstarlite_torch.models.gat import gat_layer_ell
 from neutronstarlite_torch.models.gcn import GCNTrainer
 from neutronstarlite_torch.ops import _build
 from neutronstarlite_torch.ops import bsp_ell as t_bsp
 from neutronstarlite_torch.ops import ell as t_ell
+from neutronstarlite_torch.ops import ell_gat as t_ell_gat
 from neutronstarlite_torch.ops import ell_kernel as t_ellk
 from neutronstarlite_torch.utils.config import InputInfo
 
@@ -96,9 +101,13 @@ def test_cuda_kernel_matches_plain(cuda_device, kernel, dtype, f):
     out.backward(c)
     torch.cuda.synchronize()
     assert out.dtype == tdt and x.grad.dtype == tdt
-    tol = F32_TOL if dtype == "float32" else BF16_TOL
-    np.testing.assert_allclose(_np(out), _np(plain(pair.fwd, x.detach())), **tol)
-    np.testing.assert_allclose(_np(x.grad), _np(plain(pair.bwd, c)), **tol)
+    for got, want in ((out, plain(pair.fwd, x.detach())), (x.grad, plain(pair.bwd, c))):
+        want = _np(want)
+        tol = BF16_TOL
+        if dtype == "float32":
+            tol = F32_TOL if kernel == "ell" else dict(
+                rtol=F32_TOL["rtol"], atol=4e-5 * float(np.sqrt(np.mean(np.square(want)))))
+        np.testing.assert_allclose(_np(got), want, **tol)
 
 
 def test_cuda_wrappers_count_their_launches(cuda_device):
@@ -147,6 +156,14 @@ def test_cuda_ell_matches_plain_at_602(cuda_device, dtype):
     """The main path's widest layer: f = 602 rows start 4-byte aligned, so
     the gathers load in 4-byte halves."""
     test_cuda_kernel_matches_plain(cuda_device, "ell", dtype, 602)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tiles", ["bsp_small_tiles", "bsp_default_tiles"])
+def test_cuda_bsp_matches_plain_at_602(cuda_device, tiles, dtype):
+    """The GIN and CommNet bsp routes' widest layer, f32 at 602 (f % 4 ==
+    2: 4-byte halves), on small and default tiles."""
+    test_cuda_kernel_matches_plain(cuda_device, tiles, dtype, 602)
 
 
 @pytest.mark.parametrize("f", [41, 130, 602])
@@ -224,3 +241,105 @@ def test_cuda_trainer_route_matches_plain_route(cuda_device, monkeypatch, route)
     got = losses(route)
     assert launches.launches > before
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+# ---- the ELL kernel on runtime weights (GAT's attention) ---------------------
+
+def _gat_pair(cuda_device):
+    src, dst, _ = _hub_graph()
+    return t_ell_gat.GatEllPair.from_host(build_graph(src, dst, V, weight="ones"),
+                                          device=cuda_device)
+
+
+def _alphas(gep, seed):
+    """Attention-like runtime weights: positive, each row's live slots
+    summing to one, 0 on padding."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, real in zip(gep.pair.fwd.nbr, gep.fwd_real):
+        a = torch.from_numpy(rng.random(n.shape, dtype=np.float32)).to(n.device) * real
+        out.append((a / a.sum(dim=1, keepdim=True).clamp_min(1e-20)).contiguous())
+    return out
+
+
+def _assert_sum_close(got, want, abs_sum):
+    """f32 sums of many terms in two orders: rtol 1e-5, and an atol of
+    1e-4 of each output's absolute sum of terms (``abs_sum``): the kernel
+    adds a row in pieces of up to ~4k slots one after another, so a sum
+    that cancels keeps an error of that order (chip_smoke.py's
+    F32_SUM_TOL)."""
+    got, want, abs_sum = _np(got), _np(want), _np(abs_sum)
+    assert np.all(np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-4 * abs_sum + 1e-30)
+
+
+@pytest.mark.parametrize("f", [41, 128])
+def test_cuda_ell_runtime_weights_match_plain(cuda_device, f):
+    """Forward over the CSC tables with runtime alphas, and the paired
+    backward: x's gradient over the CSR tables with the same alphas, the
+    alphas' gradient from the plain pass; f32, the hub row split."""
+    gep = _gat_pair(cuda_device)
+    fwd, bwd = gep.pair.fwd, gep.pair.bwd
+    assert t_ellk.work_list(fwd, f).n_split > 0 and t_ellk.work_list(bwd, f).n_split > 0
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((V, f), dtype=np.float32)).to(cuda_device)
+    c = torch.from_numpy(rng.standard_normal((V, f), dtype=np.float32)).to(cuda_device)
+    alphas = [a.requires_grad_(True) for a in _alphas(gep, 13)]
+    x.requires_grad_(True)
+    before = t_ellk.ell_level_aggregate.launches
+    out = t_ell_gat.runtime_weighted_aggregate(gep, alphas, x)
+    out.backward(c)
+    torch.cuda.synchronize()
+    assert t_ellk.ell_level_aggregate.launches - before == 4  # two calls, rows split
+    a = [t.detach() for t in alphas]
+    xd = x.detach()
+    for got, tables, w, v in ((out, fwd, a, xd), (x.grad, bwd, gep.transpose_alphas(a), c)):
+        want = t_ell.ell_tables_aggregate(v, tables.nbr, w)[tables.inv_perm]
+        abs_sum = t_ell.ell_tables_aggregate(v.abs(), tables.nbr, w)[tables.inv_perm]
+        _assert_sum_close(got, want, abs_sum)
+    for got, ref in zip(alphas, gep.grad_alphas(c, xd)):
+        assert torch.equal(got.grad, ref)  # the same plain pass
+
+
+def test_cuda_ell_runtime_weights_two_calls_in_a_row(cuda_device):
+    """Two calls on different alphas, launched back to back before any
+    synchronisation, are each right (no stale level pointer), and the
+    tables' own weights still serve a call without runtime weights."""
+    gep = _gat_pair(cuda_device)
+    fwd = gep.pair.fwd
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal((V, 41), dtype=np.float32))
+    x = x.to(cuda_device)
+    a1, a2 = _alphas(gep, 15), _alphas(gep, 16)
+    own_levels = t_ellk.work_list(fwd, 41).levels.clone()
+    o1 = t_ellk.ell_level_aggregate(fwd, x, a1)
+    o2 = t_ellk.ell_level_aggregate(fwd, x, a2)
+    o3 = t_ellk.ell_level_aggregate(fwd, x)
+    torch.cuda.synchronize()
+    for got, w in ((o1, a1), (o2, a2), (o3, fwd.wgt)):
+        want = t_ell.ell_tables_aggregate(x, fwd.nbr, list(w))[fwd.inv_perm]
+        abs_sum = t_ell.ell_tables_aggregate(x.abs(), fwd.nbr, list(w))[fwd.inv_perm]
+        _assert_sum_close(got, want, abs_sum)
+    assert not torch.allclose(o1, o2)
+    assert torch.equal(t_ellk.work_list(fwd, 41).levels, own_levels)
+    with pytest.raises(ValueError, match="runtime weights"):
+        t_ellk.ell_level_aggregate(fwd, x, [w.double() for w in a1])
+
+
+def test_cuda_gat_ell_layer_bitwise_repeatable(cuda_device):
+    """Forward and every gradient of the GAT ELL layer, twice: the same bits
+    (the kernel combines split rows in piece order, the al transpose is a
+    row reduction)."""
+    gep = _gat_pair(cuda_device)
+    rng = np.random.default_rng(17)
+    W0 = torch.from_numpy(rng.standard_normal((24, 41), dtype=np.float32) * 0.2)
+    a0 = torch.from_numpy(rng.standard_normal((82, 1), dtype=np.float32) * 0.2)
+    x0 = torch.from_numpy(rng.standard_normal((V, 24), dtype=np.float32))
+    c = torch.from_numpy(rng.standard_normal((V, 41), dtype=np.float32)).to(cuda_device)
+    runs = []
+    for _ in range(2):
+        W, a, x = (t.to(cuda_device).requires_grad_(True) for t in (W0, a0, x0))
+        out = gat_layer_ell(gep, W, a, x, last=False)
+        (out * c).sum().backward()
+        torch.cuda.synchronize()
+        runs.append([out.detach(), W.grad, a.grad, x.grad])
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
