@@ -19,7 +19,9 @@ Phases (each prints its lines; any failure exits non-zero):
    route (OPTIM_KERNEL:1 PALLAS:1) and on the ELL route (the same with
    NTS_PALLAS_RESIDENT=1), all from the same seeded parameters with
    drop_rate 0. Each kernel route's first forward's logits are held
-   against the plain route's, and its first-epoch loss too (a disagreement
+   against one eval forward of the plain route in f32 (the bf16 plain
+   route rounds its products to bf16; its gap is printed beside), and its
+   first-epoch loss against the plain route's (a disagreement
    there is printed at once and fails the run after phase 6, so that a
    failing run still prints its numbers); each kernel route's launch count
    is read from that run;
@@ -49,7 +51,22 @@ Phases (each prints its lines; any failure exits non-zero):
    first-epoch loss held against the scatter route's, 3 more epochs timed
    and one profiled;
 9. GGCN 602-128-41 f32 on its edge chain, 2 epochs at 0.2 x --scale; its
-   peak device memory.
+   peak device memory;
+10. the blocked ELL route and KERNEL:fused_edge (plain PyTorch, no new
+   kernel; each route's run must leave both kernels' launch counts at 0):
+   (a) GCN 602-128-41 bf16 through OPTIM_KERNEL:1 KERNEL_TILE:4096 on
+   phase 4's graph and parameters, --epochs, its first logits held
+   against the f32 plain route's and its epoch-0 loss against the plain
+   route's; (b) GAT f32 through KERNEL:fused_edge from phase 7's chain
+   parameters, --epochs, held against the chain under phase 7's rules,
+   with the time of the fused op's forward and of each of its three
+   backward passes over one epoch's calls, and one profiled epoch;
+   (c) GGCN f32 fused from phase 9's parameters at 0.2 x --scale, held
+   against the chain, then 2 epochs at --scale itself (0.1: V=23,296,
+   E=11,461,589) with its peak memory, pass times and one profiled epoch; (d) the fused op alone on a
+   power-law graph with a hub and 6 tiles, C=1 and C=f, forward and all
+   three gradients on the card against the CPU (F32_TOL), and two calls
+   on the card bitwise equal.
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -312,10 +329,10 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
     log(f"main path graph V={v} E={g.e_num} max in-degree {int(g.in_degree.max())}: "
         f"host generate+CSC/CSR build {time.perf_counter() - t0:.1f} s")
 
-    def trainer(route: str, n_epochs: int):
+    def trainer(route: str, n_epochs: int, precision: str = "bfloat16"):
         cfg = InputInfo(
             algorithm="GCN", vertices=v, layer_string="602-128-41", epochs=n_epochs,
-            drop_rate=0.0, precision="bfloat16", learn_rate=0.01,
+            drop_rate=0.0, precision=precision, learn_rate=0.01,
             weight_decay=1e-4, decay_rate=0.97, decay_epoch=100,
             optim_kernel=route != "plain", pallas_kernel=route != "plain",
         )
@@ -324,6 +341,13 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
                                       host_graph=g)
 
     results = {"edges": (src, dst), "datum": datum}
+    # the logits reference: one eval forward of the plain route in f32 from
+    # the same seeded parameters (the bf16 plain route rounds its products
+    # to bf16, the kernels keep them f32); the bf16 plain route's logits
+    # are printed beside it as the earlier reference
+    ref32 = trainer("plain", 0, "float32")
+    results["logits_f32"] = ref_logits = ref32.eval_logits()
+    del ref32
     plain = trainer("plain", 1)
     plain_logits = plain.eval_logits()  # drop_rate 0: the first forward's logits
     plain.run()
@@ -342,13 +366,16 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
 
     for route in ("bsp", "ell"):
         tr = trainer(route, epochs)
+        first = tr.eval_logits()
+        old_gap = float((first - plain_logits).abs().max())
         try:
-            logits_err = check_close(f"route {route} first logits", tr.eval_logits(),
-                                     plain_logits, LOGITS_TOL)
+            logits_err = check_close(f"route {route} first logits", first, ref_logits,
+                                     LOGITS_TOL)
         except AssertionError as exc:
             defer(str(exc))
             logits_err = float("nan")
-        rms = float(plain_logits.pow(2).mean().sqrt())
+        rms = float(ref_logits.pow(2).mean().sqrt())
+        del first
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
@@ -378,7 +405,8 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         }
         log(f"route {route}: first logits max abs err {logits_err:.3e} against the "
-            f"plain route's (their rms {rms:.3e}); epoch-0 loss {losses[0]:.6f} vs "
+            f"f32 plain route's (their rms {rms:.3e}; against the bf16 plain route's, "
+            f"the earlier reference, {old_gap:.3e}); epoch-0 loss {losses[0]:.6f} vs "
             f"plain {ref:.6f} (rel {abs(losses[0] - ref) / abs(ref):.2e})")
         log(f"route {route}: losses {[round(x, 6) for x in losses]}; "
             f"{launches[route]} launches in {epochs} epochs + eval, "
@@ -684,6 +712,8 @@ def phase_gat(dev, epochs: int, seed: int, results, failures):
     ref = chain.loss_history[0]
     log(f"GAT edge chain: epoch-0 loss {ref:.6f} ({chain.epoch_times[0]:.3f} s, peak "
         f"device memory {chain_peak:.2f} GiB)")
+    results["gat"] = {"graph": g1, "params": params, "logits": chain_logits, "loss": ref,
+                      "chain_s": chain.epoch_times[0]}
     del chain
     tr = trainer("ell", epochs)
     tr.load_params(params)
@@ -720,6 +750,7 @@ def phase_gat(dev, epochs: int, seed: int, results, failures):
     log(f"GAT ELL: first logits max abs err {logits_err:.3e} against the edge chain's "
         f"(their rms {rms:.3e}); epoch-0 loss {losses[0]:.6f} vs chain {ref:.6f} (rel "
         f"{abs(losses[0] - ref) / abs(ref):.2e})")
+    results["gat"]["ell_epochs"] = list(tr.epoch_times)
     log(f"GAT ELL: losses {[round(x, 6) for x in losses]}; {launches} ell_level launches "
         f"in {epochs} epochs + eval, {per_epoch} per training epoch; epochs (s) "
         f"{[round(t, 4) for t in tr.epoch_times]}; host table build "
@@ -870,31 +901,45 @@ def phase_gin_commnet(dev, g, epochs: int, seed: int, results, failures) -> None
             torch.cuda.empty_cache()
 
 
-def phase_ggcn(dev, scale: float, seed: int) -> None:
-    """GGCN 602-128-41 f32 on its edge chain, 2 epochs, at a fifth of the
-    main path's scale: its [E, 128] f32 edge tensors (5.9 GB each at 0.1 of
-    Reddit) are kept several times over by autograd."""
+def ggcn_graph(scale: float, seed: int):
+    """(src, dst, datum) of GGCN's power-law graph at ``scale`` of Reddit."""
     import numpy as np
-    import torch
 
     from neutronstarlite_torch.graph.dataset import GNNDatum
     from neutronstarlite_torch.graph.synthetic import reddit_scaled, synthetic_power_law_graph
-    from neutronstarlite_torch.models.ggcn import GGCNTrainer
-    from neutronstarlite_torch.utils.config import InputInfo
 
-    v, e = reddit_scaled(scale * 0.2)
+    v, e = reddit_scaled(scale)
     src, dst = synthetic_power_law_graph(v, e, seed=seed + 11)
     rng = np.random.default_rng(seed + 11)
-    datum = GNNDatum(
+    return src, dst, GNNDatum(
         feature=rng.standard_normal((v, 602), dtype=np.float32) * 0.1,
         label=rng.integers(0, 41, size=v, dtype=np.int32),
         mask=(np.arange(v) % 3).astype(np.int32),
     )
+
+
+def phase_ggcn(dev, scale: float, seed: int) -> dict:
+    """GGCN 602-128-41 f32 on its edge chain, 2 epochs, at a fifth of the
+    main path's scale: its [E, 128] f32 edge tensors (5.9 GB each at 0.1 of
+    Reddit) are kept several times over by autograd. Returns the graph, the
+    initial parameters, the first logits and the epoch-0 loss, which
+    phase 10 holds the fused route against."""
+    import torch
+
+    from neutronstarlite_torch.models.ggcn import GGCNTrainer
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    src, dst, datum = ggcn_graph(scale * 0.2, seed)
+    v = datum.feature.shape[0]
     cfg = InputInfo(
         algorithm="GGCN", vertices=v, layer_string="602-128-41", epochs=2, drop_rate=0.0,
         learn_rate=0.01, weight_decay=1e-4, decay_rate=0.97, decay_epoch=100,
     )
     tr = GGCNTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device=dev)
+    chain = {"edges": (src, dst), "datum": datum, "graph": tr.host_graph,
+             "params": [{k: t.detach().clone() for k, t in layer.items()}
+                        for layer in tr.params],
+             "logits": tr.eval_logits()}
     torch.cuda.reset_peak_memory_stats()
     out = tr.run()
     torch.cuda.synchronize()
@@ -909,8 +954,281 @@ def phase_ggcn(dev, scale: float, seed: int) -> None:
         f"{[round(x, 6) for x in tr.loss_history]}, train acc {out['acc']['train']:.4f}; "
         f"epochs (s) {[round(t, 4) for t in tr.epoch_times]}; peak device memory "
         f"{peak:.2f} GiB")
+    chain.update(loss=tr.loss_history[0], epochs=list(tr.epoch_times), peak_gib=peak)
     del tr, logits
     torch.cuda.empty_cache()
+    return chain
+
+
+def kernel_launches() -> dict:
+    from neutronstarlite_torch.ops.bsp_ell import bsp_aggregate
+    from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
+
+    return {"ell_level": ell_level_aggregate.launches, "bsp_ell": bsp_aggregate.launches}
+
+
+def zero_launches() -> None:
+    from neutronstarlite_torch.ops.bsp_ell import bsp_aggregate
+    from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
+
+    ell_level_aggregate.launches = bsp_aggregate.launches = 0
+
+
+def check_no_kernel(name: str) -> None:
+    """The blocked and fused routes are plain PyTorch: neither hand-written
+    kernel may have been launched since the counts were set to 0."""
+    launches = kernel_launches()
+    if any(launches.values()):
+        raise AssertionError(f"{name} launched a hand-written kernel: {launches}")
+
+
+def run_route(tr, name: str, ref_logits, logits_tol, ref_loss: float, loss_rtol: float,
+              failures) -> dict:
+    """Hold the trainer's first logits against ``ref_logits`` and its
+    epoch-0 loss against ``ref_loss``, run it with the kernels' counts at 0
+    and its peak memory reset, and check that no kernel ran; a
+    disagreement is deferred to ``failures``."""
+    import torch
+
+    zero_launches()
+    try:
+        err = check_close(f"{name} first logits", tr.eval_logits(), ref_logits, logits_tol)
+    except AssertionError as exc:
+        failures.append(str(exc))
+        log(f"FAILED {exc}")
+        err = float("nan")
+    torch.cuda.reset_peak_memory_stats()
+    tr.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_no_kernel(name)
+    losses = tr.loss_history
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    if rel > loss_rtol:
+        failures.append(f"{name}: epoch-0 loss {losses[0]} vs reference {ref_loss}")
+        log(f"FAILED {failures[-1]}")
+    rms = float(ref_logits.pow(2).mean().sqrt())
+    log(f"{name}: first logits max abs err {err:.3e} (reference rms {rms:.3e}); epoch-0 "
+        f"loss {losses[0]:.6f} vs {ref_loss:.6f} (rel {rel:.2e}); losses "
+        f"{[round(x, 6) for x in losses]}; epochs (s) {[round(t, 4) for t in tr.epoch_times]}; "
+        f"host table build {tr.phase_times.get('build_model', 0.0):.1f} s; peak device "
+        f"memory {peak:.2f} GiB; ell_level and bsp_ell launches 0")
+    return {"peak_gib": peak, "epochs": list(tr.epoch_times)}
+
+
+def fused_pass_ms(pair, layers, seed: int) -> dict:
+    """CUDA-event times of the fused op's forward and its three backward
+    passes, summed over ``layers`` [(h, asrc, adst, slope)] (one training
+    epoch's calls), each pass on a random output gradient."""
+    import torch
+
+    from neutronstarlite_torch.ops import fused_edge as fe
+
+    gen = torch.Generator(device=layers[0][0].device).manual_seed(seed)
+    tot = {"forward": 0.0, "A (T1)": 0.0, "B (grad_adst)": 0.0, "C (grad_h, grad_asrc)": 0.0}
+    for h, asrc, adst, slope in layers:
+        V, f, C = h.shape[0], h.shape[1], asrc.shape[1]
+
+        def zeros(c):
+            return torch.zeros((V, c), device=h.device)
+
+        def forward():
+            return fe.fused_forward_into(pair.fwd, fe.fused_init_state(V, C, f, h.device),
+                                         h, asrc, adst, slope)
+
+        m, l, _ = forward()
+        g = torch.randn(h.shape, generator=gen, device=h.device)
+        t1 = fe.fused_bwd_t1_into(pair.fwd, zeros(C), h, asrc, adst, m, l, g, slope)
+        passes = {
+            "forward": forward,
+            "A (T1)": lambda: fe.fused_bwd_t1_into(pair.fwd, zeros(C), h, asrc, adst, m, l,
+                                                   g, slope),
+            "B (grad_adst)": lambda: fe.fused_bwd_gadst_into(pair.fwd, zeros(C), h, asrc,
+                                                             adst, m, l, t1, g, slope),
+            "C (grad_h, grad_asrc)": lambda: fe.fused_bwd_src_into(
+                pair.bwd, (zeros(f), zeros(C)), h, asrc, adst, m, l, t1, g, slope),
+        }
+        for k, fn in passes.items():
+            tot[k] += cuda_ms(fn, n=2, warmup=1)
+    return tot
+
+
+def fused_layers(tr, halves, slope: float):
+    """(h, asrc, adst, slope) of each layer of a fused trainer's eval
+    forward at its parameters; ``halves(layer, h)`` gives the score
+    halves (GAT: h @ a[:f], h @ a[f:]; GGCN: h @ Ws, h @ Wd)."""
+    import torch
+
+    from neutronstarlite_torch.ops.fused_edge import fused_edge_attention_aggregate
+
+    out, x = [], tr.feature
+    with torch.no_grad():
+        for layer in tr.params:
+            h = x @ layer["W"]
+            asrc, adst = halves(layer, h)
+            out.append((h, asrc, adst, slope))
+            x = torch.relu(fused_edge_attention_aggregate(tr.compute_graph, h, asrc, adst,
+                                                          slope))
+    return out
+
+
+def pass_text(ms: dict) -> str:
+    return ", ".join(f"{k} {t:.2f} ms" for k, t in ms.items())
+
+
+def phase_blocked_and_fused(dev, g, scale: float, epochs: int, seed: int, results,
+                            ggcn_chain: dict, failures) -> None:
+    """Phase 10: the blocked ELL route and KERNEL:fused_edge, plain PyTorch
+    on the card. (a) GCN bf16 through OPTIM_KERNEL:1 KERNEL_TILE:4096 on
+    phase 4's graph and seeded parameters; (b) GAT f32 through
+    KERNEL:fused_edge from phase 7's chain parameters; (c) GGCN f32 fused
+    from phase 9's chain parameters at 0.2 x --scale, then fused at --scale
+    itself; (d) the fused op alone on the card against the CPU, C=1 and
+    C=f, and twice on the card. No route may launch a hand-written
+    kernel."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch.graph.storage import build_graph
+    from neutronstarlite_torch.graph.synthetic import synthetic_power_law_graph
+    from neutronstarlite_torch.models.gat import LEAKY_SLOPE, GATTrainer
+    from neutronstarlite_torch.models.gcn import GCNTrainer
+    from neutronstarlite_torch.models.ggcn import GGCN_LEAKY_SLOPE, GGCNTrainer
+    from neutronstarlite_torch.ops.blocked_ell import BlockedEllPair
+    from neutronstarlite_torch.ops.fused_edge import FusedEdgePair, fused_edge_attention_aggregate
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    src, dst = results["edges"]
+    datum = results["datum"]
+    v = g.v_num
+    common = dict(layer_string="602-128-41", drop_rate=0.0, learn_rate=0.01,
+                  weight_decay=1e-4, decay_rate=0.97, decay_epoch=100)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    log(f"phase 10 on {smi}")
+
+    # (a) GCN bf16 through the blocked ELL route
+    os.environ["NTS_PALLAS_RESIDENT"] = "0"
+    cfg = InputInfo(algorithm="GCN", vertices=v, epochs=epochs, precision="bfloat16",
+                    optim_kernel=True, kernel_tile=4096, **common)
+    tr = GCNTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device=dev, host_graph=g)
+    if not isinstance(tr.compute_graph, BlockedEllPair):
+        raise AssertionError(f"GCN blocked: compute graph {type(tr.compute_graph).__name__}")
+    fwd = tr.compute_graph.fwd
+    log(f"GCN blocked tables: {fwd.n_tiles} tiles of {fwd.vt}, {len(fwd.nbr)} levels, "
+        f"{fwd.slot_count()} fwd slots for {g.e_num} edges")
+    run_route(tr, "GCN blocked (OPTIM_KERNEL:1 KERNEL_TILE:4096, bf16)",
+              results["logits_f32"], LOGITS_TOL, results["plain"]["losses"][0], LOSS_RTOL,
+              failures)
+    del tr
+    torch.cuda.empty_cache()
+
+    # (b) GAT f32 through KERNEL:fused_edge
+    gat = results["gat"]
+    cfg = InputInfo(algorithm="GAT", vertices=v, epochs=epochs, kernel="fused_edge",
+                    **common)
+    tr = GATTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device=dev,
+                                host_graph=gat["graph"])
+    tr.load_params(gat["params"])
+    if not isinstance(tr.compute_graph, FusedEdgePair):
+        raise AssertionError(f"GAT fused: compute graph {type(tr.compute_graph).__name__}")
+    row = max(1.0, float(gat["graph"].in_degree.max()) / GAT_ROW)
+    out = run_route(tr, "GAT fused (KERNEL:fused_edge, f32)", gat["logits"],
+                    (GAT_LOGITS_TOL[0] * row, GAT_LOGITS_TOL[1]), gat["loss"],
+                    GAT_LOSS_RTOL, failures)
+    ms = fused_pass_ms(tr.compute_graph, fused_layers(
+        tr, lambda p, h: (h @ p["a"][:h.shape[1]], h @ p["a"][h.shape[1]:]), LEAKY_SLOPE),
+        seed + 7)
+    steady = out["epochs"][1:] or out["epochs"]
+    log(f"timing GAT fused epoch {1e3 * float(np.mean(steady)):.3f} ms (host clock around "
+        f"the synchronised step; the ELL attention's epochs (s) "
+        f"{[round(t, 4) for t in gat['ell_epochs']]}, the chain's {gat['chain_s']:.4f} s); "
+        f"fused op passes, both layers: {pass_text(ms)}; "
+        f"{tr.compute_graph.slot_count()} table slots")
+    log(f"GAT fused training epoch under torch.profiler: "
+        f"{profile_text(profile_step(tr.train_step))}")
+    check_no_kernel("GAT fused")
+    del tr
+    torch.cuda.empty_cache()
+
+    # (c) GGCN f32 through KERNEL:fused_edge: against the chain at 0.2 x
+    # --scale (where phase 9 ran it), then alone at --scale
+    vc = ggcn_chain["datum"].feature.shape[0]
+    cfg = InputInfo(algorithm="GGCN", vertices=vc, epochs=2, kernel="fused_edge", **common)
+    tr = GGCNTrainer.from_arrays(cfg, *ggcn_chain["edges"], ggcn_chain["datum"], seed=seed,
+                                 device=dev, host_graph=ggcn_chain["graph"])
+    tr.load_params(ggcn_chain["params"])
+    row = max(1.0, float(ggcn_chain["graph"].in_degree.max()) / GAT_ROW)
+    out = run_route(tr, f"GGCN fused at 0.2 x scale (V={vc})", ggcn_chain["logits"],
+                    (GAT_LOGITS_TOL[0] * row, GAT_LOGITS_TOL[1]), ggcn_chain["loss"],
+                    GAT_LOSS_RTOL, failures)
+    log(f"GGCN at 0.2 x scale: fused epochs (s) {[round(t, 4) for t in out['epochs']]}, "
+        f"peak {out['peak_gib']:.2f} GiB; the chain's epochs (s) "
+        f"{[round(t, 4) for t in ggcn_chain['epochs']]}, peak {ggcn_chain['peak_gib']:.2f} GiB")
+    del tr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gsrc, gdst, gdatum = ggcn_graph(scale, seed)
+    vg = gdatum.feature.shape[0]
+    cfg = InputInfo(algorithm="GGCN", vertices=vg, epochs=2, kernel="fused_edge", **common)
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tr = GGCNTrainer.from_arrays(cfg, gsrc, gdst, gdatum, seed=seed, device=dev)
+    setup_s = time.perf_counter() - t0
+    res = tr.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    logits = tr.eval_logits()
+    check_no_kernel("GGCN fused at scale")
+    if (tuple(logits.shape) != (vg, 41) or not torch.isfinite(logits).all()
+            or not all(math.isfinite(x) for x in tr.loss_history)):
+        raise AssertionError(f"GGCN fused at scale: logits {tuple(logits.shape)}, losses "
+                             f"{tr.loss_history}")
+    ms = fused_pass_ms(tr.compute_graph, fused_layers(
+        tr, lambda p, h: (h @ p["Ws"], h @ p["Wd"]), GGCN_LEAKY_SLOPE), seed + 8)
+    log(f"GGCN fused at --scale {scale} V={vg} E={tr.host_graph.e_num}: losses "
+        f"{[round(x, 6) for x in tr.loss_history]}, train acc {res['acc']['train']:.4f}; "
+        f"epochs (s) {[round(t, 4) for t in tr.epoch_times]}; host table build "
+        f"{tr.phase_times.get('build_model', 0.0):.1f} s (graph generate + build + tables "
+        f"{setup_s:.1f} s); peak device memory {peak:.2f} GiB; fused op passes, both "
+        f"layers: {pass_text(ms)}; {tr.compute_graph.slot_count()} table slots")
+    log(f"GGCN fused training epoch at --scale under torch.profiler: "
+        f"{profile_text(profile_step(tr.train_step))}")
+    del tr, logits
+    torch.cuda.empty_cache()
+
+    # (d) the fused op alone: card against CPU, and twice on the card
+    vs = 6000
+    gs = build_graph(*synthetic_power_law_graph(vs, 120_000, seed=seed + 13), vs,
+                     weight="ones")
+    pair_cpu = FusedEdgePair.from_host(gs, vt=1024)
+    pair = FusedEdgePair.from_host(gs, vt=1024, device=dev)
+    rng = np.random.default_rng(seed + 13)
+    f = 64
+    for C, slope in ((1, 0.01), (f, 0.2)):
+        arrays = [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+                  for sh in ((vs, f), (vs, C), (vs, C), (vs, f))]
+        runs = []
+        for device, p in (("cpu", pair_cpu), (dev, pair), (dev, pair)):
+            ins = [a.detach().to(device).requires_grad_(True) for a in arrays[:3]]
+            o = fused_edge_attention_aggregate(p, *ins, slope)
+            o.backward(arrays[3].to(device))
+            runs.append([o.detach()] + [a.grad for a in ins])
+        torch.cuda.synchronize()
+        check_no_kernel("fused op")
+        errs = [check_close(f"fused op C={C} {name} card vs CPU", got.cpu(), want, F32_TOL)
+                for name, got, want in zip(("out", "grad_h", "grad_asrc", "grad_adst"),
+                                           runs[1], runs[0])]
+        if not all(torch.equal(a, b) for a, b in zip(runs[1], runs[2])):
+            raise AssertionError(f"fused op C={C}: two calls on the card differ")
+        log(f"fused op alone V={vs} E={gs.e_num} (max in-degree {int(gs.in_degree.max())}, "
+            f"{pair.fwd.n_tiles} tiles) C={C}: card vs CPU max abs err out/grad_h/grad_asrc/"
+            f"grad_adst {', '.join(f'{e:.2e}' for e in errs)} (tolerance {F32_TOL[0]}*rms + "
+            f"{F32_TOL[1]}*|ref|); two calls on the card bitwise equal")
 
 
 def main(argv=None) -> int:
@@ -952,7 +1270,9 @@ def main(argv=None) -> int:
     rows.append(phase_gat(dev, args.epochs, args.seed, results,
                           results["failures"]))
     phase_gin_commnet(dev, g, 2, args.seed, results, results["failures"])
-    phase_ggcn(dev, args.scale, args.seed)
+    ggcn_chain = phase_ggcn(dev, args.scale, args.seed)
+    phase_blocked_and_fused(dev, g, args.scale, args.epochs, args.seed, results, ggcn_chain,
+                            results["failures"])
     if results["failures"]:
         for msg in results["failures"]:
             log(f"FAILED {msg}")

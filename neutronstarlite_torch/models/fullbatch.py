@@ -4,19 +4,27 @@
 Aggregation routes (``build_model``):
 
 - default: ``ops.aggregate.ScatterGraph``, the plain PyTorch scatter;
+- ``KERNEL:fused_edge`` (GAT, GGCN): ``ops.fused_edge.FusedEdgePair``, the
+  fused score -> softmax -> aggregation over blocked tables (``KERNEL_TILE``
+  sets the source-tile height, ``ELL_LEVELS`` the level ladder);
 - ``OPTIM_KERNEL:1 PALLAS:1``: ``ops.bsp_ell.BspEllPair``, the block-sparse
   kernel (``KERNEL_TILE`` sets its source-tile height);
+- ``OPTIM_KERNEL:1 KERNEL_TILE:<vt>`` without ``PALLAS``:
+  ``ops.blocked_ell.BlockedEllPair``, the source-tiled blocked ELL tables in
+  plain PyTorch (as in JAX, where it is XLA code);
 - ``OPTIM_KERNEL:1 PALLAS:1`` with ``NTS_PALLAS_RESIDENT=1``, and
   ``OPTIM_KERNEL:1`` alone: ``ops.ell.EllPair``, the ELL-level kernel. In
   JAX, OPTIM_KERNEL alone runs the same ELL tables through XLA's gather
   and PALLAS+RESIDENT through the Pallas kernel; both compute the same
   function, which the port runs through its one hand-written kernel.
 
-The kernel routes are taken only by trainers that declare
-``supports_optim_kernel`` (GCN, GIN, CommNet, GAT); GAT wraps the ELL
+The OPTIM_KERNEL routes are taken only by trainers that declare
+``supports_optim_kernel`` (GCN, GIN, CommNet, GAT), the fused route only by
+those that declare ``supports_fused_edge`` (GAT, GGCN); GAT wraps the ELL
 tables as ``ops.ell_gat.GatEllPair`` (``adapt_ell_graph``) and refuses the
-bsp tables. GGCN keeps the edge arrays on every route. ``PRECISION`` is
-read by the GCN family alone; the others log a warning and run f32.
+bsp and blocked tables. Without the fused route GGCN keeps the edge arrays.
+``PRECISION`` is read by the GCN family alone; the others log a warning and
+run f32.
 
 The step is forward -> masked NLL -> ``backward()`` -> ``adam_update`` (in
 place). Each epoch's loss and the training forward's logits come from
@@ -35,8 +43,10 @@ import torch
 from neutronstarlite_torch.models.base import ToolkitBase
 from neutronstarlite_torch.nn.param import AdamConfig, adam_init, adam_update
 from neutronstarlite_torch.ops.aggregate import ScatterGraph
+from neutronstarlite_torch.ops.blocked_ell import BlockedEllPair
 from neutronstarlite_torch.ops.bsp_ell import DEFAULT_VT, BspEllPair
 from neutronstarlite_torch.ops.ell import EllPair
+from neutronstarlite_torch.ops.fused_edge import FusedEdgePair
 from neutronstarlite_torch.utils.config import check_supported
 from neutronstarlite_torch.utils.logging import get_logger
 
@@ -69,6 +79,9 @@ class FullBatchTrainer(ToolkitBase):
     # the ELL tables (adapt_ell_graph); the others (GGCN) keep the edge
     # arrays whatever OPTIM_KERNEL says
     supports_optim_kernel = False
+    # KERNEL:fused_edge runs the trainer's attention through the fused op
+    # (GAT, GGCN)
+    supports_fused_edge = False
     # trainers whose forward consumes PRECISION (the GCN family); the others
     # warn and run f32, as in JAX
     supports_precision = False
@@ -87,7 +100,16 @@ class FullBatchTrainer(ToolkitBase):
     def build_compute_graph(self):
         cfg, g, dev = self.cfg, self.host_graph, self.device
         resident = os.environ.get("NTS_PALLAS_RESIDENT", "0") == "1"
-        check_supported(cfg, resident)
+        check_supported(cfg, resident, type(self).supports_fused_edge)
+        if cfg.kernel == "fused_edge":
+            pair = FusedEdgePair.from_host(g, vt=cfg.kernel_tile, levels=cfg.ell_levels,
+                                           device=dev)
+            log.info(
+                "KERNEL:fused_edge: blocked streaming SDDMM+softmax+SpMM (%d src "
+                "tiles of %d, %d fwd levels, %d table slots)", pair.fwd.n_tiles,
+                pair.fwd.vt, len(pair.fwd.nbr), pair.slot_count(),
+            )
+            return pair
         if not (cfg.optim_kernel and type(self).supports_optim_kernel):
             return ScatterGraph.from_host(g, device=dev)
         if cfg.pallas_kernel and not resident:
@@ -95,6 +117,13 @@ class FullBatchTrainer(ToolkitBase):
             log.info(
                 "OPTIM_KERNEL: block-sparse aggregation kernel (%d fwd blocks, "
                 "dt=%d vt=%d)", pair.fwd.nbr.shape[0], pair.fwd.dt, pair.fwd.vt,
+            )
+        elif cfg.kernel_tile > 0:
+            pair = BlockedEllPair.from_host(g, vt=cfg.kernel_tile, device=dev)
+            log.info(
+                "OPTIM_KERNEL: blocked ELL aggregation (%d src tiles of %d vertices, "
+                "%d stacked levels, %d fwd table slots)", pair.fwd.n_tiles,
+                pair.fwd.vt, len(pair.fwd.nbr), pair.fwd.slot_count(),
             )
         else:
             pair = EllPair.from_host(g, device=dev)

@@ -13,12 +13,14 @@ Two routes compute the same layer:
   [E, 1] scores, ``edge_softmax``, ``aggregate_edge_to_dst_weighted``;
 - ``gat_layer_ell`` under ``OPTIM_KERNEL:1``, over ``ops.ell_gat.GatEllPair``:
   dense [rows, K] scores and softmax, and the aggregation on the ELL-level
-  kernel with the alphas as runtime weights.
+  kernel with the alphas as runtime weights;
+- ``gat_layer_fused`` under ``KERNEL:fused_edge``, over
+  ``ops.fused_edge.FusedEdgePair``: scores, online softmax and aggregation
+  streamed over blocked tables with C = 1, no [E, .] tensor.
 
 The trainer builds its graph with unit edge weights (``weight_mode``): the
-softmax supplies the weights. ``KERNEL:fused_edge`` (``gat_layer_fused``)
-is not ported yet, and the bsp tables (``PALLAS:1``) are refused, as in
-JAX.
+softmax supplies the weights. The bsp and blocked tables (``PALLAS:1``,
+``KERNEL_TILE`` under ``OPTIM_KERNEL``) are refused, as in JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from neutronstarlite_torch.nn.param import xavier_uniform
 from neutronstarlite_torch.ops.edge import aggregate_edge_to_dst_weighted, edge_softmax
 from neutronstarlite_torch.ops.ell import EllPair
 from neutronstarlite_torch.ops.ell_gat import GatEllPair, gat_ell_attention_aggregate
+from neutronstarlite_torch.ops.fused_edge import FusedEdgePair, fused_edge_attention_aggregate
 from neutronstarlite_torch.utils.config import GAT_ALGORITHMS
 
 LEAKY_SLOPE = 0.01  # torch::leaky_relu's default, as the reference's edge NN
@@ -68,8 +71,22 @@ def gat_layer_ell(gep: GatEllPair, W, a, x, last: bool) -> torch.Tensor:
     return out if last else torch.relu(out)
 
 
+def gat_layer_fused(fep: FusedEdgePair, W, a, x, last: bool) -> torch.Tensor:
+    h = x @ W
+    f = h.shape[1]
+    al = h @ a[:f]  # [V, 1] source half of the decomposed attention
+    ar = h @ a[f:]
+    out = fused_edge_attention_aggregate(fep, h, al, ar, LEAKY_SLOPE)
+    return out if last else torch.relu(out)
+
+
 def gat_forward(graph, params, x, drop_rate: float, train: bool, generator) -> torch.Tensor:
-    layer_fn = gat_layer_ell if isinstance(graph, GatEllPair) else gat_layer
+    if isinstance(graph, FusedEdgePair):
+        layer_fn = gat_layer_fused
+    elif isinstance(graph, GatEllPair):
+        layer_fn = gat_layer_ell
+    else:
+        layer_fn = gat_layer
     n = len(params)
     for i, layer in enumerate(params):
         x = layer_fn(graph, layer["W"], layer["a"], x, i == n - 1)
@@ -82,6 +99,7 @@ def gat_forward(graph, params, x, drop_rate: float, train: bool, generator) -> t
 class GATTrainer(FullBatchTrainer):
     weight_mode = "ones"  # the softmax supplies the edge weights
     supports_optim_kernel = True  # OPTIM_KERNEL:1 -> the ELL attention
+    supports_fused_edge = True  # KERNEL:fused_edge -> the fused op, C = 1
 
     def init_params(self, generator: torch.Generator):
         return init_gat_params(self.cfg.layer_sizes(), generator)
@@ -89,8 +107,8 @@ class GATTrainer(FullBatchTrainer):
     def adapt_ell_graph(self, compute_graph):
         if self.cfg.pallas_kernel or not isinstance(compute_graph, EllPair):
             raise ValueError(
-                "OPTIM_KERNEL GAT uses the plain ELL tables; the PALLAS layouts "
-                f"({type(compute_graph).__name__}) are not supported with "
+                "OPTIM_KERNEL GAT uses the plain ELL tables; KERNEL_TILE/PALLAS "
+                f"layouts ({type(compute_graph).__name__}) are not supported with "
                 f"ALGORITHM:{self.cfg.algorithm}"
             )
         return GatEllPair.from_pair(compute_graph, self.host_graph)

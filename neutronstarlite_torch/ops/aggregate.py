@@ -3,7 +3,7 @@
 
 ``gather_dst_from_src(graph, x)``: ``out[v] = sum over in-edges (u -> v) of
 w_uv * x[u]``; ``gather_src_from_dst`` is the CSR direction. ``graph`` is one
-of three forms:
+of four forms:
 
 - ``ScatterGraph`` — the default route: the edge lists in CSC and CSR order
   and a chunked gather -> scale -> ``index_add_`` in plain PyTorch (the JAX
@@ -13,6 +13,8 @@ of three forms:
   cast once at the end.
 - ``ops.ell.EllPair`` — the ELL-level kernel (``ops/ell_kernel.py``).
 - ``ops.bsp_ell.BspEllPair`` — the block-sparse kernel (``ops/bsp_ell.py``).
+- ``ops.blocked_ell.BlockedEllPair`` — the source-tiled blocked ELL tables
+  (``ops/blocked_ell.py``), plain PyTorch as in JAX, where it is XLA code.
 
 The JAX module's lane-pad fence (narrow widths padded to 128 lanes before
 an XLA scatter) is a TPU/XLA artefact and is not ported.
@@ -25,6 +27,11 @@ import dataclasses
 import torch
 
 from neutronstarlite_torch.graph.storage import CSCGraph
+from neutronstarlite_torch.ops.blocked_ell import (
+    BlockedEllPair,
+    blocked_gather_dst_from_src,
+    blocked_gather_src_from_dst,
+)
 from neutronstarlite_torch.ops.bsp_ell import BspAggregate, BspEllPair
 from neutronstarlite_torch.ops.ell import EllPair
 from neutronstarlite_torch.ops.ell_kernel import EllAggregate
@@ -101,6 +108,8 @@ def gather_dst_from_src(graph, x: torch.Tensor) -> torch.Tensor:
         return BspAggregate.apply(x, graph.fwd, graph.bwd)
     if isinstance(graph, EllPair):
         return EllAggregate.apply(x, graph.fwd, graph.bwd)
+    if isinstance(graph, BlockedEllPair):
+        return blocked_gather_dst_from_src(graph, x)
     if isinstance(graph, ScatterGraph):
         return ScatterAggregate.apply(x, graph, False)
     raise TypeError(f"unknown aggregation graph {type(graph).__name__}")
@@ -112,6 +121,8 @@ def gather_src_from_dst(graph, y: torch.Tensor) -> torch.Tensor:
         return BspAggregate.apply(y, graph.bwd, graph.fwd)
     if isinstance(graph, EllPair):
         return EllAggregate.apply(y, graph.bwd, graph.fwd)
+    if isinstance(graph, BlockedEllPair):
+        return blocked_gather_src_from_dst(graph, y)
     if isinstance(graph, ScatterGraph):
         return ScatterAggregate.apply(y, graph, True)
     raise TypeError(f"unknown aggregation graph {type(graph).__name__}")

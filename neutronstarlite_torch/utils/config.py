@@ -8,8 +8,13 @@ key and every ALGORITHM the port does not implement yet with a one-line
 a path that never runs.
 
 The port honours the single-device full-batch keys (GCN, GAT, GIN,
-CommNet, GGCN). ``KERNEL`` is accepted empty (the edge chain); its
-``fused_edge`` kernel belongs to a later slice of the port and is refused. ``PROC_CUDA`` and ``LOCK_FREE`` are
+CommNet, GGCN). ``KERNEL`` is empty (the edge chain) or ``fused_edge``
+(``ops/fused_edge.py``, GAT and GGCN); ``KERNEL:auto`` and
+``ELL_LEVELS:auto`` need the autotuner, which is not ported, and are
+refused. ``ELL_LEVELS`` (``pow2`` or ``binned``) sets the fused tables'
+level ladder. ``KERNEL_TILE`` sets the source-tile height of the bsp
+kernel (``PALLAS:1``), of the blocked ELL route (``OPTIM_KERNEL:1``
+without ``PALLAS``) and of the fused tables. ``PROC_CUDA`` and ``LOCK_FREE`` are
 reference compatibility flags that the single-device trainer has no use for
 (the JAX trainer ignores them too; the port's device comes from
 ``--device``); ``PROC_OVERLAP``, ``PROC_LOCAL``, ``PROC_REP`` and
@@ -92,10 +97,11 @@ class InputInfo:
     lock_free: bool = False
     optim_kernel: bool = False
     pallas_kernel: bool = False
-    kernel_tile: int = 0  # PALLAS:1 -> the bsp kernel's source-tile height
+    kernel_tile: int = 0  # source-tile height: bsp kernel, blocked ELL, fused tables
     precision: str = "float32"  # or "bfloat16"
     sublinear: bool = False  # activation recomputation (torch.utils.checkpoint)
-    kernel: str = ""  # KERNEL: "" (the edge chain); fused_edge is not ported
+    kernel: str = ""  # KERNEL: "" (the edge chain) or fused_edge
+    ell_levels: str = ""  # ELL_LEVELS: "" (the path's default), pow2 or binned
 
     @staticmethod
     def read_from_cfg_file(path: str) -> "InputInfo":
@@ -128,6 +134,9 @@ class InputInfo:
         elif key == "KERNEL":
             self.kernel = value.strip().lower()
             _check_kernel(self.kernel)
+        elif key == "ELL_LEVELS":
+            self.ell_levels = value.strip().lower()
+            _check_ell_levels(self.ell_levels)
         elif key == "PRECISION":
             if value not in ("float32", "bfloat16"):
                 raise ValueError(
@@ -181,22 +190,33 @@ class InputInfo:
 
 
 def _check_kernel(value: str) -> None:
-    if value == "fused_edge":
+    if value == "auto":
         raise ValueError(
-            "KERNEL:fused_edge (the blocked streaming SDDMM+softmax+SpMM "
-            "kernel) is not ported yet: it comes with the blocked ELL route "
-            "in a later slice of the torch port; drop KERNEL to run the "
-            "edge chain, or OPTIM_KERNEL:1 for GAT's ELL attention"
+            "KERNEL:auto lets the autotuner (tune/) choose the kernel; the "
+            "torch port does not implement the autotuner yet: set "
+            "KERNEL:fused_edge, or drop KERNEL to run the edge chain"
         )
-    if value:
-        raise ValueError(f"KERNEL must be empty for the torch port, got {value!r}")
+    if value not in ("", "fused_edge"):
+        raise ValueError(f"KERNEL must be fused_edge (or empty), got {value!r}")
 
 
-def check_supported(cfg: InputInfo, resident: bool) -> None:
+def _check_ell_levels(value: str) -> None:
+    if value == "auto":
+        raise ValueError(
+            "ELL_LEVELS:auto lets the autotuner (tune/) choose the level "
+            "ladder; the torch port does not implement the autotuner yet: set "
+            "pow2 or binned"
+        )
+    if value not in ("", "pow2", "binned"):
+        raise ValueError(f"ELL_LEVELS must be pow2 or binned (or empty), got {value!r}")
+
+
+def check_supported(cfg: InputInfo, resident: bool, supports_fused_edge: bool = False) -> None:
     """Cross-key refusals at the trainer's lifecycle funnel (cfgs built in
     code skip the file parser, so the per-key checks repeat here).
     ``resident`` is the NTS_PALLAS_RESIDENT=1 switch (the ELL-level kernel
-    instead of the bsp kernel under PALLAS:1)."""
+    instead of the bsp kernel under PALLAS:1); ``supports_fused_edge`` is
+    the trainer's flag (GAT, GGCN)."""
     if cfg.algorithm.upper() not in SUPPORTED_ALGORITHMS:
         raise ValueError(
             f"ALGORITHM {cfg.algorithm!r} is not ported yet; the torch port "
@@ -207,16 +227,25 @@ def check_supported(cfg: InputInfo, resident: bool) -> None:
             f"PRECISION must be float32 or bfloat16, got {cfg.precision!r}"
         )
     _check_kernel(cfg.kernel)
+    _check_ell_levels(cfg.ell_levels)
     if cfg.pallas_kernel and not cfg.optim_kernel:
         raise ValueError(
             "PALLAS:1 requires OPTIM_KERNEL:1 (the kernels are layouts of the "
             "OPTIM_KERNEL aggregation path)"
         )
-    if cfg.kernel_tile and not cfg.pallas_kernel:
-        raise ValueError(
-            "KERNEL_TILE without PALLAS:1 selects the blocked ELL route, "
-            "which the torch port does not implement yet"
-        )
+    if cfg.kernel == "fused_edge":
+        if not supports_fused_edge:
+            raise ValueError(
+                f"KERNEL:fused_edge is not available for ALGORITHM "
+                f"{cfg.algorithm!r}: the fused score+softmax+aggregation op "
+                "serves the attention/edge-op families (GAT, GGCN); other "
+                "families aggregate through OPTIM_KERNEL/PALLAS instead"
+            )
+        if cfg.optim_kernel or cfg.pallas_kernel:
+            raise ValueError(
+                "KERNEL:fused_edge and OPTIM_KERNEL/PALLAS select different "
+                "routes for the same chain: choose one"
+            )
     if cfg.kernel_tile and resident:
         raise ValueError(
             "KERNEL_TILE sets the bsp kernel's source tile; the ELL-level "

@@ -15,7 +15,11 @@ bsp kernel's f32 atol is 4e-5 of the reference's rms (its f32 atomics add
 in a varying order, so a sum that cancels to near zero can sit a few
 ulps of its terms away; the rule ``chip_smoke.py`` applies); bfloat16
 rtol=atol=2**-7 (both accumulate in f32 and round once, so the order can
-move a result by one bf16 ulp).
+move a result by one bf16 ulp). The blocked ELL aggregation and the fused
+edge op are plain PyTorch on both devices: the card against the CPU at
+float32 rtol=1e-5, atol=1e-5 of the CPU output's rms (cuBLAS-free, but
+the reductions sum in another order), two calls on the card bitwise
+equal.
 """
 
 from __future__ import annotations
@@ -26,13 +30,16 @@ import torch
 
 from neutronstarlite_torch.graph.dataset import GNNDatum
 from neutronstarlite_torch.graph.storage import build_graph
-from neutronstarlite_torch.models.gat import gat_layer_ell
+from neutronstarlite_torch.models.gat import GATTrainer, gat_layer_ell
 from neutronstarlite_torch.models.gcn import GCNTrainer
+from neutronstarlite_torch.models.ggcn import GGCNTrainer
 from neutronstarlite_torch.ops import _build
+from neutronstarlite_torch.ops import blocked_ell as t_blocked
 from neutronstarlite_torch.ops import bsp_ell as t_bsp
 from neutronstarlite_torch.ops import ell as t_ell
 from neutronstarlite_torch.ops import ell_gat as t_ell_gat
 from neutronstarlite_torch.ops import ell_kernel as t_ellk
+from neutronstarlite_torch.ops import fused_edge as t_fused
 from neutronstarlite_torch.utils.config import InputInfo
 
 pytestmark = pytest.mark.cuda
@@ -343,3 +350,121 @@ def test_cuda_gat_ell_layer_bitwise_repeatable(cuda_device):
         runs.append([out.detach(), W.grad, a.grad, x.grad])
     for first, second in zip(*runs):
         assert torch.equal(first, second)
+
+
+# ---- the blocked ELL route and the fused edge op (plain PyTorch) -------------
+
+
+def _rms_close(got, want):
+    got, want = _np(got), _np(want)
+    rms = float(np.sqrt((want.astype(np.float64) ** 2).mean()))
+    assert np.all(np.abs(got - want) <= 1e-5 * rms + 1e-5 * np.abs(want)), (
+        float(np.abs(got - want).max()), rms)
+
+
+def _fused_run(pair, ins, c, slope, device):
+    ins = [t.detach().to(device).requires_grad_(True) for t in ins]
+    out = t_fused.fused_edge_attention_aggregate(pair, *ins, slope)
+    out.backward(c.to(device))
+    return [out.detach()] + [t.grad for t in ins]
+
+
+@pytest.mark.parametrize("channels,slope", [(1, 0.01), (0, 0.2)], ids=["GAT", "GGCN"])
+def test_cuda_fused_edge_matches_cpu_and_repeats_bitwise(cuda_device, channels, slope):
+    """Forward and the gradients of h, asrc and adst on the card against the
+    CPU (several tiles, a hub destination), and two runs on the card with
+    the same bits; neither hand-written kernel is launched."""
+    src, dst, _ = _hub_graph()
+    g = build_graph(src, dst, V, weight="ones")
+    f = 24
+    ch = channels or f
+    rng = np.random.default_rng(21)
+    ins = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+           for s in ((V, f), (V, ch), (V, ch))]
+    c = torch.from_numpy(rng.standard_normal((V, f), dtype=np.float32))
+    want = _fused_run(t_fused.FusedEdgePair.from_host(g, vt=64), ins, c, slope, "cpu")
+    pair = t_fused.FusedEdgePair.from_host(g, vt=64, device=cuda_device)
+    assert pair.fwd.n_tiles > 1
+    e0, b0 = t_ellk.ell_level_aggregate.launches, t_bsp.bsp_aggregate.launches
+    runs = [_fused_run(pair, ins, c, slope, cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (t_ellk.ell_level_aggregate.launches, t_bsp.bsp_aggregate.launches) == (e0, b0)
+    for got, ref in zip(runs[0], want):
+        _rms_close(got.cpu(), ref)
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_blocked_aggregate_matches_cpu_and_repeats_bitwise(cuda_device, dtype):
+    src, dst, g = _hub_graph()
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(np.random.default_rng(22).standard_normal((V, 41), dtype=np.float32))
+    x = x.to(dt)
+    want = t_blocked.BlockedEllPair.from_host(g, 64).fwd.aggregate(x)
+    tables = t_blocked.BlockedEllPair.from_host(g, 64, device=cuda_device).fwd
+    xd = x.to(cuda_device)
+    first, second = tables.aggregate(xd), tables.aggregate(xd)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and first.dtype == dt
+    if dtype == "float32":
+        _rms_close(first.cpu(), want)
+    else:
+        np.testing.assert_allclose(_np(first.cpu()), _np(want), **BF16_TOL)
+
+
+def _small_datum(f, classes):
+    rng = np.random.default_rng(0)
+    return GNNDatum(
+        feature=rng.standard_normal((V, f), dtype=np.float32),
+        label=rng.integers(0, classes, size=V, dtype=np.int32),
+        mask=(np.arange(V) % 3).astype(np.int32),
+    )
+
+
+def test_cuda_blocked_trainer_route_matches_plain_route(cuda_device, monkeypatch):
+    """GCN f32 through OPTIM_KERNEL:1 KERNEL_TILE:64 follows the plain
+    scatter route's loss curve on the card and launches neither kernel."""
+    monkeypatch.setenv("NTS_PALLAS_RESIDENT", "0")
+    src, dst, g = _hub_graph()
+    datum = _small_datum(24, 5)
+
+    def losses(blocked):
+        cfg = InputInfo(algorithm="GCN", vertices=V, layer_string="24-16-5", epochs=3,
+                        drop_rate=0.0, optim_kernel=blocked, kernel_tile=64 if blocked else 0)
+        tr = GCNTrainer.from_arrays(cfg, src, dst, datum, seed=0, device=cuda_device,
+                                    host_graph=g)
+        assert isinstance(tr.compute_graph, t_blocked.BlockedEllPair) == blocked
+        tr.run()
+        return np.asarray(tr.loss_history)
+
+    want = losses(False)
+    e0, b0 = t_ellk.ell_level_aggregate.launches, t_bsp.bsp_aggregate.launches
+    got = losses(True)
+    torch.cuda.synchronize()
+    assert (t_ellk.ell_level_aggregate.launches, t_bsp.bsp_aggregate.launches) == (e0, b0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("cls", [GATTrainer, GGCNTrainer], ids=["GAT", "GGCN"])
+def test_cuda_fused_trainer_route_matches_edge_chain(cuda_device, cls):
+    """KERNEL:fused_edge follows the edge chain's loss curve on the card
+    (same seeded parameters, no dropout) and launches neither kernel."""
+    src, dst, _ = _hub_graph()
+    g = build_graph(src, dst, V, weight="ones")
+    datum = _small_datum(24, 5)
+
+    def losses(kernel):
+        cfg = InputInfo(algorithm=cls.__name__[:-7], vertices=V, layer_string="24-16-5",
+                        epochs=3, drop_rate=0.0, kernel=kernel, kernel_tile=64)
+        tr = cls.from_arrays(cfg, src, dst, datum, seed=0, device=cuda_device, host_graph=g)
+        assert isinstance(tr.compute_graph, t_fused.FusedEdgePair) == bool(kernel)
+        tr.run()
+        return np.asarray(tr.loss_history)
+
+    want = losses("")
+    e0, b0 = t_ellk.ell_level_aggregate.launches, t_bsp.bsp_aggregate.launches
+    got = losses("fused_edge")
+    torch.cuda.synchronize()
+    assert (t_ellk.ell_level_aggregate.launches, t_bsp.bsp_aggregate.launches) == (e0, b0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

@@ -224,7 +224,7 @@ def test_cli_smoke_runs_on_cpu():
 
 
 _NO_JAX = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["neutronstarlite_tpu"] = None
 import neutronstarlite_torch
@@ -232,17 +232,28 @@ for m in pkgutil.walk_packages(neutronstarlite_torch.__path__, "neutronstarlite_
     importlib.import_module(m.name)
 import chip_smoke
 from neutronstarlite_torch.run import main
-sys.exit(main(["configs/gcn_cora_smoke.cfg", "--device", "cpu"]))
+assert main(["configs/gcn_cora_smoke.cfg", "--device", "cpu"]) == 0
+assert main(["configs/gat_cora_fused_smoke.cfg", "--device", "cpu"]) == 0
+with open("configs/gcn_cora_smoke.cfg") as fh:
+    blocked = fh.read() + "OPTIM_KERNEL:1\nKERNEL_TILE:512\n"
+with open(sys.argv[1], "w") as fh:
+    fh.write(blocked.replace("../tests", os.getcwd() + "/tests"))
+sys.exit(main([sys.argv[1], "--device", "cpu"]))
 """
 
 
-def test_port_runs_with_jax_poisoned():
+def test_port_runs_with_jax_poisoned(tmp_path):
+    """The port's module tree, chip_smoke.py and the CLI on the default,
+    fused (KERNEL:fused_edge) and blocked (OPTIM_KERNEL:1 KERNEL_TILE)
+    routes, with jax and the JAX package made unimportable."""
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX], cwd=REPO, capture_output=True, text=True,
-        timeout=180,
+        [sys.executable, "-c", _NO_JAX, str(tmp_path / "blocked.cfg")], cwd=REPO,
+        capture_output=True, text=True, timeout=180,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "Epoch 1 loss" in proc.stdout
+    assert proc.stdout.count("Epoch 1 loss") == 3
+    for line in ("KERNEL:fused_edge", "OPTIM_KERNEL: blocked ELL aggregation"):
+        assert line in proc.stdout, line
 
 
 def test_no_file_of_the_port_imports_jax():

@@ -86,7 +86,7 @@ def test_cfg_parse_agrees_or_refuses(path):
 
 
 @pytest.mark.parametrize("line", [
-    "PARTITIONS:4", "KERNEL:fused_edge", "SAMPLE_PIPELINE:pipelined",
+    "PARTITIONS:4", "KERNEL:auto", "ELL_LEVELS:auto", "SAMPLE_PIPELINE:pipelined",
     "CHECKPOINT_DIR:/tmp/x", "ALGORITHM:GCNSAMPLESINGLE", "PROC_REP:1", "FANOUT:5-5",
     "PRECISION:bf16", "NO_SUCH_KEY:1",
 ])
@@ -101,9 +101,11 @@ def test_cfg_cross_key_refusals():
     cfg = t_config.InputInfo(algorithm="GCNCPU", pallas_kernel=True)
     with pytest.raises(ValueError, match="OPTIM_KERNEL"):
         t_config.check_supported(cfg, resident=False)
+    # KERNEL_TILE without PALLAS: the blocked ELL route (under OPTIM_KERNEL)
     cfg = t_config.InputInfo(algorithm="GCNCPU", kernel_tile=64)
-    with pytest.raises(ValueError, match="blocked ELL"):
-        t_config.check_supported(cfg, resident=False)
+    t_config.check_supported(cfg, resident=False)
+    cfg = t_config.InputInfo(algorithm="GCNCPU", optim_kernel=True, kernel_tile=64)
+    t_config.check_supported(cfg, resident=False)
     cfg = t_config.InputInfo(
         algorithm="GCNCPU", optim_kernel=True, pallas_kernel=True, kernel_tile=64
     )

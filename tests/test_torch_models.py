@@ -234,15 +234,33 @@ def test_ggcn_runs_its_edge_chain_under_optim_kernel(host_graphs):
     tr.run()
 
 
-def test_kernel_fused_edge_is_refused(tmp_path):
+def test_kernel_fused_edge_is_refused(tmp_path, host_graphs):
+    """KERNEL:auto (the autotuner's choice) is refused; KERNEL:fused_edge
+    is refused on a family without the fused op (GCN) and beside
+    OPTIM_KERNEL, as in JAX, and accepted on GAT and GGCN."""
     p = tmp_path / "gat.cfg"
-    p.write_text("ALGORITHM:GATCPU\nVERTICES:10\nLAYERS:4-2\nKERNEL:fused_edge\n")
-    with pytest.raises(ValueError, match="later slice"):
+    p.write_text("ALGORITHM:GATCPU\nVERTICES:10\nLAYERS:4-2\nKERNEL:auto\n")
+    with pytest.raises(ValueError, match="autotuner"):
         InputInfo.read_from_cfg_file(str(p))
     p.write_text("ALGORITHM:GATCPU\nVERTICES:10\nLAYERS:4-2\nKERNEL:\n")
     assert InputInfo.read_from_cfg_file(str(p)).kernel == ""
-    with pytest.raises(ValueError, match="later slice"):
-        t_config.check_supported(InputInfo(algorithm="GAT", kernel="fused_edge"), False)
+    p.write_text("ALGORITHM:GATCPU\nVERTICES:10\nLAYERS:4-2\nKERNEL:fused_edge\n")
+    assert InputInfo.read_from_cfg_file(str(p)).kernel == "fused_edge"
+    with pytest.raises(ValueError, match="autotuner"):
+        t_config.check_supported(InputInfo(algorithm="GAT", kernel="auto"), False, True)
+    with pytest.raises(ValueError, match="not available"):
+        t_config.check_supported(InputInfo(algorithm="GCN", kernel="fused_edge"), False)
+    src, dst = load_edges(EDGES)
+    cfg = _cfg(InputInfo, "GCNCPU", kernel="fused_edge")
+    with pytest.raises(ValueError, match="not available"):
+        get_algorithm("GCNCPU").from_arrays(cfg, src, dst, _data(GNNDatum), device="cpu",
+                                             host_graph=host_graphs["gcn_norm"][1])
+    for family in ("GAT", "GGCN"):
+        cfg = _cfg(InputInfo, family, "ell", kernel="fused_edge")
+        with pytest.raises(ValueError, match="choose one"):
+            FAMILIES[family][1].from_arrays(cfg, src, dst, _data(GNNDatum), device="cpu",
+                                            host_graph=host_graphs["ones"][1])
+        t_config.check_supported(_cfg(InputInfo, family, kernel="fused_edge"), False, True)
 
 
 FAMILY_CFGS = ("gat_cora.cfg", "gat_cora_optim.cfg", "gat_cora_fused_smoke.cfg",
@@ -251,19 +269,21 @@ FAMILY_CFGS = ("gat_cora.cfg", "gat_cora_optim.cfg", "gat_cora_fused_smoke.cfg",
 
 @pytest.mark.parametrize("name", FAMILY_CFGS)
 def test_family_cfgs_parse_as_jax_or_refuse(name):
-    """The repo's cfgs of the four families: the port reads what JAX reads,
-    or refuses (the dist GAT algorithm, KERNEL:fused_edge) with a
-    ValueError."""
+    """The repo's cfgs of the four families: the port reads what JAX reads
+    (KERNEL:fused_edge included), or refuses (the dist GAT algorithm,
+    KERNEL:auto) with a ValueError."""
     path = os.path.join(REPO, "configs", name)
     ref = JInfo.read_from_cfg_file(path)
-    if ref.algorithm.upper() not in t_config.SUPPORTED_ALGORITHMS or ref.kernel:
+    if (ref.algorithm.upper() not in t_config.SUPPORTED_ALGORITHMS
+            or ref.kernel not in ("", "fused_edge")):
         with pytest.raises(ValueError):
             InputInfo.read_from_cfg_file(path)
         return
     got = InputInfo.read_from_cfg_file(path)
     for field in ("algorithm", "vertices", "epochs", "layer_string", "learn_rate",
                   "weight_decay", "decay_rate", "decay_epoch", "drop_rate",
-                  "optim_kernel", "pallas_kernel", "edge_file", "label_file"):
+                  "optim_kernel", "pallas_kernel", "edge_file", "label_file",
+                  "kernel", "kernel_tile", "ell_levels"):
         assert getattr(got, field) == getattr(ref, field), field
     assert get_algorithm(got.algorithm) is FAMILIES[{
         "GATCPU": "GAT", "GINGPU": "GIN", "COMMNETGPU": "COMMNET", "GGCNCPU": "GGCN",
@@ -282,6 +302,8 @@ def test_algorithm_names_register_every_family():
     assert GINTrainer.weight_mode == CommNetTrainer.weight_mode == "gcn_norm"
     assert GATTrainer.supports_optim_kernel and GINTrainer.supports_optim_kernel
     assert CommNetTrainer.supports_optim_kernel and not GGCNTrainer.supports_optim_kernel
+    assert GATTrainer.supports_fused_edge and GGCNTrainer.supports_fused_edge
+    assert not (GINTrainer.supports_fused_edge or CommNetTrainer.supports_fused_edge)
 
 
 def _gat_cfg(path):
