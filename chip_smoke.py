@@ -66,7 +66,24 @@ Phases (each prints its lines; any failure exits non-zero):
    E=11,461,589) with its peak memory, pass times and one profiled epoch; (d) the fused op alone on a
    power-law graph with a hub and 6 tiles, C=1 and C=f, forward and all
    three gradients on the card against the CPU (F32_TOL), and two calls
-   on the card bitwise equal.
+   on the card bitwise equal;
+11. resilience on the card, GCN bf16 602-128-41 with DROP_RATE 0.5 on
+   phase 4's graph (each run with the kernels' counts at 0 before it and
+   its kernel's launches read after): (a) the ELL route, 6 straight
+   epochs against 3 + save + a new trainer restored + 3, losses, params
+   and Adam m, v, step bitwise (max |d| 0); (b) the bsp route (f32
+   atomics, not repeatable): the restored tensors equal to the saved ones,
+   the continued losses within 2 x the spread of two straight runs (+
+   BSP_RESUME_RTOL of the loss); (c) supervised_run under
+   NTS_FAULT_SPEC=nan_loss@epoch=3 with a checkpoint each epoch: one
+   nonfinite_loss fault and one rollback in a recording sink, (a)'s
+   straight run bitwise; (d) ckpt_corrupt on the final save: quarantine,
+   fallback to step 1, a 3-epoch resume; (e) a Cora GCN 1433-16-7
+   checkpoint written on the CPU restored on the card (eval logits within
+   1e-3), and the Cora CLI with CHECKPOINT_DIR run to EPOCHS:5, then
+   EPOCHS:10, which resumes at 5 and trains 5-9; (f) save, restore and
+   verify_step_dir times of one step, the guard check alone, and the ELL
+   epoch loop with the guards armed and not.
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -95,6 +112,7 @@ import json
 import logging
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -124,6 +142,10 @@ GAT_LOGITS_TOL = (1e-2, 1e-3)
 GAT_ROW = 399_835
 GAT_LOSS_RTOL = 1e-5
 FAMILY_LOSS_RTOL = 1e-4  # GIN / CommNet kernel routes vs scatter, f32
+# bsp resume (phase 11): the bsp kernel adds in f32 atomics in a varying
+# order, so a continued run is held to twice the spread of two straight
+# runs, plus this fraction of the loss for when those two happen to agree
+BSP_RESUME_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1231,6 +1253,321 @@ def phase_blocked_and_fused(dev, g, scale: float, epochs: int, seed: int, result
             f"{F32_TOL[1]}*|ref|); two calls on the card bitwise equal")
 
 
+class Recorder:
+    """A fault/recovery sink (resilience.events): keeps (record, kind or
+    action, fields)."""
+
+    def __init__(self):
+        self.records = []
+
+    def event(self, event_kind, **fields):
+        self.records.append((event_kind, fields.get("kind") or fields.get("action"), fields))
+
+
+def named_leaves(tr) -> dict:
+    """The trainer's checkpoint leaves by name (params[0]['W'], opt.m[..]),
+    as float64 numpy arrays on the host."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch.utils import tree as tree_util
+
+    return {name + path: (leaf.detach().double().cpu().numpy() if torch.is_tensor(leaf)
+                          else np.asarray(leaf, dtype=np.float64))
+            for name, t in tr.checkpoint_state().items()
+            for path, leaf in tree_util.flatten_with_path(t)}
+
+
+def max_leaf_diff(a: dict, b: dict) -> float:
+    import numpy as np
+
+    if list(a) != list(b):
+        raise AssertionError(f"leaf names differ: {list(a)[:4]} vs {list(b)[:4]}")
+    return max(float(np.abs(a[k] - b[k]).max()) if a[k].size else 0.0 for k in a)
+
+
+def phase_resilience(dev, g, seed: int, results, failures) -> None:
+    """Phase 11: checkpoints and the supervisor on the card, GCN bf16
+    602-128-41 with DROP_RATE 0.5 on phase 4's graph. (a) the ELL route, 6
+    straight epochs against 3 + save + a new trainer restored + 3, bitwise;
+    (b) the bsp route: the restored tensors against the saved ones, and the
+    continued losses against the spread of two straight runs; (c)
+    supervised_run under nan_loss@epoch=3 with a checkpoint each epoch:
+    one fault, one rollback, the straight run's losses bitwise; (d)
+    ckpt_corrupt on the final save: quarantine, fallback, resume; (e) a
+    CPU checkpoint of Cora GCN restored on the card, and the Cora CLI
+    resumed from a checkpoint; (f) save, restore and verify times, and the
+    ELL epoch with the guards armed and not."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch import run
+    from neutronstarlite_torch.graph.dataset import GNNDatum
+    from neutronstarlite_torch.graph.storage import load_edges
+    from neutronstarlite_torch.models.gcn import GCNTrainer
+    from neutronstarlite_torch.ops.bsp_ell import bsp_aggregate
+    from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
+    from neutronstarlite_torch.resilience import events, faults, guards
+    from neutronstarlite_torch.resilience.supervisor import supervised_run
+    from neutronstarlite_torch.utils.checkpoint import list_steps, verify_step_dir
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    src, dst = results["edges"]
+    datum = results["datum"]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    log(f"phase 11 on {smi}")
+    counters = {"ell": ell_level_aggregate, "bsp": bsp_aggregate}
+    work = tempfile.mkdtemp(prefix="nts-phase11-")
+
+    def trainer(route, epochs, ck="", every=0):
+        os.environ["NTS_PALLAS_RESIDENT"] = "1" if route == "ell" else "0"
+        cfg = InputInfo(
+            algorithm="GCN", vertices=g.v_num, layer_string="602-128-41", epochs=epochs,
+            drop_rate=0.5, precision="bfloat16", learn_rate=0.01, weight_decay=1e-4,
+            decay_rate=0.97, decay_epoch=100, optim_kernel=True, pallas_kernel=True,
+            checkpoint_dir=ck, checkpoint_every=every,
+        )
+        return GCNTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device=dev,
+                                      host_graph=g)
+
+    def drive(tr, route):
+        """tr.run() with the kernels' counts at 0 before it; its kernel's
+        launches, read just after."""
+        zero_launches()
+        tr.run()
+        torch.cuda.synchronize()
+        launches = kernel_launches()["ell_level" if route == "ell" else "bsp_ell"]
+        if launches <= 0:
+            raise AssertionError(f"phase 11 {route}: its kernel was never launched")
+        return launches
+
+    def rerun(tr, epochs, ck):
+        """The same trainer (its tables kept) from fresh parameters."""
+        tr.init_model()
+        tr.cfg.epochs, tr.cfg.checkpoint_dir = epochs, ck
+        tr.epoch_times, tr.loss_history = [], []
+        tr._first_epoch_trained, tr._guard_state = None, None
+        return tr
+
+    def check(name, ok, msg):
+        if not ok:
+            failures.append(f"phase 11 {name}: {msg}")
+            log(f"FAILED {failures[-1]}")
+
+    try:
+        # (a) the ELL route: 6 straight against 3 + save + restore + 3
+        ck = os.path.join(work, "ell")
+        straight = trainer("ell", 6)
+        n_s = drive(straight, "ell")
+        first = trainer("ell", 3, ck)
+        n_1 = drive(first, "ell")
+        second = trainer("ell", 6, ck)
+        n_2 = drive(second, "ell")
+        resumed = first.loss_history + second.loss_history
+        loss_d = max(abs(a - b) for a, b in zip(resumed, straight.loss_history))
+        leaf_d = max_leaf_diff(named_leaves(second), named_leaves(straight))
+        log(f"(a) ELL resume: losses straight {straight.loss_history}, 3 + restore + 3 "
+            f"{resumed}; max |d| losses {loss_d:.3e}, params and Adam m, v, step "
+            f"{leaf_d:.3e} (must be 0); ell_level launches {n_s} straight, {n_1} + {n_2} "
+            f"resumed")
+        check("(a) ELL resume", len(second.loss_history) == 3 and loss_d == 0.0
+              and leaf_d == 0.0, f"max |d| losses {loss_d}, leaves {leaf_d}")
+        straight_leaves = named_leaves(straight)
+        del first, second
+
+        # (b) the bsp route, one trainer (its tables built once)
+        ck = os.path.join(work, "bsp")
+        tr = trainer("bsp", 6)
+        drive(tr, "bsp")
+        s1 = list(tr.loss_history)
+        drive(rerun(tr, 6, ""), "bsp")
+        s2 = list(tr.loss_history)
+        drive(rerun(tr, 3, ck), "bsp")
+        part1, saved = list(tr.loss_history), named_leaves(tr)
+        rerun(tr, 6, ck)
+        if tr.restore(ck) != 3:
+            raise AssertionError("phase 11 (b): the bsp checkpoint did not restore step 3")
+        restored_d = max_leaf_diff(named_leaves(tr), saved)
+        drive(tr, "bsp")
+        cont = tr.loss_history
+        spread = max(abs(a - b) for a, b in zip(s1[3:], s2[3:]))
+        dev_ = max(abs(a - b) for a, b in zip(cont, s1[3:]))
+        limit = 2.0 * spread + BSP_RESUME_RTOL * max(abs(x) for x in s1)
+        log(f"(b) bsp resume: restored tensors vs saved max |d| {restored_d:.3e} (must be "
+            f"0); continued losses {cont} vs straight {s1[3:]} and {s2[3:]}: max |d| "
+            f"{dev_:.3e}, the two straight runs' spread {spread:.3e} (limit 2 x spread + "
+            f"{BSP_RESUME_RTOL:g} x |loss| = {limit:.3e}); first three {part1}")
+        check("(b) bsp restore", restored_d == 0.0, f"restored tensors off by {restored_d}")
+        check("(b) bsp continuation", len(cont) == 3 and dev_ <= limit,
+              f"continued losses off by {dev_} (spread {spread})")
+        del tr
+
+        # (c) rollback under nan_loss@epoch=3
+        ck = os.path.join(work, "rollback")
+        tr = trainer("ell", 6, ck, every=1)
+        rec = Recorder()
+        os.environ["NTS_FAULT_SPEC"] = "nan_loss@epoch=3"
+        faults.reset()
+        events.set_sink(rec)
+        try:
+            zero_launches()
+            supervised_run(tr, backoff_base_s=0.0)
+            torch.cuda.synchronize()
+            n_c = kernel_launches()["ell_level"]
+        finally:
+            os.environ.pop("NTS_FAULT_SPEC")
+            faults.reset()
+            events.set_sink(None)
+        seq = [(r[0], r[1], r[2].get("epoch")) for r in rec.records]
+        loss_d = max(abs(a - b) for a, b in zip(tr.loss_history, straight.loss_history))
+        leaf_d = max_leaf_diff(named_leaves(tr), straight_leaves)
+        log(f"(c) rollback: records {seq}; losses {tr.loss_history}; max |d| against (a)'s "
+            f"straight run: losses {loss_d:.3e}, leaves {leaf_d:.3e} (must be 0); "
+            f"ell_level launches {n_c}")
+        check("(c) rollback", seq == [("fault", "nonfinite_loss", 3),
+                                      ("recovery", "rollback", 3)]
+              and len(tr.loss_history) == 6 and loss_d == 0.0 and leaf_d == 0.0
+              and n_c > 0, f"records {seq}, |d| losses {loss_d}, leaves {leaf_d}")
+
+        # (d) a corrupt final save: quarantine, fallback to step 1, resume
+        ck = os.path.join(work, "corrupt")
+        os.environ["NTS_FAULT_SPEC"] = "ckpt_corrupt@save=3"
+        faults.reset()
+        try:
+            drive(rerun(tr, 2, ck), "ell")  # saves steps 1, 2 and 2 again (#3, corrupted)
+        finally:
+            os.environ.pop("NTS_FAULT_SPEC")
+            faults.reset()
+        rec = Recorder()
+        events.set_sink(rec)
+        try:
+            tr.cfg.checkpoint_every = 0
+            drive(rerun(tr, 4, ck), "ell")
+        finally:
+            events.set_sink(None)
+        seq = [(r[0], r[1]) for r in rec.records]
+        quarantined = sorted(n for n in os.listdir(ck) if n.endswith(".corrupt"))
+        log(f"(d) corrupt checkpoint: records {seq}; quarantined {quarantined}; resumed "
+            f"run trained {len(tr.epoch_times)} epochs, losses {tr.loss_history}")
+        check("(d) corrupt checkpoint",
+              seq == [("fault", "ckpt_corrupt"), ("recovery", "ckpt_fallback"),
+                      ("recovery", "resume")] and len(tr.epoch_times) == 3
+              and quarantined and all(math.isfinite(x) for x in tr.loss_history),
+              f"records {seq}, {len(tr.epoch_times)} epochs, quarantined {quarantined}")
+
+        # (f) save, restore, verify and the guards at this width
+        ck = os.path.join(work, "times")
+        t_save, t_restore, t_verify = [], [], []
+        for i in range(5):
+            t0 = time.perf_counter()
+            straight.save(ck, 100 + i)
+            t_save.append(time.perf_counter() - t0)
+            step_dir = list_steps(ck)[-1][1]
+            t0 = time.perf_counter()
+            verify_step_dir(step_dir)
+            t_verify.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            straight.restore(ck)
+            torch.cuda.synchronize()
+            t_restore.append(time.perf_counter() - t0)
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, n)) for n in os.listdir(step_dir))
+        guard_ms = []
+        with guards.armed():
+            for epoch in range(20):
+                t0 = time.perf_counter()
+                guards.epoch_check(tr, 50 + epoch, 0.01, 1.0)
+                guard_ms.append((time.perf_counter() - t0) * 1e3)
+        loop = {}
+        for armed in (False, True) * 3:
+            ends = []
+            rerun(tr, 20, "")
+            emit = tr.emit_epoch
+            tr.emit_epoch = lambda *a, **k: (emit(*a, **k), ends.append(time.perf_counter()))
+            if armed:
+                with guards.armed():
+                    drive(tr, "ell")
+            else:
+                drive(tr, "ell")
+            del tr.emit_epoch
+            steady = np.diff(ends)[1:] * 1e3  # from the 2nd epoch's end on
+            loop.setdefault(armed, []).extend(steady.tolist())
+        log(f"(f) at 602-128-41 on {smi}: save {np.mean(t_save) * 1e3:.2f} ms, "
+            f"restore {np.mean(t_restore) * 1e3:.2f} ms, verify_step_dir "
+            f"{np.mean(t_verify) * 1e3:.2f} ms (means of 5; {nbytes} bytes per step); "
+            f"guard check alone {np.mean(guard_ms):.3f} ms (mean of 20); ELL epoch loop "
+            f"(step, guards, cadence accuracies), end to end of the steady epochs of 3 "
+            f"alternating 20-epoch runs each: guards unarmed mean {np.mean(loop[False]):.3f} "
+            f"ms, median {np.median(loop[False]):.3f} (range {min(loop[False]):.3f}-"
+            f"{max(loop[False]):.3f}); armed mean {np.mean(loop[True]):.3f} ms, median "
+            f"{np.median(loop[True]):.3f} ({min(loop[True]):.3f}-{max(loop[True]):.3f})")
+        del tr, straight
+        torch.cuda.empty_cache()
+
+        # (e) Cora GCN: a CPU checkpoint on the card, and the CLI resumed
+        fix = os.path.join(REPO, "tests", "fixtures", "cora")
+        c_src, c_dst = load_edges(os.path.join(fix, "cora.2708.edge.self"))
+        c_datum = GNNDatum.read_feature_label_mask(
+            "", os.path.join(fix, "cora.labeltable"), os.path.join(fix, "cora.mask"),
+            2708, 1433, seed=0)
+        ck = os.path.join(work, "cora")
+
+        def cora(device, epochs):
+            cfg = InputInfo(algorithm="GCNCPU", vertices=2708, layer_string="1433-16-7",
+                            epochs=epochs, drop_rate=0.5, decay_epoch=-1, checkpoint_dir=ck)
+            return GCNTrainer.from_arrays(cfg, c_src, c_dst, c_datum, seed=seed,
+                                          device=device)
+
+        cpu = cora("cpu", 3)
+        cpu.run()
+        card = cora(dev, 3)
+        if card.restore(ck) != 3:
+            raise AssertionError("phase 11 (e): the CPU checkpoint did not restore")
+        err = float((card.eval_logits().cpu() - cpu.eval_logits()).abs().max())
+        log(f"(e) Cora GCN 1433-16-7: a checkpoint written on the CPU restored on {dev}: "
+            f"eval logits max |d| {err:.3e} against the CPU eval (limit 1e-3)")
+        check("(e) CPU checkpoint on the card", err <= 1e-3, f"eval logits off by {err}")
+
+        lines = []
+
+        class Grab(logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+
+        trained = []
+        cfg_path = os.path.join(work, "cora.cfg")
+        for epochs in (5, 10):
+            with open(cfg_path, "w") as fh:
+                fh.write(
+                    f"ALGORITHM:GCNCPU\nVERTICES:2708\nLAYERS:1433-16-7\nEPOCHS:{epochs}\n"
+                    f"EDGE_FILE:{fix}/cora.2708.edge.self\nLABEL_FILE:{fix}/cora.labeltable\n"
+                    f"MASK_FILE:{fix}/cora.mask\nDECAY_EPOCH:-1\nDROP_RATE:0.5\n"
+                    f"OPTIM_KERNEL:1\nCHECKPOINT_DIR:{work}/cli\n"
+                )
+            lines.clear()
+            grab = Grab()
+            logging.getLogger("nts_torch").addHandler(grab)
+            try:
+                os.environ["NTS_PALLAS_RESIDENT"] = "0"
+                rc = run.main([cfg_path, "--device", dev.type])
+            finally:
+                logging.getLogger("nts_torch").removeHandler(grab)
+            trained.append([int(ln.split()[1]) for ln in lines
+                            if ln.startswith("Epoch ") and " loss " in ln])
+            if rc != 0:
+                raise AssertionError(f"phase 11 (e): Cora CLI EPOCHS:{epochs} returned {rc}")
+        resumed = [ln for ln in lines if ln.startswith("restored checkpoint at epoch 5")]
+        log(f"(e) Cora CLI with CHECKPOINT_DIR: EPOCHS:5 trained {trained[0]}, then "
+            f"EPOCHS:10 logged {resumed[:1]} and trained {trained[1]}")
+        check("(e) CLI resume", trained == [list(range(5)), list(range(5, 10))]
+              and len(resumed) == 1 and "RECOVERY resume {'epoch': 5}" in lines,
+              f"trained {trained}, resume lines {resumed}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1, help="fraction of Reddit's V and E")
@@ -1273,6 +1610,7 @@ def main(argv=None) -> int:
     ggcn_chain = phase_ggcn(dev, args.scale, args.seed)
     phase_blocked_and_fused(dev, g, args.scale, args.epochs, args.seed, results, ggcn_chain,
                             results["failures"])
+    phase_resilience(dev, g, args.seed, results, results["failures"])
     if results["failures"]:
         for msg in results["failures"]:
             log(f"FAILED {msg}")

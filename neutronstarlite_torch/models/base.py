@@ -7,6 +7,12 @@
 loss, per-split accuracy and the report lines. Trainers are registered by
 their ALGORITHM strings, as in the JAX registry.
 
+Checkpoints (``CHECKPOINT_DIR``, ``CHECKPOINT_EVERY``): the run loop calls
+``ckpt_begin`` (resume, or the supervisor's rollback), ``emit_epoch`` (the
+health guards) and ``ckpt_epoch_end`` each epoch, and ``ckpt_final``. The
+saved state is the trainer's ``checkpoint_state()`` in the reference's
+structure and leaf order, so each package restores the other's files.
+
 Device rule: every entry point takes an explicit ``device``. ``None`` means
 the CUDA card, and raises when there is none: the port never carries on
 quietly on the CPU. Tests pass ``device="cpu"``.
@@ -23,6 +29,9 @@ import torch
 
 from neutronstarlite_torch.graph.dataset import GNNDatum
 from neutronstarlite_torch.graph.storage import CSCGraph, build_graph, load_edges
+from neutronstarlite_torch.resilience import events, guards
+from neutronstarlite_torch.utils import checkpoint as ckpt
+from neutronstarlite_torch.utils import tree as tree_util
 from neutronstarlite_torch.utils.config import SUPPORTED_ALGORITHMS, InputInfo
 from neutronstarlite_torch.utils.logging import get_logger
 
@@ -86,6 +95,11 @@ class ToolkitBase:
         self.epoch_times: list = []
         self.loss_history: list = []
         self.phase_times: Dict[str, float] = {}
+        # the first epoch this process trained: maps epoch numbers onto
+        # epoch_times indices after a resume
+        self._first_epoch_trained: Optional[int] = None
+        # set by supervised_run before a retry: "rollback" or "restart"
+        self._supervised_retry = False
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -159,6 +173,103 @@ class ToolkitBase:
 
     def build_model(self) -> None:
         raise NotImplementedError
+
+    def init_model(self) -> None:
+        """(Re)initialise the parameters and the optimizer on the tables
+        already built (the supervisor's restart)."""
+        raise NotImplementedError
+
+    # ---- checkpoint / resume ----------------------------------------------
+    def checkpoint_state(self) -> Dict[str, object]:
+        """``{"params": ..., "opt": ...}`` in the reference's structure."""
+        raise NotImplementedError
+
+    def _apply_restored(self, state) -> None:
+        raise NotImplementedError
+
+    def save(self, path: str, epoch: int) -> None:
+        ckpt.save_checkpoint(path, self.checkpoint_state(), epoch)
+
+    def _validate_restored(self, state) -> None:
+        """Refuse a checkpoint whose leaf shapes do not fit the model,
+        naming the leaves (e.g. LAYERS changed between save and resume)."""
+        mismatches = []
+        template = self.checkpoint_state()
+        for name in ("params", "opt"):
+            got = state.get(name)
+            if got is None:
+                continue
+            for (path, t_leaf), g_leaf in zip(tree_util.flatten_with_path(template[name]),
+                                              tree_util.leaves(got)):
+                t_shape, g_shape = tuple(np.shape(t_leaf)), tuple(np.shape(g_leaf))
+                if t_shape != g_shape:
+                    mismatches.append(
+                        f"{name}{path}: checkpoint {g_shape} vs model {t_shape}"
+                    )
+        if mismatches:
+            raise ValueError(
+                "checkpoint does not fit this model (did LAYERS/HIDDEN change "
+                "between save and resume?); mismatched leaves: " + "; ".join(mismatches)
+            )
+
+    def restore(self, path: str) -> int:
+        """The epoch to resume from (0 when there is no checkpoint)."""
+        got = ckpt.restore_checkpoint(path, self.checkpoint_state())
+        if got is None:
+            return 0
+        state, step = got
+        self._validate_restored(state)
+        self._apply_restored(state)
+        log.info("restored checkpoint at epoch %d from %s", step, path)
+        return step
+
+    def ckpt_begin(self) -> int:
+        """The epoch the run loop starts at (0 without CHECKPOINT_DIR). A
+        resume is recorded as ``recovery(action=resume)``, except in a
+        supervised retry, whose rollback the supervisor recorded. A retry
+        rewinds ``epoch_times``/``loss_history`` to the resume point, so
+        the rolled-back tail does not count twice; when a rollback finds
+        no intact step, the model is re-initialised instead of training
+        on with the poisoned state."""
+        retry = self._supervised_retry
+        start = self.restore(self.cfg.checkpoint_dir) if self.cfg.checkpoint_dir else 0
+        if retry:
+            if start == 0 and retry == "rollback":
+                log.warning(
+                    "supervised rollback found no restorable checkpoint under %s; "
+                    "re-initialising the model", self.cfg.checkpoint_dir,
+                )
+                self.init_model()
+                events.emit_recovery(action="restart", epoch=0)
+            first = self._first_epoch_trained
+            keep = max(start - (first if first is not None else 0), 0)
+            del self.epoch_times[keep:]
+            del self.loss_history[keep:]
+            if keep == 0:
+                self._first_epoch_trained = None
+        elif start > 0:
+            events.emit_recovery(action="resume", epoch=start)
+        self._supervised_retry = False
+        return start
+
+    def ckpt_epoch_end(self, epoch: int) -> None:
+        cfg = self.cfg
+        if cfg.checkpoint_dir and cfg.checkpoint_every > 0 \
+                and (epoch + 1) % cfg.checkpoint_every == 0:
+            self.save(cfg.checkpoint_dir, epoch + 1)
+
+    def ckpt_final(self) -> None:
+        if self.cfg.checkpoint_dir:
+            self.save(self.cfg.checkpoint_dir, self.cfg.epochs)
+
+    def emit_epoch(self, epoch: int, seconds: float, loss=None) -> None:
+        """Record one trained epoch, then run the health guards (they raise
+        only when armed): after the epoch is in the history, before
+        ``ckpt_epoch_end`` could save a poisoned state. The reference also
+        writes the epoch to its metrics stream here (the obs slice)."""
+        if self._first_epoch_trained is None:
+            self._first_epoch_trained = epoch
+        guards.epoch_check(self, epoch, seconds, loss)
 
     # ---- accuracy / loss helpers ----------------------------------------
     @staticmethod

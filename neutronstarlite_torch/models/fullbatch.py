@@ -30,6 +30,13 @@ The step is forward -> masked NLL -> ``backward()`` -> ``adam_update`` (in
 place). Each epoch's loss and the training forward's logits come from
 before the update, as in JAX; the cadence accuracy lines use those
 train-mode logits. Matmuls run in full float32: TF32 is switched off.
+
+The run loop is the reference's: ``ckpt_begin`` (resume or rollback), per
+epoch the step, ``fault_point("epoch_loss")``, ``emit_epoch`` (the guards)
+and ``ckpt_epoch_end``, then ``ckpt_final``. Epoch e's dropout masks come
+from a generator seeded from (seed, e) at the start of the epoch, the
+port's form of JAX's ``fold_in(key, e)``: a resumed or rolled-back run
+draws the masks of a straight run, and the checkpoint needs no RNG leaf.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import os
 import time
 from typing import Any, Dict, List
 
+import numpy as np
 import torch
 
 from neutronstarlite_torch.models.base import ToolkitBase
@@ -47,6 +55,7 @@ from neutronstarlite_torch.ops.blocked_ell import BlockedEllPair
 from neutronstarlite_torch.ops.bsp_ell import DEFAULT_VT, BspEllPair
 from neutronstarlite_torch.ops.ell import EllPair
 from neutronstarlite_torch.ops.fused_edge import FusedEdgePair
+from neutronstarlite_torch.resilience.faults import fault_point
 from neutronstarlite_torch.utils.config import check_supported
 from neutronstarlite_torch.utils.logging import get_logger
 
@@ -69,6 +78,25 @@ def param_leaves(params: List[Dict[str, Any]]) -> List[torch.Tensor]:
         if "bn" in layer:
             out += [layer["bn"]["gamma"], layer["bn"]["beta"]]
     return out
+
+
+def param_tree(params: List[Dict[str, Any]], flat: List[Any]) -> List[Dict[str, Any]]:
+    """``flat`` (in ``param_leaves`` order) in the structure of ``params``:
+    the inverse of ``param_leaves``."""
+    it = iter(flat)
+    out = []
+    for layer in params:
+        tree = {k: next(it) for k in PARAM_NAMES if k in layer}
+        if "bn" in layer:
+            tree["bn"] = {"gamma": next(it), "beta": next(it)}
+        out.append(tree)
+    return out
+
+
+def epoch_seed(seed: int, epoch: int) -> int:
+    """The dropout generator's seed for one epoch, a pure function of
+    (seed, epoch)."""
+    return int(np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0] >> 1)
 
 
 class FullBatchTrainer(ToolkitBase):
@@ -144,6 +172,15 @@ class FullBatchTrainer(ToolkitBase):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.compute_graph = self.build_compute_graph()
+        self.train01 = (self.mask == 0).to(torch.float32)
+        self.init_model()
+        log.info("matmul precision: float32 (TF32 off), device %s", self.device)
+
+    def init_model(self) -> None:
+        """Parameters from the seed, a fresh optimizer and an AdamConfig
+        from the cfg (the supervisor's restart after an LR change), on the
+        tables already built."""
+        cfg = self.cfg
         init_gen = torch.Generator().manual_seed(self.seed)
         self.params = [
             {k: (v.to(self.device) if torch.is_tensor(v)
@@ -161,9 +198,25 @@ class FullBatchTrainer(ToolkitBase):
             decay_epoch=cfg.decay_epoch,
         )
         self.opt_state = adam_init(self.flat_params)
-        self.train01 = (self.mask == 0).to(torch.float32)
         self.drop_gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-        log.info("matmul precision: float32 (TF32 off), device %s", self.device)
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        return {
+            "params": self.params,
+            "opt": self.opt_state.as_tree(lambda flat: param_tree(self.params, flat)),
+        }
+
+    @torch.no_grad()
+    def _apply_restored(self, state) -> None:
+        """Copy a restored state (numpy leaves) into the parameters and the
+        optimizer in place."""
+        for t, a in zip(param_leaves(self.params), param_leaves(state["params"])):
+            t.copy_(torch.from_numpy(a))
+        opt = state["opt"]
+        for mine, got in ((self.opt_state.m, opt.m), (self.opt_state.v, opt.v)):
+            for t, a in zip(mine, param_leaves(got)):
+                t.copy_(torch.from_numpy(a))
+        self.opt_state.step = int(opt.step)
 
     @torch.no_grad()
     def load_params(self, params: List[Dict[str, Any]]) -> None:
@@ -207,20 +260,28 @@ class FullBatchTrainer(ToolkitBase):
             "GNNmini::Engine[torch.%s] running [%d] Epochs on %s",
             type(self).__name__, cfg.epochs, self.device,
         )
+        start_epoch = self.ckpt_begin()
         loss = None
-        for epoch in range(cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs):
+            self.drop_gen.manual_seed(epoch_seed(self.seed + 1, epoch))
             t0 = time.perf_counter()
             loss, logits = self.train_step()
             self._sync()
+            # chaos hook (NTS_FAULT_SPEC): before the loss reaches the
+            # history, the guards or a checkpoint
+            loss = fault_point("epoch_loss", epoch=epoch, value=loss)
             dt = time.perf_counter() - t0
             self.epoch_times.append(dt)
             self.loss_history.append(float(loss))
+            self.emit_epoch(epoch, dt, loss)
             cadence = epoch % max(1, cfg.epochs // 20) == 0 or epoch == cfg.epochs - 1
             if cadence:
                 h = logits.float().cpu().numpy()
                 for which in (0, 1, 2):
                     self.test(h, which)
                 log.info("Epoch %d loss %f", epoch, float(loss))
+            self.ckpt_epoch_end(epoch)
+        self.ckpt_final()
         logits = self.eval_logits().float().cpu().numpy()
         accs = {
             "train": self.test(logits, 0),

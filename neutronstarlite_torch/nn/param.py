@@ -39,9 +39,18 @@ class AdamConfig:
 
 @dataclasses.dataclass
 class AdamState:
+    """The moments in ``param_leaves`` order and the update count."""
+
     m: List[torch.Tensor]
     v: List[torch.Tensor]
     step: int = 0
+
+    def as_tree(self, unflatten) -> "AdamState":
+        """The reference's checkpoint form (its ``AdamState`` pytree): ``m``
+        and ``v`` in the parameters' structure (``unflatten`` maps a flat
+        list onto it; the tensors are shared, not copied), then ``step`` as
+        the int32 scalar leaf JAX stores after them."""
+        return AdamState(m=unflatten(self.m), v=unflatten(self.v), step=np.int32(self.step))
 
 
 def adam_init(params: List[torch.Tensor]) -> AdamState:

@@ -2,10 +2,13 @@
 
 Port of ``neutronstarlite_tpu/run.py``: reads the cfg, builds the trainer
 registered for its ALGORITHM, loads graph and data (paths resolve relative
-to the cfg file), trains, and prints the same lines as the JAX CLI (config
-echo, ``loaded graph``, ``Epoch N loss``, ``Train/Eval/Test Acc:``,
-``--avg epoch time``). Without ``--device`` it runs on the CUDA card and
-raises when there is none.
+to the cfg file), trains under ``resilience.supervised_run`` (the health
+guards, rollback to the last good checkpoint, bounded retries), and prints
+the same lines as the JAX CLI (config echo, ``loaded graph``, ``Epoch N
+loss``, ``Train/Eval/Test Acc:``, ``--avg epoch time``). With
+``CHECKPOINT_DIR`` in the cfg a run resumes where the last one stopped. It
+returns 1 only when the retries (``NTS_MAX_RESTARTS``) are spent. Without
+``--device`` it runs on the CUDA card and raises when there is none.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import os
 import sys
 
 from neutronstarlite_torch.models import get_algorithm
+from neutronstarlite_torch.resilience.supervisor import RetriesExhaustedError, supervised_run
 from neutronstarlite_torch.utils.config import InputInfo
 from neutronstarlite_torch.utils.logging import get_logger
 
@@ -37,7 +41,11 @@ def main(argv=None) -> int:
     )
     toolkit.init_graph()
     toolkit.init_nn()
-    result = toolkit.run()
+    try:
+        result = supervised_run(toolkit)
+    except RetriesExhaustedError as e:
+        log.error("run failed permanently: %s", e)
+        return 1
     print(toolkit.report())
     log.info("result: %s", result)
     return 0

@@ -19,7 +19,10 @@ reference compatibility flags that the single-device trainer has no use for
 (the JAX trainer ignores them too; the port's device comes from
 ``--device``); ``PROC_OVERLAP``, ``PROC_LOCAL``, ``PROC_REP`` and
 ``PARTITIONS`` select distributed features and are accepted only at their
-single-device values.
+single-device values. ``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY`` turn on
+checkpoints (``utils/checkpoint.py``); ``CKPT_BACKEND`` takes ``npz`` alone:
+``orbax`` is a JAX library, and the sharded asynchronous saves it gives
+the reference come with the distributed slice.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ _INT_KEYS = {
     "EPOCHS": "epochs",
     "DECAY_EPOCH": "decay_epoch",
     "KERNEL_TILE": "kernel_tile",
+    "CHECKPOINT_EVERY": "checkpoint_every",
 }
 _FLOAT_KEYS = {
     "LEARN_RATE": "learn_rate",
@@ -66,6 +70,7 @@ _STR_KEYS = {
     "FEATURE_FILE": "feature_file",
     "LABEL_FILE": "label_file",
     "MASK_FILE": "mask_file",
+    "CHECKPOINT_DIR": "checkpoint_dir",
 }
 # distributed switches: accepted only at the single-device value
 _SINGLE_DEVICE_KEYS = {
@@ -102,6 +107,9 @@ class InputInfo:
     sublinear: bool = False  # activation recomputation (torch.utils.checkpoint)
     kernel: str = ""  # KERNEL: "" (the edge chain) or fused_edge
     ell_levels: str = ""  # ELL_LEVELS: "" (the path's default), pow2 or binned
+    checkpoint_dir: str = ""  # checkpoint and resume when set
+    checkpoint_every: int = 0  # epochs between checkpoints (0: at the end only)
+    ckpt_backend: str = ""  # CKPT_BACKEND: "" (NTS_CKPT_BACKEND, else npz) or npz
 
     @staticmethod
     def read_from_cfg_file(path: str) -> "InputInfo":
@@ -137,6 +145,9 @@ class InputInfo:
         elif key == "ELL_LEVELS":
             self.ell_levels = value.strip().lower()
             _check_ell_levels(self.ell_levels)
+        elif key == "CKPT_BACKEND":
+            check_ckpt_backend(value)
+            self.ckpt_backend = value
         elif key == "PRECISION":
             if value not in ("float32", "bfloat16"):
                 raise ValueError(
@@ -211,6 +222,24 @@ def _check_ell_levels(value: str) -> None:
         raise ValueError(f"ELL_LEVELS must be pow2 or binned (or empty), got {value!r}")
 
 
+def check_ckpt_backend(value: str) -> str:
+    """The checkpoint backend ``value`` names (empty: ``NTS_CKPT_BACKEND``,
+    else npz); refuses orbax and unknown names."""
+    backend = value or os.environ.get("NTS_CKPT_BACKEND", "") or "npz"
+    if backend == "orbax":
+        raise ValueError(
+            "checkpoint backend orbax (CKPT_BACKEND / NTS_CKPT_BACKEND) is a JAX "
+            "library; the torch port writes npz checkpoints, and sharded "
+            "asynchronous saves come with the distributed slice: set npz"
+        )
+    if backend != "npz":
+        raise ValueError(
+            f"unknown checkpoint backend {backend!r} (CKPT_BACKEND / "
+            "NTS_CKPT_BACKEND: npz)"
+        )
+    return backend
+
+
 def check_supported(cfg: InputInfo, resident: bool, supports_fused_edge: bool = False) -> None:
     """Cross-key refusals at the trainer's lifecycle funnel (cfgs built in
     code skip the file parser, so the per-key checks repeat here).
@@ -228,6 +257,8 @@ def check_supported(cfg: InputInfo, resident: bool, supports_fused_edge: bool = 
         )
     _check_kernel(cfg.kernel)
     _check_ell_levels(cfg.ell_levels)
+    if cfg.checkpoint_dir:
+        check_ckpt_backend(cfg.ckpt_backend)
     if cfg.pallas_kernel and not cfg.optim_kernel:
         raise ValueError(
             "PALLAS:1 requires OPTIM_KERNEL:1 (the kernels are layouts of the "

@@ -1,7 +1,8 @@
 """Leveled logging — port of ``neutronstarlite_tpu/utils/logging.py``.
 
 The same one-line format on stdout and the same ``NTS_LOG_LEVEL`` switch.
-The port runs on one device, so every record is stamped ``p0``. Loggers
+The port runs on one device, so every record is stamped ``p0`` and
+``process_index()`` is 0. Loggers
 live under their own root (``nts_torch``) so that a process that imports
 both packages (the parity tests) prints each line once.
 """
@@ -37,6 +38,13 @@ def _configure() -> logging.Logger:
     root.addHandler(handler)
     root.propagate = False
     return root
+
+
+def process_index() -> int:
+    """The index of this process among the run's processes: 0, since the
+    port runs in one process on one device (the fault injector and the
+    supervisor's backoff jitter key on it, as in the reference)."""
+    return 0
 
 
 def get_logger(name: str = "") -> logging.Logger:

@@ -19,7 +19,8 @@ move a result by one bf16 ulp). The blocked ELL aggregation and the fused
 edge op are plain PyTorch on both devices: the card against the CPU at
 float32 rtol=1e-5, atol=1e-5 of the CPU output's rms (cuBLAS-free, but
 the reductions sum in another order), two calls on the card bitwise
-equal.
+equal. Checkpoints on the ELL route: a resume and a supervised rollback
+equal a straight run bitwise (the kernel is repeatable).
 """
 
 from __future__ import annotations
@@ -468,3 +469,78 @@ def test_cuda_fused_trainer_route_matches_edge_chain(cuda_device, cls):
     torch.cuda.synchronize()
     assert (t_ellk.ell_level_aggregate.launches, t_bsp.bsp_aggregate.launches) == (e0, b0)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+# ---- checkpoints and the supervisor on the card (the ELL route) ---------------
+
+def _ell_gcn(cuda_device, monkeypatch, epochs, **kw):
+    monkeypatch.setenv("NTS_PALLAS_RESIDENT", "1")
+    src, dst, g = _hub_graph()
+    cfg = InputInfo(algorithm="GCN", vertices=V, layer_string="24-16-5", epochs=epochs,
+                    drop_rate=0.5, precision="bfloat16", optim_kernel=True,
+                    pallas_kernel=True, **kw)
+    tr = GCNTrainer.from_arrays(cfg, src, dst, _small_datum(24, 5), seed=0,
+                                device=cuda_device, host_graph=g)
+    assert isinstance(tr.compute_graph, t_ell.EllPair)
+    return tr
+
+
+def _leaves(tr):
+    from neutronstarlite_torch.utils import tree as tree_util
+
+    return [leaf.detach().cpu() if torch.is_tensor(leaf) else torch.tensor(int(leaf))
+            for leaf in tree_util.leaves(tr.checkpoint_state())]
+
+
+def test_cuda_ell_route_resume_is_bitwise(cuda_device, monkeypatch, tmp_path):
+    """bf16 GCN with dropout 0.5 on the ELL kernel: 6 straight epochs
+    against 3 + save + a new trainer restored + 3, bitwise (the kernel is
+    repeatable; each epoch's dropout generator is seeded from (seed,
+    epoch))."""
+    straight = _ell_gcn(cuda_device, monkeypatch, 6)
+    before = t_ellk.ell_level_aggregate.launches
+    straight.run()
+    assert t_ellk.ell_level_aggregate.launches > before
+    ck = str(tmp_path / "ck")
+    first = _ell_gcn(cuda_device, monkeypatch, 3, checkpoint_dir=ck)
+    first.run()
+    second = _ell_gcn(cuda_device, monkeypatch, 6, checkpoint_dir=ck)
+    before = t_ellk.ell_level_aggregate.launches
+    second.run()
+    assert t_ellk.ell_level_aggregate.launches > before
+    assert first.loss_history + second.loss_history == straight.loss_history
+    for a, b in zip(_leaves(second), _leaves(straight)):
+        assert torch.equal(a, b)
+
+
+def test_cuda_rollback_equals_the_straight_run(cuda_device, monkeypatch, tmp_path):
+    """supervised_run under nan_loss@epoch=3, a checkpoint each epoch: one
+    nonfinite_loss fault, one rollback, and the straight run's losses and
+    parameters bitwise."""
+    from neutronstarlite_torch.resilience import events, faults
+    from neutronstarlite_torch.resilience.supervisor import supervised_run
+
+    straight = _ell_gcn(cuda_device, monkeypatch, 6)
+    straight.run()
+    records = []
+
+    class Sink:
+        def event(self, event_kind, **fields):
+            records.append((event_kind, fields.get("kind") or fields.get("action"),
+                            fields.get("epoch")))
+
+    tr = _ell_gcn(cuda_device, monkeypatch, 6, checkpoint_dir=str(tmp_path / "ck"),
+                  checkpoint_every=1)
+    monkeypatch.setenv("NTS_FAULT_SPEC", "nan_loss@epoch=3")
+    faults.reset()
+    events.set_sink(Sink())
+    try:
+        supervised_run(tr, backoff_base_s=0.0)
+    finally:
+        events.set_sink(None)
+        monkeypatch.delenv("NTS_FAULT_SPEC")
+        faults.reset()
+    assert records == [("fault", "nonfinite_loss", 3), ("recovery", "rollback", 3)]
+    assert tr.loss_history == straight.loss_history
+    for a, b in zip(_leaves(tr), _leaves(straight)):
+        assert torch.equal(a, b)

@@ -87,7 +87,7 @@ def test_cfg_parse_agrees_or_refuses(path):
 
 @pytest.mark.parametrize("line", [
     "PARTITIONS:4", "KERNEL:auto", "ELL_LEVELS:auto", "SAMPLE_PIPELINE:pipelined",
-    "CHECKPOINT_DIR:/tmp/x", "ALGORITHM:GCNSAMPLESINGLE", "PROC_REP:1", "FANOUT:5-5",
+    "CKPT_BACKEND:orbax", "ALGORITHM:GCNSAMPLESINGLE", "PROC_REP:1", "FANOUT:5-5",
     "PRECISION:bf16", "NO_SUCH_KEY:1",
 ])
 def test_cfg_refuses_unported_keys(tmp_path, line):
