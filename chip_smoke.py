@@ -83,7 +83,23 @@ Phases (each prints its lines; any failure exits non-zero):
    1e-3), and the Cora CLI with CHECKPOINT_DIR run to EPOCHS:5, then
    EPOCHS:10, which resumes at 5 and trains 5-9; (f) save, restore and
    verify_step_dir times of one step, the guard check alone, and the ELL
-   epoch loop with the guards armed and not.
+   epoch loop with the guards armed and not;
+12. the sampled trainer (GCNSAMPLE, plain PyTorch, no kernel: every run
+   must leave both kernels' launch counts at 0), 602-128-41 bf16,
+   BATCH_SIZE 512, FANOUT 25-10 (caps [128000, 5120, 512]) on phase 4's
+   graph, DROP_RATE 0: (a) sync, one epoch, its batch count, epoch time and
+   stage split (sample_wait, step_dispatch, step_device); (b) pipelined,
+   the same epoch with 4 spawned sampling workers, its losses and
+   parameters against (a)'s bitwise (else against the spread of two sync
+   runs) and its sample_wait against (a)'s; (c) device, 3 epochs, its
+   first-epoch loss within SAMPLED_LOSS_ATOL of (a)'s, epoch times and
+   peak memory; (d) fused, 3 epochs twice: one CUDA-graph capture and
+   n_batches replays per epoch, 0 batch bytes from the host, the rerun
+   bitwise, the first-epoch loss as in (c), the per-batch step time (CUDA
+   events), one profiled epoch (device busy, idle share, kernels, the top
+   kernels, host-to-device copies: 0) and one batch's fused subgraph on the
+   card bitwise equal to the CPU's; (e) configs/gcn_sample_pipeline_smoke.cfg
+   and configs/gcn_sample_fused_smoke.cfg through the CLI on the card.
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -666,12 +682,13 @@ def profile_step(step, top: int = 8) -> dict:
     total = sum(by_name.values())
     host = sorted(((a.key, a.self_cpu_time_total) for a in prof.key_averages()),
                   key=lambda kv: -kv[1])[:top]
+    h2d = sum(1 for e in kernels if "HtoD" in e.name)
     ell = sum(t for n, t in by_name.items() if "ell_work_kernel" in n or "ell_split_reduce" in n)
     gemm = sum(t for n, t in by_name.items() if "gemm" in n.lower() or "cutlass" in n.lower())
     return {
         "wall_ms": wall_ms, "busy_ms": busy / 1e3, "kernel_ms": total / 1e3,
         "idle_share": max(0.0, 1.0 - busy / 1e3 / wall_ms), "ell_ms": ell / 1e3,
-        "gemm_ms": gemm / 1e3, "kernels": len(kernels),
+        "gemm_ms": gemm / 1e3, "kernels": len(kernels), "h2d": h2d,
         "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top], "host": host,
     }
 
@@ -1567,6 +1584,233 @@ def phase_resilience(dev, g, seed: int, results, failures) -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+# phase 12: the first-epoch loss of the device and fused modes against the
+# sync mode's. The modes draw other neighbourhoods (pre-thinning at D=512
+# changes the distribution above degree 512; fused also shuffles on the
+# device, so its batches hold other seeds); with random labels over 41
+# classes the loss sits near ln 41 = 3.71, and the gap a different draw
+# makes is of the order of JAX's own fused-vs-sync pin (0.08 on its test
+# graph). 0.05 absolute is 1.3 % of the loss.
+SAMPLED_LOSS_ATOL = 0.05
+
+
+def phase_sampled(dev, g, seed: int, results) -> None:
+    """Phase 12: the sampled trainer (GCNSAMPLE) at 602-128-41 bf16,
+    BATCH_SIZE 512, FANOUT 25-10, on phase 4's graph, DROP_RATE 0, the
+    final accuracy pass off (NTS_FINAL_EVAL=0) at this scale. (a) sync, one
+    epoch; (b) pipelined, the same epoch, with spawned sampling workers; (c)
+    device, 3 epochs; (d) fused, 3 epochs, twice, then its per-batch step
+    time, one profiled epoch, and one batch's subgraph on the card against
+    the CPU; (e) the two Cora sampled smoke cfgs through the CLI. Every run
+    must leave both kernels' launch counts at 0. A failed check prints
+    FAILED and fails the run at the end of the phase."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch import run
+    from neutronstarlite_torch.models.gcn_sample import GCNSampleTrainer
+    from neutronstarlite_torch.sample import fused as t_fused
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    src, dst = results["edges"]
+    datum = results["datum"]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    log(f"phase 12 on {smi}")
+    failures = []
+
+    def check(name, ok, detail):
+        if not ok:
+            failures.append(f"phase 12 {name}: {detail}")
+            log(f"FAILED {failures[-1]}")
+
+    saved_env = {k: os.environ.get(k) for k in (
+        "NTS_FINAL_EVAL", "NTS_SAMPLE_WORKERS", "NTS_SAMPLE_CTX", "NTS_SAMPLE_PIPELINE")}
+    os.environ["NTS_FINAL_EVAL"] = "0"
+    os.environ.pop("NTS_SAMPLE_PIPELINE", None)
+
+    def trainer(mode, epochs):
+        cfg = InputInfo(
+            algorithm="GCNSAMPLE", vertices=g.v_num, layer_string="602-128-41",
+            precision="bfloat16", batch_size=512, fanout_string="25-10", epochs=epochs,
+            drop_rate=0.0, learn_rate=0.01, weight_decay=1e-4, decay_rate=0.97,
+            decay_epoch=100, sample_pipeline=mode,
+        )
+        t0 = time.perf_counter()
+        tr = GCNSampleTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device=dev,
+                                          host_graph=g)
+        return tr, time.perf_counter() - t0
+
+    def drive(tr, name):
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        tr.run()
+        torch.cuda.synchronize()
+        check_no_kernel(f"phase 12 {name}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(f"{name} finite", all(math.isfinite(x) for x in tr.loss_history),
+              f"losses {tr.loss_history}")
+        stages = "; ".join(
+            f"epoch {i}: " + ", ".join(f"{k} {v:.4f}" for k, v in st.items())
+            for i, st in enumerate(tr.stage_history))
+        log(f"({name}) losses {[round(x, 6) for x in tr.loss_history]}; epochs (s) "
+            f"{[round(t, 4) for t in tr.epoch_times]}; {tr.counts['sample.batches']} batches; "
+            f"stage split (s) {stages}; counts {tr.counts}; peak device memory "
+            f"{peak:.2f} GiB; ell_level and bsp_ell launches 0")
+        return peak
+
+    def params_equal(a, b):
+        return all(torch.equal(p, q) for p, q in zip(a.flat_params, b.flat_params))
+
+    try:
+        # (a) sync, inline sampling
+        os.environ["NTS_SAMPLE_WORKERS"] = "0"
+        sync, build_s = trainer("sync", 1)
+        drive(sync, "a sync")
+        n_batches = sync.counts["sample.batches"]
+        wait = sync.stage_history[0]["sample_wait"]
+        log(f"(a) sync: {n_batches} batches, epoch {sync.epoch_times[0]:.3f} s, sample_wait "
+            f"{wait:.3f} s = {wait / sync.epoch_times[0]:.1%} of the epoch (host-bound share); "
+            f"trainer build {build_s:.1f} s")
+
+        # (b) pipelined, 4 spawned workers (a fork after the CUDA context
+        # exists is refused)
+        os.environ["NTS_SAMPLE_WORKERS"] = "4"
+        os.environ["NTS_SAMPLE_CTX"] = "spawn"
+        pipe, build_s = trainer("pipelined", 1)
+        drive(pipe, "b pipelined")
+        os.environ["NTS_SAMPLE_WORKERS"] = "0"
+        bitwise = pipe.loss_history == sync.loss_history and params_equal(pipe, sync)
+        pwait = pipe.stage_history[0]["sample_wait"]
+        log(f"(b) pipelined ({pipe.sample_workers} spawned workers, build {build_s:.1f} s): "
+            f"epoch {pipe.epoch_times[0]:.3f} s vs sync {sync.epoch_times[0]:.3f} s; "
+            f"sample_wait {pwait:.3f} s vs sync {wait:.3f} s; losses and parameters bitwise "
+            f"equal to sync: {bitwise}")
+        if not bitwise:
+            again, _ = trainer("sync", 1)
+            drive(again, "a' second sync")
+            spread = abs(again.loss_history[0] - sync.loss_history[0])
+            gap = abs(pipe.loss_history[0] - sync.loss_history[0])
+            log(f"(b) not bitwise: pipelined {gap:.3e} from sync, two sync runs {spread:.3e}")
+            check("b pipelined vs sync spread", gap <= spread,
+                  f"pipelined {gap} from sync, outside two sync runs' spread {spread}")
+            del again
+        del pipe
+
+        ref_loss = sync.loss_history[0]
+        # (c) device, 3 epochs
+        devm, build_s = trainer("device", 3)
+        peak = drive(devm, "c device")
+        gap = abs(devm.loss_history[0] - ref_loss)
+        check("c device first-epoch loss", gap <= SAMPLED_LOSS_ATOL,
+              f"{devm.loss_history[0]} vs sync {ref_loss}")
+        log(f"(c) device: table [{g.v_num}, {devm.par_sampler.hop_sampler.width}], "
+            f"{devm.par_sampler.hop_sampler.thinned} pre-thinned vertices, build {build_s:.1f} s; "
+            f"epoch-0 loss {devm.loss_history[0]:.6f} vs sync {ref_loss:.6f} (|d| {gap:.4f}, "
+            f"atol {SAMPLED_LOSS_ATOL}); epochs (s) {[round(t, 4) for t in devm.epoch_times]}; "
+            f"peak {peak:.2f} GiB")
+        del devm
+
+        # (d) fused, 3 epochs, twice
+        fused = []
+        for _ in range(2):
+            tr, build_s = trainer("fused", 3)
+            peak = drive(tr, "d fused")
+            fused.append((tr, peak, build_s))
+        tr, peak, build_s = fused[0]
+        runner = tr._fused
+        check("d one capture", runner.captures == 1, f"{runner.captures} captures")
+        check("d replays", runner.replays == 3 * runner.n_batches,
+              f"{runner.replays} replays for {runner.n_batches} batches x 3 epochs")
+        check("d h2d bytes", tr.counts["sample.h2d_bytes"] == 0, tr.counts)
+        again = fused[1][0]
+        rerun = again.loss_history == tr.loss_history and params_equal(again, tr)
+        check("d rerun bitwise", rerun, f"{tr.loss_history} vs {again.loss_history}")
+        gap = abs(tr.loss_history[0] - ref_loss)
+        check("d fused first-epoch loss", gap <= SAMPLED_LOSS_ATOL,
+              f"{tr.loss_history[0]} vs sync {ref_loss}")
+        log(f"(d) fused: {runner.captures} capture, {runner.replays} replays "
+            f"({runner.n_batches} per epoch), sample.h2d_bytes {tr.counts['sample.h2d_bytes']}; "
+            f"rerun bitwise {rerun}; epoch-0 loss {tr.loss_history[0]:.6f} vs sync "
+            f"{ref_loss:.6f} (|d| {gap:.4f}); epochs (s) "
+            f"{[round(t, 4) for t in tr.epoch_times]} (rerun "
+            f"{[round(t, 4) for t in again.epoch_times]}); peak {peak:.2f} GiB; build "
+            f"{build_s:.1f} s")
+        del again, fused
+        # per-batch step time: CUDA events around one epoch's replays
+        zero_launches()
+        runner.run_epoch(3)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        steps = []
+        for epoch in (4, 5):
+            runner.epoch_t.fill_(epoch)
+            runner.batch_t.zero_()
+            runner._shuffle()
+            start.record()
+            for _ in range(runner.n_batches):
+                runner.graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            steps.append(start.elapsed_time(end) / runner.n_batches)
+        prof = profile_step(lambda: runner.run_epoch(6))
+        check_no_kernel("phase 12 fused timing")
+        check("d profiled H2D copies", prof.get("h2d", 0) == 0,
+              f"{prof.get('h2d')} host-to-device copies in a fused epoch")
+        log(f"(d) fused step {[round(x, 4) for x in steps]} ms per batch (CUDA events over "
+            f"{runner.n_batches} replays); one profiled epoch: {profile_text(prof)}; "
+            f"host-to-device copies in it: {prof.get('h2d', 'not measured')}")
+        # one batch's subgraph, card against CPU, on the trainer's tables
+        cpu_tables = [t.cpu() for t in (runner.nbr, runner.eff_deg, runner.out_deg,
+                                        runner.in_deg)]
+        seeds = runner.seeds_mat[0]
+        key = t_fused.fold(runner.seed, 3, 0, t_fused.DRAW_TAG)
+        got = t_fused.fused_sample_subgraph(runner.nbr, runner.eff_deg, runner.out_deg,
+                                            runner.in_deg, seeds, 512, key,
+                                            runner.node_caps, runner.fanouts)
+        want = t_fused.fused_sample_subgraph(*cpu_tables, seeds.cpu(), 512, key,
+                                             runner.node_caps, runner.fanouts)
+        flat = lambda sub: list(sub[0]) + [t for hop in sub[1] for t in hop]
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(flat(got), flat(want)))
+        check("d subgraph card vs CPU", same, "a fused subgraph differs")
+        log(f"(d) one batch's fused subgraph on the card bitwise equal to the CPU's: {same} "
+            f"(nodes {[int((n != 0).sum()) for n in want[0]]} non-zero ids per layer)")
+        del tr, runner
+        torch.cuda.empty_cache()
+
+        # (e) the Cora sampled smoke cfgs through the CLI on the card
+        os.environ.pop("NTS_FINAL_EVAL", None)
+        os.environ.pop("NTS_SAMPLE_WORKERS", None)
+        os.environ.pop("NTS_SAMPLE_CTX", None)
+        for name in ("gcn_sample_pipeline_smoke", "gcn_sample_fused_smoke"):
+            lines = []
+
+            class Grab(logging.Handler):
+                def emit(self, record):
+                    lines.append(record.getMessage())
+
+            grab = Grab()
+            logging.getLogger("nts_torch").addHandler(grab)
+            zero_launches()
+            try:
+                rc = run.main([os.path.join(REPO, "configs", f"{name}.cfg"), "--device",
+                               dev.type])
+            finally:
+                logging.getLogger("nts_torch").removeHandler(grab)
+            check_no_kernel(f"phase 12 CLI {name}")
+            acc = [ln for ln in lines if ln.startswith(("Train Acc:", "Eval Acc:", "Test Acc:"))]
+            check(f"e CLI {name}", rc == 0 and len(acc) == 3, f"rc {rc}, {acc}")
+            log(f"(e) CLI {name} on {dev}: rc {rc}, {'; '.join(acc)}")
+    finally:
+        for k, val in saved_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+    if failures:
+        raise AssertionError("; ".join(failures))
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1611,6 +1855,7 @@ def main(argv=None) -> int:
     phase_blocked_and_fused(dev, g, args.scale, args.epochs, args.seed, results, ggcn_chain,
                             results["failures"])
     phase_resilience(dev, g, args.seed, results, results["failures"])
+    phase_sampled(dev, g, args.seed, results)
     if results["failures"]:
         for msg in results["failures"]:
             log(f"FAILED {msg}")

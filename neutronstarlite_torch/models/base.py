@@ -21,14 +21,16 @@ quietly on the CPU. Tests pass ``device="cpu"``.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Dict, Optional, Type
+from typing import Any, Dict, List, Optional, Type
 
 import numpy as np
 import torch
 
 from neutronstarlite_torch.graph.dataset import GNNDatum
 from neutronstarlite_torch.graph.storage import CSCGraph, build_graph, load_edges
+from neutronstarlite_torch.nn.param import adam_init, param_leaves, param_tree
 from neutronstarlite_torch.resilience import events, guards
 from neutronstarlite_torch.utils import checkpoint as ckpt
 from neutronstarlite_torch.utils import tree as tree_util
@@ -180,12 +182,42 @@ class ToolkitBase:
         raise NotImplementedError
 
     # ---- checkpoint / resume ----------------------------------------------
-    def checkpoint_state(self) -> Dict[str, object]:
+    # the trainers keep ``params`` (a list of per-layer dicts of tensors),
+    # ``flat_params`` (its ``param_leaves``) and ``opt_state`` (AdamState)
+    def checkpoint_state(self) -> Dict[str, Any]:
         """``{"params": ..., "opt": ...}`` in the reference's structure."""
-        raise NotImplementedError
+        return {
+            "params": self.params,
+            "opt": self.opt_state.as_tree(lambda flat: param_tree(self.params, flat)),
+        }
 
+    @torch.no_grad()
     def _apply_restored(self, state) -> None:
-        raise NotImplementedError
+        """Copy a restored state (numpy leaves) into the parameters and the
+        optimizer in place."""
+        for t, a in zip(param_leaves(self.params), param_leaves(state["params"])):
+            t.copy_(torch.from_numpy(a))
+        opt = state["opt"]
+        for mine, got in ((self.opt_state.m, opt.m), (self.opt_state.v, opt.v)):
+            for t, a in zip(mine, param_leaves(got)):
+                t.copy_(torch.from_numpy(a))
+        self.opt_state.step = int(opt.step)
+
+    @torch.no_grad()
+    def load_params(self, params: List[Dict[str, Any]]) -> None:
+        """Overwrite the parameters (same structure and shapes) and reset
+        the optimizer state."""
+        new = param_leaves(params)
+        if len(new) != len(self.flat_params):
+            raise ValueError(
+                f"expected {len(self.flat_params)} parameter tensors, got {len(new)}"
+            )
+        for p, q in zip(self.flat_params, new):
+            if tuple(p.shape) != tuple(q.shape):
+                raise ValueError(f"parameter shape {tuple(q.shape)} != {tuple(p.shape)}")
+            p.copy_(q.to(p.device, p.dtype))
+        self.opt_state = adam_init(self.flat_params)
+
 
     def save(self, path: str, epoch: int) -> None:
         ckpt.save_checkpoint(path, self.checkpoint_state(), epoch)
@@ -281,6 +313,13 @@ class ToolkitBase:
         picked = logp.gather(1, label[:, None])[:, 0]
         denom = torch.clamp(mask01.sum(), min=1.0)
         return -(picked * mask01).sum() / denom
+
+    @staticmethod
+    def skip_final_eval(loss) -> bool:
+        """``NTS_FINAL_EVAL=0``: benchmark mode, no end-of-run accuracy pass
+        (only when an epoch ran, so that a restore-only run still reports
+        the restored model's accuracy)."""
+        return os.environ.get("NTS_FINAL_EVAL", "1") == "0" and loss is not None
 
     def test(self, logits: np.ndarray, which: int) -> float:
         """Accuracy over mask class ``which`` (0 train, 1 eval, 2 test)."""

@@ -43,13 +43,13 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from neutronstarlite_torch.models.base import ToolkitBase
-from neutronstarlite_torch.nn.param import AdamConfig, adam_init, adam_update
+from neutronstarlite_torch.nn.param import AdamConfig, adam_init, adam_update, param_leaves
 from neutronstarlite_torch.ops.aggregate import ScatterGraph
 from neutronstarlite_torch.ops.blocked_ell import BlockedEllPair
 from neutronstarlite_torch.ops.bsp_ell import DEFAULT_VT, BspEllPair
@@ -62,41 +62,12 @@ from neutronstarlite_torch.utils.logging import get_logger
 log = get_logger("fullbatch")
 
 
-# every family's parameter names, in the order their tensors are flattened
-PARAM_NAMES = ("W", "a", "W1", "W2", "C", "H", "Ws", "Wd")
-
-
-def param_leaves(params: List[Dict[str, Any]]) -> List[torch.Tensor]:
-    """Flat list of parameter tensors, layer by layer: the named matrices in
-    ``PARAM_NAMES`` order, then bn gamma, beta."""
-    unknown = {k for layer in params for k in layer} - set(PARAM_NAMES) - {"bn"}
-    if unknown:
-        raise ValueError(f"unknown parameter names {sorted(unknown)}")
-    out = []
-    for layer in params:
-        out += [layer[k] for k in PARAM_NAMES if k in layer]
-        if "bn" in layer:
-            out += [layer["bn"]["gamma"], layer["bn"]["beta"]]
-    return out
-
-
-def param_tree(params: List[Dict[str, Any]], flat: List[Any]) -> List[Dict[str, Any]]:
-    """``flat`` (in ``param_leaves`` order) in the structure of ``params``:
-    the inverse of ``param_leaves``."""
-    it = iter(flat)
-    out = []
-    for layer in params:
-        tree = {k: next(it) for k in PARAM_NAMES if k in layer}
-        if "bn" in layer:
-            tree["bn"] = {"gamma": next(it), "beta": next(it)}
-        out.append(tree)
-    return out
-
-
-def epoch_seed(seed: int, epoch: int) -> int:
-    """The dropout generator's seed for one epoch, a pure function of
-    (seed, epoch)."""
-    return int(np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0] >> 1)
+def epoch_seed(seed: int, *values: int) -> int:
+    """The dropout generator's seed for one epoch (values: the epoch), or
+    for one layer of one batch (the sampled trainer), a pure function of
+    (seed, values)."""
+    words = [int(seed)] + [int(v) for v in values]
+    return int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0] >> 1)
 
 
 class FullBatchTrainer(ToolkitBase):
@@ -199,39 +170,6 @@ class FullBatchTrainer(ToolkitBase):
         )
         self.opt_state = adam_init(self.flat_params)
         self.drop_gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-
-    def checkpoint_state(self) -> Dict[str, Any]:
-        return {
-            "params": self.params,
-            "opt": self.opt_state.as_tree(lambda flat: param_tree(self.params, flat)),
-        }
-
-    @torch.no_grad()
-    def _apply_restored(self, state) -> None:
-        """Copy a restored state (numpy leaves) into the parameters and the
-        optimizer in place."""
-        for t, a in zip(param_leaves(self.params), param_leaves(state["params"])):
-            t.copy_(torch.from_numpy(a))
-        opt = state["opt"]
-        for mine, got in ((self.opt_state.m, opt.m), (self.opt_state.v, opt.v)):
-            for t, a in zip(mine, param_leaves(got)):
-                t.copy_(torch.from_numpy(a))
-        self.opt_state.step = int(opt.step)
-
-    @torch.no_grad()
-    def load_params(self, params: List[Dict[str, Any]]) -> None:
-        """Overwrite the parameters (same structure and shapes) and reset
-        the optimizer state."""
-        new = param_leaves(params)
-        if len(new) != len(self.flat_params):
-            raise ValueError(
-                f"expected {len(self.flat_params)} parameter tensors, got {len(new)}"
-            )
-        for p, q in zip(self.flat_params, new):
-            if tuple(p.shape) != tuple(q.shape):
-                raise ValueError(f"parameter shape {tuple(q.shape)} != {tuple(p.shape)}")
-            p.copy_(q.to(p.device, p.dtype))
-        self.opt_state = adam_init(self.flat_params)
 
     def train_step(self):
         """One epoch: returns (loss, train-mode logits), both detached."""

@@ -1,5 +1,7 @@
 """Parameter init and the hand-written Adam — port of ``neutronstarlite_tpu/nn/param.py``.
 
+``param_leaves``/``param_tree`` flatten a trainer's parameter list (per
+layer a dict of named tensors, bn a ``{"gamma", "beta"}`` dict) and back.
 Xavier-uniform init with scale sqrt(6/(w+h)), drawn from an explicit
 ``torch.Generator``. Adam exactly as the JAX module writes it (the
 reference's ``Parameter`` update): the L2 term folded into the gradient,
@@ -12,10 +14,41 @@ computed in float32, as the JAX step computes it; the update is in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+
+# every family's parameter names, in the order their tensors are flattened
+PARAM_NAMES = ("W", "a", "W1", "W2", "C", "H", "Ws", "Wd")
+
+
+def param_leaves(params: List[Dict[str, Any]]) -> List[torch.Tensor]:
+    """Flat list of parameter tensors, layer by layer: the named matrices in
+    ``PARAM_NAMES`` order, then bn gamma, beta."""
+    unknown = {k for layer in params for k in layer} - set(PARAM_NAMES) - {"bn"}
+    if unknown:
+        raise ValueError(f"unknown parameter names {sorted(unknown)}")
+    out = []
+    for layer in params:
+        out += [layer[k] for k in PARAM_NAMES if k in layer]
+        if "bn" in layer:
+            out += [layer["bn"]["gamma"], layer["bn"]["beta"]]
+    return out
+
+
+def param_tree(params: List[Dict[str, Any]], flat: List[Any]) -> List[Dict[str, Any]]:
+    """``flat`` (in ``param_leaves`` order) in the structure of ``params``:
+    the inverse of ``param_leaves``."""
+    it = iter(flat)
+    out = []
+    for layer in params:
+        tree = {k: next(it) for k in PARAM_NAMES if k in layer}
+        if "bn" in layer:
+            tree["bn"] = {"gamma": next(it), "beta": next(it)}
+        out.append(tree)
+    return out
 
 
 def xavier_uniform(w: int, h: int, generator: torch.Generator) -> torch.Tensor:
@@ -73,16 +106,36 @@ def adam_lr(step: int, cfg: AdamConfig) -> float:
     return float(f32(alpha * np.sqrt(bias2) / bias1))
 
 
+def adam_lr_device(t: torch.Tensor, cfg: AdamConfig) -> torch.Tensor:
+    """``adam_lr`` computed on the device from a 0-dim int64 update count,
+    so that a captured step reads its schedule from the device."""
+    tf = t.float()
+    alpha = cfg.alpha
+    if cfg.decay_epoch and cfg.decay_epoch > 0:
+        n_decays = torch.div(t, cfg.decay_epoch, rounding_mode="floor").float()
+        alpha = cfg.alpha * torch.pow(cfg.decay_rate, n_decays)
+    bias1 = 1.0 - torch.pow(cfg.beta1, tf)
+    bias2 = 1.0 - torch.pow(cfg.beta2, tf)
+    return alpha * torch.sqrt(bias2) / bias1
+
+
 @torch.no_grad()
 def adam_update(
     params: List[torch.Tensor],
     grads: List[torch.Tensor],
     state: AdamState,
     cfg: AdamConfig,
+    step_t: Optional[torch.Tensor] = None,
 ) -> None:
-    """One Adam step, in place on ``params`` and ``state``."""
-    state.step += 1
-    lr_t = adam_lr(state.step, cfg)
+    """One Adam step, in place on ``params`` and ``state``. With ``step_t``
+    (a 0-dim int64 device tensor) the update count is that tensor, advanced
+    in place, and ``state.step`` is left to the caller."""
+    if step_t is None:
+        state.step += 1
+        lr_t = adam_lr(state.step, cfg)
+    else:
+        step_t.add_(1)
+        lr_t = adam_lr_device(step_t, cfg)
     b1, b2 = cfg.beta1, cfg.beta2
     for p, g, m, v in zip(params, grads, state.m, state.v):
         g = g + cfg.weight_decay * p

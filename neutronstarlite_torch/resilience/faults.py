@@ -22,9 +22,10 @@ ckpt_corrupt save (1-based save index)  bit-flips the just-published
 
 Common args: ``times`` (default 1: a spec fires once, so a supervised
 retry replays the same epochs without the fault) and ``point`` (another
-planted point). The port plants ``epoch_loss`` (the full-batch run loop,
-after the step) and ``save`` (``utils/checkpoint.save_checkpoint``, after
-the step directory is published).
+planted point). The port plants ``epoch_loss`` (the run loops, after the
+step), ``save`` (``utils/checkpoint.save_checkpoint``, after the step
+directory is published) and ``sample_produce`` (the sampling pipeline's
+producer, before each batch is staged).
 
 Kinds and points of other slices parse as in the reference and are then
 refused, naming the slice they wait for (``UNPORTED``): ``nan_loss@layer``
@@ -79,7 +80,6 @@ UNPORTED = {
     "net_drop": "the serving slice (the cross-host HTTP fetch)",
     "slow_net": "the serving slice (the cross-host HTTP fetch)",
     "writer_crash": "the stream slice (the delta log)",
-    "sample_produce": "the sampling slice (the sampling pipeline)",
     "partition_step": "the distributed slice (per-partition steps)",
     "http_fetch": "the serving slice (the cross-host HTTP fetch)",
     "delta_commit": "the stream slice (the delta log)",

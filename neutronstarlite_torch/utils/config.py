@@ -8,7 +8,10 @@ key and every ALGORITHM the port does not implement yet with a one-line
 a path that never runs.
 
 The port honours the single-device full-batch keys (GCN, GAT, GIN,
-CommNet, GGCN). ``KERNEL`` is empty (the edge chain) or ``fused_edge``
+CommNet, GGCN) and the sampled trainer's (``GCNSAMPLE*``: ``BATCH_SIZE``,
+dash-separated ``FANOUT``, ``SAMPLE_PIPELINE`` = sync, pipelined, device or
+fused; ``SAMPLE_PIPELINE:auto`` needs the autotuner and is refused, and a
+full-batch trainer given ``SAMPLE_PIPELINE`` refuses it). ``KERNEL`` is empty (the edge chain) or ``fused_edge``
 (``ops/fused_edge.py``, GAT and GGCN); ``KERNEL:auto`` and
 ``ELL_LEVELS:auto`` need the autotuner, which is not ported, and are
 refused. ``ELL_LEVELS`` (``pow2`` or ``binned``) sets the fused tables'
@@ -39,10 +42,12 @@ GAT_ALGORITHMS = ("GATCPU", "GAT", "GATSINGLE")
 GIN_ALGORITHMS = ("GINCPU", "GINGPU", "GIN")
 COMMNET_ALGORITHMS = ("COMMNETGPU", "COMMNETCPU", "COMMNET")
 GGCN_ALGORITHMS = ("GGCNCPU", "GGCN", "GGNN")
+GCN_SAMPLE_ALGORITHMS = ("GCNSAMPLESINGLE", "GCNSAMPLE", "GCNCPUSAMPLE")
 SUPPORTED_ALGORITHMS = (
     GCN_ALGORITHMS + GCN_EAGER_ALGORITHMS + GAT_ALGORITHMS + GIN_ALGORITHMS
-    + COMMNET_ALGORITHMS + GGCN_ALGORITHMS
+    + COMMNET_ALGORITHMS + GGCN_ALGORITHMS + GCN_SAMPLE_ALGORITHMS
 )
+SAMPLE_PIPELINE_MODES = ("sync", "pipelined", "device", "fused")
 
 _INT_KEYS = {
     "VERTICES": "vertices",
@@ -50,6 +55,7 @@ _INT_KEYS = {
     "DECAY_EPOCH": "decay_epoch",
     "KERNEL_TILE": "kernel_tile",
     "CHECKPOINT_EVERY": "checkpoint_every",
+    "BATCH_SIZE": "batch_size",
 }
 _FLOAT_KEYS = {
     "LEARN_RATE": "learn_rate",
@@ -71,6 +77,7 @@ _STR_KEYS = {
     "LABEL_FILE": "label_file",
     "MASK_FILE": "mask_file",
     "CHECKPOINT_DIR": "checkpoint_dir",
+    "FANOUT": "fanout_string",
 }
 # distributed switches: accepted only at the single-device value
 _SINGLE_DEVICE_KEYS = {
@@ -110,6 +117,9 @@ class InputInfo:
     checkpoint_dir: str = ""  # checkpoint and resume when set
     checkpoint_every: int = 0  # epochs between checkpoints (0: at the end only)
     ckpt_backend: str = ""  # CKPT_BACKEND: "" (NTS_CKPT_BACKEND, else npz) or npz
+    batch_size: int = 64  # sampled trainer: seeds per mini-batch
+    fanout_string: str = ""  # sampled trainer: FANOUT, e.g. "25-10"
+    sample_pipeline: str = ""  # SAMPLE_PIPELINE: "" (sync) or one of SAMPLE_PIPELINE_MODES
 
     @staticmethod
     def read_from_cfg_file(path: str) -> "InputInfo":
@@ -145,6 +155,9 @@ class InputInfo:
         elif key == "ELL_LEVELS":
             self.ell_levels = value.strip().lower()
             _check_ell_levels(self.ell_levels)
+        elif key == "SAMPLE_PIPELINE":
+            self.sample_pipeline = value.strip().lower()
+            check_sample_pipeline(self.sample_pipeline)
         elif key == "CKPT_BACKEND":
             check_ckpt_backend(value)
             self.ckpt_backend = value
@@ -171,6 +184,12 @@ class InputInfo:
             return []
         return [int(tok) for tok in self.layer_string.split("-") if tok]
 
+    def fanouts(self) -> List[int]:
+        """Parse "5-10-10" -> [5, 10, 10]."""
+        if not self.fanout_string:
+            return []
+        return [int(tok) for tok in self.fanout_string.split("-") if tok]
+
     def resolve_path(self, path: str, base_dir: Optional[str] = None) -> str:
         """Data paths resolve relative to the cfg file's directory."""
         if not path or os.path.isabs(path) or not base_dir:
@@ -183,7 +202,9 @@ class InputInfo:
             f"ALGORITHM: {self.algorithm}",
             f"VERTICES: {self.vertices}",
             f"LAYERS: {self.layer_string}",
+            f"FANOUT: {self.fanout_string}",
             f"EPOCHS: {self.epochs}",
+            f"BATCH_SIZE: {self.batch_size}",
             f"EDGE_FILE: {self.edge_file}",
             f"FEATURE_FILE: {self.feature_file}",
             f"LABEL_FILE: {self.label_file}",
@@ -222,6 +243,20 @@ def _check_ell_levels(value: str) -> None:
         raise ValueError(f"ELL_LEVELS must be pow2 or binned (or empty), got {value!r}")
 
 
+def check_sample_pipeline(value: str) -> None:
+    """Refuse an unknown SAMPLE_PIPELINE and ``auto`` (the tuner's)."""
+    if value == "auto":
+        raise ValueError(
+            "SAMPLE_PIPELINE:auto lets the autotuner (tune/) choose the sampling "
+            "mode; the torch port does not implement the autotuner yet: set sync, "
+            "pipelined, device or fused"
+        )
+    if value not in ("",) + SAMPLE_PIPELINE_MODES:
+        raise ValueError(
+            f"SAMPLE_PIPELINE must be sync, pipelined, device or fused, got {value!r}"
+        )
+
+
 def check_ckpt_backend(value: str) -> str:
     """The checkpoint backend ``value`` names (empty: ``NTS_CKPT_BACKEND``,
     else npz); refuses orbax and unknown names."""
@@ -257,6 +292,13 @@ def check_supported(cfg: InputInfo, resident: bool, supports_fused_edge: bool = 
         )
     _check_kernel(cfg.kernel)
     _check_ell_levels(cfg.ell_levels)
+    check_sample_pipeline(cfg.sample_pipeline)
+    if cfg.sample_pipeline and cfg.algorithm.upper() not in GCN_SAMPLE_ALGORITHMS:
+        raise ValueError(
+            f"SAMPLE_PIPELINE:{cfg.sample_pipeline} is not available for ALGORITHM "
+            f"{cfg.algorithm!r}: only the sampled trainer "
+            f"({', '.join(GCN_SAMPLE_ALGORITHMS)}) samples; drop the key"
+        )
     if cfg.checkpoint_dir:
         check_ckpt_backend(cfg.ckpt_backend)
     if cfg.pallas_kernel and not cfg.optim_kernel:

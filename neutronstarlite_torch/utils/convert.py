@@ -1,14 +1,14 @@
 """Carry parameters across from the JAX package.
 
-``params_from_jax(params, trainer)`` takes a JAX full-batch trainer's
-parameter pytree as numpy arrays (``jax.tree.map(np.asarray,
+``params_from_jax(params, trainer)`` takes a JAX trainer's parameter
+pytree as numpy arrays (``jax.tree.map(np.asarray,
 trainer.params)``): a list of per-layer dicts whose names are those of
 every family (GCN ``W`` + ``bn``; GAT ``W``, ``a``; GIN ``W1``, ``W2``,
 ``bn``; CommNet ``C``, ``H``; GGCN ``W``, ``Ws``, ``Wd``), bn being
-``{"gamma", "beta"}``. It returns the port's parameters, converted by
-name with no transpose: the port computes ``h @ W`` in the JAX layout
-too. Given a trainer, it also writes them into it
-(``FullBatchTrainer.load_params``). The parity tests start both packages
+``{"gamma", "beta"}``; the sampled GCN trainer's is a list of ``{"W"}``.
+It returns the port's parameters, converted by name with no transpose: the
+port computes ``h @ W`` in the JAX layout too. Given a trainer, it also
+writes them into it (``ToolkitBase.load_params``). The parity tests start both packages
 from the same initial parameters this way, since torch cannot reproduce
 JAX's random draws. ``gcn_params_from_jax`` is the same function under
 its first name.

@@ -544,3 +544,105 @@ def test_cuda_rollback_equals_the_straight_run(cuda_device, monkeypatch, tmp_pat
     assert tr.loss_history == straight.loss_history
     for a, b in zip(_leaves(tr), _leaves(straight)):
         assert torch.equal(a, b)
+
+
+# ---- the sampled trainer (GCNSAMPLE) on the card, Cora size -------------------
+
+def _cora_sampled(cuda_device, monkeypatch, mode, epochs=3, **kw):
+    import os
+
+    from neutronstarlite_torch.graph.storage import load_edges
+    from neutronstarlite_torch.models.gcn_sample import GCNSampleTrainer
+
+    monkeypatch.setenv("NTS_SAMPLE_WORKERS", "0")
+    monkeypatch.setenv("NTS_FINAL_EVAL", "0")
+    monkeypatch.delenv("NTS_SAMPLE_PIPELINE", raising=False)
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "cora")
+    src, dst = load_edges(os.path.join(fix, "cora.2708.edge.self"))
+    datum = GNNDatum.read_feature_label_mask(
+        "", os.path.join(fix, "cora.labeltable"), os.path.join(fix, "cora.mask"), 2708,
+        1433, seed=0,
+    )
+    cfg = InputInfo(algorithm="GCNSAMPLESINGLE", vertices=2708, layer_string="1433-16-7",
+                    fanout_string="3-3", batch_size=32, epochs=epochs, decay_epoch=-1,
+                    drop_rate=0.5, sample_pipeline=mode, **kw)
+    return GCNSampleTrainer.from_arrays(cfg, src, dst, datum, seed=0, device=cuda_device)
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_cuda_sampled_sync_equals_pipelined_bitwise(cuda_device, monkeypatch, precision):
+    """The step is repeatable on the card (minibatch_gather sums over a slot
+    axis; its backward's index_put_ sorts): pipelined equals sync,
+    losses and parameters, with dropout on."""
+    runs = []
+    for mode in ("sync", "pipelined"):
+        tr = _cora_sampled(cuda_device, monkeypatch, mode, precision=precision)
+        tr.run()
+        runs.append(tr)
+    a, b = runs
+    assert a.loss_history == b.loss_history and all(np.isfinite(a.loss_history))
+    assert a.loss_history[-1] < a.loss_history[0]
+    for p, q in zip(a.flat_params, b.flat_params):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("mode", ["device", "fused"])
+def test_cuda_sampled_device_modes_train_and_repeat(cuda_device, monkeypatch, mode):
+    """device and fused: finite, falling losses, two runs bitwise; fused:
+    one capture, one replay per batch, no batch payload from the host."""
+    runs = []
+    for _ in range(2):
+        tr = _cora_sampled(cuda_device, monkeypatch, mode)
+        tr.run()
+        runs.append(tr)
+    a, b = runs
+    assert a.loss_history == b.loss_history and all(np.isfinite(a.loss_history))
+    assert a.loss_history[-1] < a.loss_history[0]
+    for p, q in zip(a.flat_params, b.flat_params):
+        assert torch.equal(p, q)
+    if mode == "fused":
+        r = a._fused
+        assert (r.captures, r.replays) == (1, 3 * r.n_batches)
+        assert a.counts["sample.h2d_bytes"] == 0
+
+
+def test_cuda_minibatch_gather_repeats_and_matches_cpu(cuda_device):
+    from neutronstarlite_torch.ops.minibatch import minibatch_gather
+
+    rng = np.random.default_rng(0)
+    n_src, n_dst, k, f = 5000, 600, 25, 130
+    src = rng.integers(0, n_src, size=n_dst * k)
+    dst = np.repeat(np.arange(n_dst), k)
+    w = rng.uniform(0.01, 1, size=n_dst * k).astype(np.float32)
+    w[rng.random(n_dst * k) < 0.2] = 0.0  # dead slots
+    x = rng.standard_normal((n_src, f)).astype(np.float32)
+    g = rng.standard_normal((n_dst, f)).astype(np.float32)
+
+    def run(device):
+        xt = torch.from_numpy(x).to(device).requires_grad_(True)
+        out = minibatch_gather(*(torch.from_numpy(a).to(device) for a in (src, dst, w)), xt,
+                               n_dst)
+        out.backward(torch.from_numpy(g).to(device))
+        return out.detach().cpu(), xt.grad.cpu()
+
+    one, two, cpu = run(cuda_device), run(cuda_device), run("cpu")
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    for a, b in zip(one, cpu):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_fused_subgraph_matches_cpu_bitwise(cuda_device):
+    from neutronstarlite_torch.sample.device_sampler import DeviceUniformSampler, fold
+    from neutronstarlite_torch.sample.fused import degree_tables, fused_sample_subgraph
+
+    src, dst, g = _hub_graph()
+    seeds = torch.arange(0, 64 * 3, 3)
+    subs = []
+    for device in (cuda_device, torch.device("cpu")):
+        ds = DeviceUniformSampler.from_host(g, max_width=64, device=device)
+        tables = (ds.nbr, ds.eff_deg) + degree_tables(g, device)
+        nodes, hops = fused_sample_subgraph(*tables, seeds.to(device), 60, fold(5, 1, 2),
+                                            (64 * 50, 64 * 10, 64), (5, 10))
+        subs.append([t.cpu() for t in nodes] + [t.cpu() for h in hops for t in h])
+    for a, b in zip(*subs):
+        assert torch.equal(a, b)

@@ -293,4 +293,4 @@ def test_algorithm_registry():
     assert get_algorithm("gcncpu") is GCNTrainer
     assert get_algorithm("GCN_CPU_EAGER") is GCNEagerTrainer
     with pytest.raises(ValueError, match="not ported"):
-        get_algorithm("GCNSAMPLE")
+        get_algorithm("GCNDIST")

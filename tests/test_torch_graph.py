@@ -30,7 +30,8 @@ HONOURED = (
     "algorithm", "vertices", "epochs", "layer_string", "edge_file", "feature_file",
     "label_file", "mask_file", "learn_rate", "weight_decay", "decay_rate",
     "decay_epoch", "drop_rate", "optim_kernel", "pallas_kernel", "kernel_tile",
-    "precision", "sublinear", "with_cuda", "lock_free",
+    "precision", "sublinear", "with_cuda", "lock_free", "batch_size", "fanout_string",
+    "sample_pipeline",
 )
 
 
@@ -70,7 +71,7 @@ def test_cfg_parse_agrees_or_refuses(path):
         "LABEL_FILE", "MASK_FILE", "LEARN_RATE", "WEIGHT_DECAY", "DECAY_RATE",
         "DECAY_EPOCH", "DROP_RATE", "OPTIM_KERNEL", "PALLAS", "KERNEL_TILE",
         "PRECISION", "SUBLINEAR", "PROC_CUDA", "LOCK_FREE", "PROC_OVERLAP",
-        "PROC_LOCAL", "PROC_REP", "PARTITIONS",
+        "PROC_LOCAL", "PROC_REP", "PARTITIONS", "BATCH_SIZE", "FANOUT", "SAMPLE_PIPELINE",
     }
     sampled = ref.algorithm.upper() not in t_config.SUPPORTED_ALGORITHMS
     if unsupported or sampled or ref.partitions > 1:
@@ -81,13 +82,14 @@ def test_cfg_parse_agrees_or_refuses(path):
     for field in HONOURED:
         assert getattr(got, field) == getattr(ref, field), field
     assert got.layer_sizes() == ref.layer_sizes()
+    assert got.fanouts() == ref.fanouts()
     base = os.path.dirname(path)
     assert got.resolve_path(got.edge_file, base) == ref.resolve_path(ref.edge_file, base)
 
 
 @pytest.mark.parametrize("line", [
-    "PARTITIONS:4", "KERNEL:auto", "ELL_LEVELS:auto", "SAMPLE_PIPELINE:pipelined",
-    "CKPT_BACKEND:orbax", "ALGORITHM:GCNSAMPLESINGLE", "PROC_REP:1", "FANOUT:5-5",
+    "PARTITIONS:4", "KERNEL:auto", "ELL_LEVELS:auto", "SAMPLE_PIPELINE:auto",
+    "CKPT_BACKEND:orbax", "ALGORITHM:GCNDIST", "PROC_REP:1", "DIST_PATH:ring",
     "PRECISION:bf16", "NO_SUCH_KEY:1",
 ])
 def test_cfg_refuses_unported_keys(tmp_path, line):
@@ -95,6 +97,20 @@ def test_cfg_refuses_unported_keys(tmp_path, line):
     p.write_text("ALGORITHM:GCNCPU\nVERTICES:10\nLAYERS:4-2\n" + line + "\n")
     with pytest.raises(ValueError):
         t_config.InputInfo.read_from_cfg_file(str(p))
+
+
+@pytest.mark.parametrize("line,field,value", [
+    ("SAMPLE_PIPELINE:pipelined", "sample_pipeline", "pipelined"),
+    ("ALGORITHM:GCNSAMPLESINGLE", "algorithm", "GCNSAMPLESINGLE"),
+    ("FANOUT:5-5", "fanout_string", "5-5"),
+])
+def test_cfg_parses_the_sampled_keys(tmp_path, line, field, value):
+    """The three lines earlier slices refused, now that sampling is ported."""
+    p = tmp_path / "x.cfg"
+    p.write_text("ALGORITHM:GCNCPU\nVERTICES:10\nLAYERS:4-2\n" + line + "\n")
+    got = t_config.InputInfo.read_from_cfg_file(str(p))
+    ref = jax_config.InputInfo.read_from_cfg_file(str(p))
+    assert getattr(got, field) == getattr(ref, field) == value
 
 
 def test_cfg_cross_key_refusals():

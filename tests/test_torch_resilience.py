@@ -121,7 +121,7 @@ def test_fault_spec_parsers_agree(text):
     ("nan_loss@layer=1", "obs slice"), ("rank_loss@partition=2,epoch=1", "distributed"),
     ("slow_rank@partition=1", "distributed"), ("net_drop@target=1", "serving"),
     ("slow_net@ms=5", "serving"), ("writer_crash@seq=3", "stream"),
-    ("exc@point=sample_produce,epoch=1", "sampling"), ("stall@point=http_fetch", "serving"),
+    ("stall@point=finetune_round,ms=5", "stream"), ("stall@point=http_fetch", "serving"),
     ("exc@point=delta_commit", "stream"), ("exc@point=finetune_round", "stream"),
     ("exc@point=partition_step", "distributed"),
 ])
