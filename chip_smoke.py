@@ -99,12 +99,40 @@ Phases (each prints its lines; any failure exits non-zero):
    events), one profiled epoch (device busy, idle share, kernels, the top
    kernels, host-to-device copies: 0) and one batch's fused subgraph on the
    card bitwise equal to the CPU's; (e) configs/gcn_sample_pipeline_smoke.cfg
-   and configs/gcn_sample_fused_smoke.cfg through the CLI on the card.
+   and configs/gcn_sample_fused_smoke.cfg through the CLI on the card;
+13. the obs plane (metrics stream, run_summary, spans, numerics, program
+   cost, perf ledger, profiler trace) on phase 4's graph, GCN 602-128-41
+   bf16, DROP_RATE 0, the streams in a temporary directory: (a) the ELL
+   route, 5 epochs each without a sink, with obs at its defaults
+   (NTS_METRICS_DIR, NTS_LEDGER_DIR), with NTS_NUMERICS=1 and with
+   NTS_TRACE_STEP=1: the four loss curves bitwise equal, every record
+   valid, run_start, 5 epoch records, the span tree run -> epoch ->
+   stages, no tensor_stats without numerics and every group's each epoch
+   with it, the trace step's forward_backward / optim stages, the step's
+   program_cost (flops, memory rise) and one per (tables, width) kernel
+   pair with flops and bytes equal to the bound formula below, one ledger
+   row, the run_summary's peak memory equal to max_memory_allocated; the
+   profiler's kernel count and the ELL launches of one step without a
+   sink, at the defaults (equal) and with numerics (more kernels, the same
+   launches); the steady epochs beside phase 4's and the host time of the
+   per-epoch obs bookkeeping; (b) nan_loss@epoch=1,layer=1 under
+   supervised_run: one nonfinite_provenance record naming layer 1, then
+   the fault and the rollback; (c) the fused sampled trainer (phase 12's
+   configuration), 3 epochs with and without NTS_NUMERICS=1: losses and
+   parameters bitwise equal, one capture, the stats read from the captured
+   graph's buffer, 0 host-to-device copies in a profiled epoch, the sample
+   counters equal to phase 12's; (d) NTS_PROFILE_DIR over 3 epochs of the
+   ELL and the bsp routes: the Chrome traces hold the tracer's
+   record_function scopes (epoch, step_dispatch, step_device) and both
+   kernels (ell_work_kernel, bsp_ell_kernel), and the bsp run's
+   program_cost records hold the bound formula too.
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
 offsets, x read once and the output written once) over 3.35 TB/s, or its
-2*E*f float32 operations over 67 TFLOP/s, whichever is larger. In the
+2*E*f float32 operations over 67 TFLOP/s, whichever is larger. The counts
+are neutronstarlite_torch/obs/cost.aggregation_cost, the formula of the
+trainers' program_cost records. In the
 {"kernels": [...]} line, ms, plain_ms, library_ms and bound_ms are those of
 one training epoch's aggregation calls: the sums over the pairs above
 (phase 6 for ell_level and bsp_ell, phase 7 for ell_level_gat, the same
@@ -208,9 +236,12 @@ def bound_ms(g, f: int, elem_bytes: int):
     bytes it must move (E int32 indices + f32 weights, V+1 int32 offsets,
     x read once, the output written once) over the memory rate, and its
     2*E*f float32 operations over the f32 rate. Padding is a cost of a
-    layout, so it is not counted."""
-    moved = g.e_num * 8 + (g.v_num + 1) * 4 + 2 * g.v_num * f * elem_bytes
-    return moved / HBM_BYTES_PER_S * 1e3, 2.0 * g.e_num * f / F32_FLOPS * 1e3
+    layout, so it is not counted. The counts are obs/cost.aggregation_cost,
+    the formula of the trainers' program_cost records."""
+    from neutronstarlite_torch.obs.cost import aggregation_cost
+
+    flops, moved = aggregation_cost(g.e_num, g.v_num, f, elem_bytes)
+    return moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
 
 
 def bsp_geometry(tables, f: int, dtype) -> dict:
@@ -439,7 +470,7 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
         results[route] = {
             "trainer": tr, "losses": losses, "launches": launches[route],
             "launches_per_epoch": per_epoch, "epoch_times": list(tr.epoch_times),
-            "build_s": tr.phase_times.get("build_model", 0.0),
+            "build_s": tr.build_model_s,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         }
         log(f"route {route}: first logits max abs err {logits_err:.3e} against the "
@@ -793,7 +824,7 @@ def phase_gat(dev, epochs: int, seed: int, results, failures):
     log(f"GAT ELL: losses {[round(x, 6) for x in losses]}; {launches} ell_level launches "
         f"in {epochs} epochs + eval, {per_epoch} per training epoch; epochs (s) "
         f"{[round(t, 4) for t in tr.epoch_times]}; host table build "
-        f"{tr.phase_times.get('build_model', 0.0):.1f} s; peak device memory {peak:.2f} GiB")
+        f"{tr.build_model_s:.1f} s; peak device memory {peak:.2f} GiB")
 
     # the runtime-weight kernel on the trainer's own tables
     gep = tr.compute_graph
@@ -934,7 +965,7 @@ def phase_gin_commnet(dev, g, epochs: int, seed: int, results, failures) -> None
                 f"{ref:.6f}); {launches.get(route, 0)} launches, {per_epoch} per training "
                 f"epoch; epochs (s) {[round(t, 4) for t in tr.epoch_times]}, then "
                 f"{[round(t, 4) for t in steady]}; host table build "
-                f"{tr.phase_times.get('build_model', 0.0):.1f} s; peak device memory "
+                f"{tr.build_model_s:.1f} s; peak device memory "
                 f"{peak:.2f} GiB")
             del tr
             torch.cuda.empty_cache()
@@ -1052,7 +1083,7 @@ def run_route(tr, name: str, ref_logits, logits_tol, ref_loss: float, loss_rtol:
     log(f"{name}: first logits max abs err {err:.3e} (reference rms {rms:.3e}); epoch-0 "
         f"loss {losses[0]:.6f} vs {ref_loss:.6f} (rel {rel:.2e}); losses "
         f"{[round(x, 6) for x in losses]}; epochs (s) {[round(t, 4) for t in tr.epoch_times]}; "
-        f"host table build {tr.phase_times.get('build_model', 0.0):.1f} s; peak device "
+        f"host table build {tr.build_model_s:.1f} s; peak device "
         f"memory {peak:.2f} GiB; ell_level and bsp_ell launches 0")
     return {"peak_gib": peak, "epochs": list(tr.epoch_times)}
 
@@ -1232,7 +1263,7 @@ def phase_blocked_and_fused(dev, g, scale: float, epochs: int, seed: int, result
     log(f"GGCN fused at --scale {scale} V={vg} E={tr.host_graph.e_num}: losses "
         f"{[round(x, 6) for x in tr.loss_history]}, train acc {res['acc']['train']:.4f}; "
         f"epochs (s) {[round(t, 4) for t in tr.epoch_times]}; host table build "
-        f"{tr.phase_times.get('build_model', 0.0):.1f} s (graph generate + build + tables "
+        f"{tr.build_model_s:.1f} s (graph generate + build + tables "
         f"{setup_s:.1f} s); peak device memory {peak:.2f} GiB; fused op passes, both "
         f"layers: {pass_text(ms)}; {tr.compute_graph.slot_count()} table slots")
     log(f"GGCN fused training epoch at --scale under torch.profiler: "
@@ -1725,6 +1756,7 @@ def phase_sampled(dev, g, seed: int, results) -> None:
         check("d replays", runner.replays == 3 * runner.n_batches,
               f"{runner.replays} replays for {runner.n_batches} batches x 3 epochs")
         check("d h2d bytes", tr.counts["sample.h2d_bytes"] == 0, tr.counts)
+        results["fused_counts"] = tr.counts
         again = fused[1][0]
         rerun = again.loss_history == tr.loss_history and params_equal(again, tr)
         check("d rerun bitwise", rerun, f"{tr.loss_history} vs {again.loss_history}")
@@ -1812,6 +1844,348 @@ def phase_sampled(dev, g, seed: int, results) -> None:
         raise AssertionError("; ".join(failures))
 
 
+# phase 13: the obs plane on the card. Every run is GCN 602-128-41 bf16 on
+# phase 4's graph with DROP_RATE 0; the streams go to a temporary directory
+OBS_EPOCHS = 5
+OBS_LAYER_NAMES = {"params/l0", "params/l1", "grads/l0", "grads/l1", "acts/l0", "acts/l1",
+                   "logits", "grads/global"}
+
+
+def read_stream(d: str) -> list:
+    import glob
+
+    files = sorted(glob.glob(os.path.join(d, "*.jsonl")))
+    if len(files) != 1:
+        raise AssertionError(f"expected one metrics stream under {d}, found {files}")
+    with open(files[0]) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def span_tree(recs) -> list:
+    spans = [r for r in recs if r["event"] == "span"]
+    names = {s["span_id"]: s["name"] for s in spans}
+    return [(s["name"], names.get(s["parent_id"])) for s in spans]
+
+
+def steady_ms(times) -> float:
+    warm = sorted(times[1:])
+    return 1e3 * warm[len(warm) // 2]
+
+
+def phase_obs(dev, g, seed: int, results) -> None:
+    """Phase 13: the obs plane (metrics stream, run_summary, spans, numerics,
+    program cost, ledger, profiler trace) on the card, at phase 4's graph
+    and widths. (a) GCN bf16 on the ELL route, OBS_EPOCHS epochs without a
+    sink, with obs at its defaults (NTS_METRICS_DIR, NTS_LEDGER_DIR), with
+    NTS_NUMERICS=1 and with NTS_TRACE_STEP=1: the losses bitwise equal, the
+    records valid, the span tree, tensor_stats, program_cost of the step and
+    of each (tables, width) kernel pair equal to the bound formula, one
+    ledger row, the run_summary's peak memory equal to
+    max_memory_allocated; the profiler's kernel count of one step without a
+    sink, with the defaults and with numerics, and the ELL launches per
+    step; the steady epochs beside phase 4's and the host time of the
+    per-epoch obs bookkeeping. (b) NTS_FAULT_SPEC=nan_loss@epoch=1,layer=1
+    under supervised_run: a nonfinite_provenance record names layer 1. (c)
+    the sampled trainer, fused, 3 epochs with and without NTS_NUMERICS=1:
+    the losses bitwise equal, the stats from the captured graph, 0 H2D
+    copies in a profiled epoch, the sample counters equal to phase 12's.
+    (d) NTS_PROFILE_DIR over the ELL and bsp routes: the Chrome traces hold
+    the tracer's record_function scopes and both kernels' names; the bsp
+    kernel's program_cost records equal the bound formula. A failed
+    check prints FAILED and fails the run at the end of the phase."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch.models.gcn import GCNTrainer
+    from neutronstarlite_torch.models.gcn_sample import GCNSampleTrainer
+    from neutronstarlite_torch.obs import cost, ledger, schema
+    from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
+    from neutronstarlite_torch.resilience import events, faults
+    from neutronstarlite_torch.resilience.supervisor import supervised_run
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    t_phase = time.perf_counter()
+    src, dst = results["edges"]
+    datum = results["datum"]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    log(f"phase 13 on {smi}")
+    failures = []
+
+    def check(name, ok, detail=""):
+        if not ok:
+            failures.append(f"phase 13 {name}: {detail}")
+            log(f"FAILED {failures[-1]}")
+
+    env_keys = ("NTS_METRICS_DIR", "NTS_LEDGER_DIR", "NTS_PROFILE_DIR", "NTS_NUMERICS",
+                "NTS_TRACE_STEP", "NTS_FAULT_SPEC", "NTS_BACKOFF_BASE_S", "NTS_PALLAS_RESIDENT",
+                "NTS_FINAL_EVAL", "NTS_SAMPLE_WORKERS", "NTS_SAMPLE_PIPELINE")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    work = tempfile.mkdtemp(prefix="nts-obs-")
+
+    def set_env(**kw):
+        for k in env_keys:
+            os.environ.pop(k, None)
+        os.environ["NTS_FINAL_EVAL"] = "0"
+        for k, v in kw.items():
+            os.environ[k] = str(v)
+
+    def gcn(route, epochs, **kw):
+        cfg = InputInfo(
+            algorithm="GCN", vertices=g.v_num, layer_string="602-128-41", epochs=epochs,
+            drop_rate=0.0, precision="bfloat16", learn_rate=0.01, weight_decay=1e-4,
+            decay_rate=0.97, decay_epoch=100, optim_kernel=True, pallas_kernel=True, **kw,
+        )
+        os.environ["NTS_PALLAS_RESIDENT"] = "1" if route == "ell" else "0"
+        return GCNTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device=dev, host_graph=g)
+
+    def obs_host_ms(tr):
+        """Wrap the trainer's per-epoch obs bookkeeping with a host clock:
+        emit_epoch (the records, the histogram, the spans, the guards) and
+        maybe_emit_numerics (the stats' fetch and records); both run
+        outside the timed epoch."""
+        spent = {"emit_epoch": [], "numerics": []}
+        for name, key in (("emit_epoch", "emit_epoch"), ("maybe_emit_numerics", "numerics")):
+            fn = getattr(tr, name)
+
+            def timed(*a, fn=fn, key=key, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                spent[key].append(time.perf_counter() - t0)
+                return out
+
+            setattr(tr, name, timed)
+        return spent
+
+    def validate(name, recs):
+        try:
+            for r in recs:
+                schema.validate_event(r)
+        except ValueError as e:
+            check(f"{name} schema", False, str(e))
+
+    try:
+        # (a) the ELL route: no sink, defaults, numerics, trace step
+        runs = {}
+        for name, env in (("no sink", {}),
+                          ("defaults", {"NTS_METRICS_DIR": f"{work}/a-defaults",
+                                        "NTS_LEDGER_DIR": f"{work}/ledger"}),
+                          ("numerics", {"NTS_METRICS_DIR": f"{work}/a-numerics",
+                                        "NTS_NUMERICS": 1}),
+                          ("trace step", {"NTS_METRICS_DIR": f"{work}/a-trace",
+                                          "NTS_TRACE_STEP": 1})):
+            set_env(**env)
+            tr = gcn("ell", OBS_EPOCHS)
+            spent = obs_host_ms(tr)
+            zero_launches()
+            tr.run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            runs[name] = {"tr": tr, "obs_ms": {k: 1e3 * float(np.median(v[1:])) if len(v) > 1
+                                               else 0.0 for k, v in spent.items()},
+                          "launches": kernel_launches()["ell_level"], "peak": peak,
+                          "dir": env.get("NTS_METRICS_DIR")}
+        base = runs["defaults"]["tr"].loss_history
+        for name in ("no sink", "numerics", "trace step"):
+            got = runs[name]["tr"].loss_history
+            check(f"(a) {name} losses bitwise", got == base, f"{got} vs {base}")
+        recs = read_stream(runs["defaults"]["dir"])
+        validate("(a) defaults", recs)
+        kinds = [r["event"] for r in recs]
+        summary = recs[-1]
+        check("(a) stream shape", kinds[0] == "run_start" and kinds.count("epoch") == OBS_EPOCHS
+              and summary["event"] == "run_summary" and "tensor_stats" not in kinds, kinds)
+        tree = span_tree(recs)
+        check("(a) span tree", ("epoch", "run") in tree and ("step_dispatch", "epoch") in tree
+              and ("step_device", "epoch") in tree and tree[-1] == ("run", None), tree)
+        costs = {r["label"]: r for r in recs if r["event"] == "program_cost"}
+        step = costs.get("fullbatch.train_step/GCNTrainer")
+        check("(a) step program_cost", step is not None and step["flops"] > 0
+              and (step["memory"] or {}).get("peak_bytes", 0) > 0, step)
+        pairs = [("fwd", 602), ("fwd", 128), ("bwd", 128)]
+        for direction, f in pairs:
+            rec = costs.get(f"kernel.ell_level/{direction}/f{f}/bfloat16")
+            want = cost.aggregation_cost(g.e_num, g.v_num, f, 2)
+            check(f"(a) kernel program_cost {direction} f={f}",
+                  rec is not None and (rec["flops"], rec["bytes_accessed"]) == want,
+                  f"{rec} vs the bound formula {want}")
+        mem = summary["memory"]
+        check("(a) run_summary peak memory", mem["peak_bytes_in_use"] == runs["defaults"]["peak"],
+              f"{mem} vs max_memory_allocated {runs['defaults']['peak']}")
+        rows = ledger.read_rows(f"{work}/ledger")
+        check("(a) one ledger row", len(rows) == 1 and rows[0]["kind"] == "run", rows)
+        nrecs = read_stream(runs["numerics"]["dir"])
+        validate("(a) numerics", nrecs)
+        stats = [r for r in nrecs if r["event"] == "tensor_stats"]
+        check("(a) tensor_stats", {r["name"] for r in stats} == OBS_LAYER_NAMES
+              and len(stats) == OBS_EPOCHS * len(OBS_LAYER_NAMES)
+              and all(r["finite_fraction"] == 1.0 for r in stats),
+              sorted({r["name"] for r in stats}))
+        trecs = read_stream(runs["trace step"]["dir"])
+        validate("(a) trace step", trecs)
+        tstages = [list(r["stages"]) for r in trecs if r["event"] == "epoch"]
+        check("(a) trace-step stages", all(s == ["forward_backward", "optim"] for s in tstages),
+              tstages)
+        # the kernels and the ELL launches of one step with numerics off (no
+        # sink, defaults) and on
+        kernels, launches, profs = {}, {}, {}
+        for name in ("no sink", "defaults", "numerics"):
+            tr = runs[name]["tr"]
+            zero_launches()
+            tr._epoch_step(False)
+            torch.cuda.synchronize()
+            launches[name] = kernel_launches()["ell_level"]
+            profs[name] = profile_step(lambda: tr._epoch_step(False))
+            kernels[name] = profs[name].get("kernels")
+        check("(a) no extra kernels without numerics", kernels["no sink"] == kernels["defaults"]
+              and launches["no sink"] == launches["defaults"] == launches["numerics"],
+              f"kernels {kernels}, ELL launches {launches}")
+        check("(a) numerics adds its reductions", (kernels["numerics"] or 0) > (kernels["defaults"] or 0),
+              kernels)
+        p4 = steady_ms(results["ell"]["epoch_times"])
+        ms = {name: steady_ms(runs[name]["tr"].epoch_times) for name in runs}
+        log(f"(a) ELL {OBS_EPOCHS} epochs, losses bitwise across the four runs: "
+            f"{all(runs[n]['tr'].loss_history == base for n in runs)}; steady epoch (ms, host "
+            f"clock, synchronised): phase 4 {p4:.3f}, no sink {ms['no sink']:.3f}, defaults "
+            f"{ms['defaults']:.3f}, numerics {ms['numerics']:.3f}, trace step "
+            f"{ms['trace step']:.3f}; per-epoch obs bookkeeping outside the timed interval "
+            f"(ms, median of epochs 1-4): " + ", ".join(
+                f"{n} emit_epoch {runs[n]['obs_ms']['emit_epoch']:.3f} + numerics "
+                f"{runs[n]['obs_ms']['numerics']:.3f}" for n in runs))
+        log("(a) one profiled step (host wall / device busy ms, idle share): " + "; ".join(
+            f"{n} {p.get('wall_ms', float('nan')):.3f} / {p.get('busy_ms', float('nan')):.3f}, "
+            f"{p.get('idle_share', float('nan')):.3f}" for n, p in profs.items()))
+        log(f"(a) the numerics step under the profiler: {profile_text(profs['numerics'])}")
+        step = step or {}
+        rise = (step.get("memory") or {}).get("peak_bytes")
+        log(f"(a) kernels in one profiled step: {kernels}; ELL launches per step {launches}; "
+            f"{len(recs)} records, {kinds.count('span')} spans; program_cost: step flops "
+            f"{step.get('flops')} (kernels {step.get('kernel_flops')}), memory rise "
+            f"{rise} bytes; kernels "
+            + "; ".join(f"{lab} flops {r['flops']:.4g} bytes {r['bytes_accessed']:.4g} "
+                        f"x{r['calls_per_step']}" for lab, r in costs.items()
+                        if lab.startswith("kernel."))
+            + f"; run_summary peak {mem['peak_bytes_in_use']} bytes; ledger rows "
+            f"{len(rows)}; tensor_stats records {len(stats)}")
+        for name in list(runs):
+            runs[name].pop("tr")
+        torch.cuda.empty_cache()
+
+        # (b) provenance under nan_loss@epoch=1,layer=1
+        set_env(NTS_METRICS_DIR=f"{work}/b", NTS_FAULT_SPEC="nan_loss@epoch=1,layer=1",
+                NTS_BACKOFF_BASE_S=0)
+        faults.reset()
+        events.set_sink(None)
+        tr = gcn("ell", 3, checkpoint_dir=f"{work}/b-ck", checkpoint_every=1)
+        zero_launches()
+        supervised_run(tr)
+        torch.cuda.synchronize()
+        faults.reset()
+        brecs = read_stream(f"{work}/b")
+        validate("(b)", brecs)
+        prov = [r for r in brecs if r["event"] == "nonfinite_provenance"]
+        seq = [(r["event"], r.get("kind") or r.get("action")) for r in brecs
+               if r["event"] in ("fault", "recovery")]
+        check("(b) provenance names layer 1", len(prov) == 1 and prov[0]["layer"] == 1
+              and prov[0]["op"] == "activation" and prov[0]["injected"] is True, prov)
+        check("(b) fault and rollback", seq == [("fault", "nonfinite_loss"),
+                                                ("recovery", "rollback")], seq)
+        log(f"(b) provenance: {prov[0] if prov else None}; records {seq}; losses "
+            f"{tr.loss_history}; ELL launches {kernel_launches()['ell_level']}")
+        del tr
+
+        # (c) fused sampled, 3 epochs with and without numerics
+        fused = {}
+        for name, env in (("plain", {"NTS_METRICS_DIR": f"{work}/c-plain"}),
+                          ("numerics", {"NTS_METRICS_DIR": f"{work}/c-num",
+                                        "NTS_NUMERICS": 1})):
+            set_env(NTS_SAMPLE_WORKERS=0, **env)
+            cfg = InputInfo(
+                algorithm="GCNSAMPLE", vertices=g.v_num, layer_string="602-128-41",
+                precision="bfloat16", batch_size=512, fanout_string="25-10", epochs=3,
+                drop_rate=0.0, learn_rate=0.01, weight_decay=1e-4, decay_rate=0.97,
+                decay_epoch=100, sample_pipeline="fused",
+            )
+            tr = GCNSampleTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device=dev,
+                                              host_graph=g)
+            zero_launches()
+            tr.run()
+            torch.cuda.synchronize()
+            check_no_kernel(f"phase 13 (c) {name}")
+            fused[name] = tr
+        a, b = fused["plain"], fused["numerics"]
+        runner = b._fused
+        same = a.loss_history == b.loss_history and all(
+            torch.equal(p, q) for p, q in zip(a.flat_params, b.flat_params))
+        check("(c) numerics bitwise", same, f"{a.loss_history} vs {b.loss_history}")
+        crecs = read_stream(f"{work}/c-num")
+        validate("(c)", crecs)
+        cstats = [r for r in crecs if r["event"] == "tensor_stats"]
+        check("(c) stats from the captured graph", runner.captures == 1
+              and runner.replays == 3 * runner.n_batches and runner.stats is not None
+              and {r["name"] for r in cstats} == {"params/l0", "params/l1", "grads/l0",
+                                                  "grads/l1", "grads/global"}
+              and len(cstats) == 3 * 5, f"captures {runner.captures}, replays "
+              f"{runner.replays}, {len(cstats)} tensor_stats")
+        prof = profile_step(lambda: runner.run_epoch(3))
+        check("(c) no H2D copies", prof.get("h2d", 0) == 0, prof.get("h2d"))
+        want = results.get("fused_counts")
+        check("(c) sample counters equal phase 12's", b.counts == want == a.counts,
+              f"{b.counts} vs phase 12 {want}")
+        scans = [r for r in crecs if r["event"] == "epoch_scan"]
+        log(f"(c) fused, 3 epochs: losses bitwise with and without numerics {same}; "
+            f"{runner.captures} capture, {runner.replays} replays; epochs (s) plain "
+            f"{[round(t, 4) for t in a.epoch_times]}, numerics "
+            f"{[round(t, 4) for t in b.epoch_times]}; {len(cstats)} tensor_stats; "
+            f"{len(scans)} epoch_scan; counters {b.counts} (phase 12 {want}); one profiled "
+            f"epoch: {prof.get('kernels')} kernels, H2D copies {prof.get('h2d', 'not measured')}")
+        del fused, a, b, runner
+        torch.cuda.empty_cache()
+
+        # (d) the profiler traces of the ELL and bsp routes, and the bsp
+        # kernel's program_cost records
+        for route in ("ell", "bsp"):
+            set_env(NTS_METRICS_DIR=f"{work}/d-{route}", NTS_PROFILE_DIR=f"{work}/prof")
+            gcn(route, 3).run()
+        torch.cuda.synchronize()
+        drecs = read_stream(f"{work}/d-bsp")
+        validate("(d) bsp", drecs)
+        dcosts = {r["label"]: r for r in drecs if r["event"] == "program_cost"}
+        for direction, f in pairs:
+            rec = dcosts.get(f"kernel.bsp_ell/{direction}/f{f}/bfloat16")
+            want = cost.aggregation_cost(g.e_num, g.v_num, f, 2)
+            check(f"(d) bsp program_cost {direction} f={f}",
+                  rec is not None and (rec["flops"], rec["bytes_accessed"]) == want,
+                  f"{rec} vs the bound formula {want}")
+        import glob
+
+        names = set()
+        traces = sorted(glob.glob(f"{work}/prof/GCNTrainer/*.json"))
+        for path in traces:
+            with open(path) as fh:
+                names |= {e.get("name", "") for e in json.load(fh).get("traceEvents", [])}
+        scopes = {"epoch", "step_dispatch", "step_device"} <= names
+        ell_k = any("ell_work_kernel" in n for n in names)
+        bsp_k = any("bsp_ell_kernel" in n for n in names)
+        check("(d) trace scopes and kernels", len(traces) == 2 and scopes and ell_k and bsp_k,
+              f"{len(traces)} traces, scopes {scopes}, ell {ell_k}, bsp {bsp_k}")
+        log(f"(d) {len(traces)} Chrome traces: tracer scopes {scopes}, ell_work_kernel "
+            f"{ell_k}, bsp_ell_kernel {bsp_k}; {len(names)} distinct event names")
+    finally:
+        for k, val in saved_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+        events.set_sink(None)
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1, help="fraction of Reddit's V and E")
@@ -1856,6 +2230,7 @@ def main(argv=None) -> int:
                             results["failures"])
     phase_resilience(dev, g, args.seed, results, results["failures"])
     phase_sampled(dev, g, args.seed, results)
+    phase_obs(dev, g, args.seed, results)
     if results["failures"]:
         for msg in results["failures"]:
             log(f"FAILED {msg}")

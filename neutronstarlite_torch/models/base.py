@@ -13,6 +13,18 @@ health guards) and ``ckpt_epoch_end`` each epoch, and ``ckpt_final``. The
 saved state is the trainer's ``checkpoint_state()`` in the reference's
 structure and leaf order, so each package restores the other's files.
 
+Run metrics (``obs/``), as in the reference: each trainer opens a metrics
+registry (``obs.open_run``; the JSONL stream under ``NTS_METRICS_DIR``), a
+tracer whose root ``run`` span opens here and closes in
+``finalize_metrics``, and the ``NTS_SLO_SPEC`` engine's ``train`` scope; its
+registry becomes the fault/recovery sink. ``emit_epoch`` writes the epoch
+record, the ``train.epoch_ms`` histogram, the SLO tick and the epoch and
+stage spans, then runs the guards; ``maybe_emit_numerics`` writes the
+``NTS_NUMERICS`` tensor stats; ``finalize_metrics`` writes the
+``run_summary`` (epoch times, memory, phases, counters, program costs) and
+the ``NTS_LEDGER_DIR`` row. ``NTS_METRICS_PORT`` (the live scrape endpoint)
+is refused: it comes with the serving slice.
+
 Device rule: every entry point takes an explicit ``device``. ``None`` means
 the CUDA card, and raises when there is none: the port never carries on
 quietly on the CPU. Tests pass ``device="cpu"``.
@@ -20,22 +32,27 @@ quietly on the CPU. Tests pass ``device="cpu"``.
 
 from __future__ import annotations
 
-import contextlib
 import os
-import time
 from typing import Any, Dict, List, Optional, Type
 
 import numpy as np
 import torch
 
+from neutronstarlite_torch import obs
 from neutronstarlite_torch.graph.dataset import GNNDatum
+from neutronstarlite_torch.graph.digest import graph_digest
 from neutronstarlite_torch.graph.storage import CSCGraph, build_graph, load_edges
 from neutronstarlite_torch.nn.param import adam_init, param_leaves, param_tree
+from neutronstarlite_torch.obs import collectors, cost
+from neutronstarlite_torch.obs import ledger as obs_ledger
+from neutronstarlite_torch.obs import numerics as obs_numerics
+from neutronstarlite_torch.obs.slo import SloEngine
 from neutronstarlite_torch.resilience import events, guards
 from neutronstarlite_torch.utils import checkpoint as ckpt
 from neutronstarlite_torch.utils import tree as tree_util
 from neutronstarlite_torch.utils.config import SUPPORTED_ALGORITHMS, InputInfo
 from neutronstarlite_torch.utils.logging import get_logger
+from neutronstarlite_torch.utils.timing import PhaseTimers, get_time
 
 log = get_logger("models")
 
@@ -92,26 +109,30 @@ class ToolkitBase:
         self.base_dir = base_dir
         self.seed = seed
         self.device = resolve_device(device)
+        obs.check_exporter_env()
         self.host_graph: Optional[CSCGraph] = None
         self.datum: Optional[GNNDatum] = None
         self.epoch_times: list = []
         self.loss_history: list = []
-        self.phase_times: Dict[str, float] = {}
         # the first epoch this process trained: maps epoch numbers onto
         # epoch_times indices after a resume
         self._first_epoch_trained: Optional[int] = None
         # set by supervised_run before a retry: "rollback" or "restart"
         self._supervised_retry = False
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.phase_times[name] = (
-                self.phase_times.get(name, 0.0) + time.perf_counter() - t0
-            )
+        # host seconds of build_model (the kernel tables and the model)
+        self.build_model_s = 0.0
+        # run metrics: the registry, the span tracer with its root "run"
+        # span (closed in finalize_metrics), the train-scope SLO engine
+        name = cfg.algorithm or type(self).__name__
+        self.timers = PhaseTimers()
+        self.metrics = obs.open_run(name, cfg=cfg, seed=seed)
+        self.tracer = obs.Tracer(self.metrics)
+        self.timers.tracer = self.tracer
+        self._run_span = self.tracer.begin("run", cat="lifecycle", algorithm=name)
+        self.run_summary_record: Optional[dict] = None
+        self._step_cost_done = False  # program_cost is captured once per trainer
+        events.adopt_registry(self.metrics)
+        self.slo = SloEngine.from_env(self.metrics, scope="train")
 
     def _log_graph(self) -> None:
         g = self.host_graph
@@ -120,7 +141,7 @@ class ToolkitBase:
     # ---- init_graph ------------------------------------------------------
     def init_graph(self) -> None:
         cfg = self.cfg
-        with self.phase("graph_load"):
+        with self.timers.phase("graph_load"):
             src, dst = load_edges(cfg.resolve_path(cfg.edge_file, self.base_dir))
             self.host_graph = build_graph(src, dst, cfg.vertices, weight=self.weight_mode)
         self._log_graph()
@@ -128,7 +149,7 @@ class ToolkitBase:
     # ---- init_nn ---------------------------------------------------------
     def init_nn(self) -> None:
         cfg = self.cfg
-        with self.phase("datum_load"):
+        with self.timers.phase("datum_load"):
             self.datum = GNNDatum.read_feature_label_mask(
                 cfg.resolve_path(cfg.feature_file, self.base_dir),
                 cfg.resolve_path(cfg.label_file, self.base_dir),
@@ -144,8 +165,9 @@ class ToolkitBase:
         self.feature = torch.from_numpy(self.datum.feature).to(dev)
         self.label = torch.from_numpy(self.datum.label.astype(np.int64)).to(dev)
         self.mask = torch.from_numpy(self.datum.mask).to(dev)
-        with self.phase("build_model"):
-            self.build_model()
+        t0 = get_time()
+        self.build_model()
+        self.build_model_s = get_time() - t0
 
     @classmethod
     def from_arrays(
@@ -162,12 +184,11 @@ class ToolkitBase:
         shares one prebuilt CSC/CSR (matching ``weight_mode``) across
         trainers."""
         t = cls(cfg, seed=seed, device=device)
-        with t.phase("graph_load"):
-            t.host_graph = (
-                host_graph
-                if host_graph is not None
-                else build_graph(src, dst, cfg.vertices, weight=cls.weight_mode)
-            )
+        t.host_graph = (
+            host_graph
+            if host_graph is not None
+            else build_graph(src, dst, cfg.vertices, weight=cls.weight_mode)
+        )
         t._log_graph()
         t.datum = datum
         t._finalize_datum()
@@ -294,14 +315,134 @@ class ToolkitBase:
         if self.cfg.checkpoint_dir:
             self.save(self.cfg.checkpoint_dir, self.cfg.epochs)
 
-    def emit_epoch(self, epoch: int, seconds: float, loss=None) -> None:
-        """Record one trained epoch, then run the health guards (they raise
-        only when armed): after the epoch is in the history, before
-        ``ckpt_epoch_end`` could save a poisoned state. The reference also
-        writes the epoch to its metrics stream here (the obs slice)."""
+    # ---- run metrics -----------------------------------------------------
+    def emit_epoch(self, epoch: int, seconds: float, loss=None,
+                   stages: Optional[dict] = None, **extra):
+        """Record one trained epoch in the metrics stream, then run the
+        health guards (they raise only when armed): after the epoch is in
+        the history and the stream, before ``ckpt_epoch_end`` could save a
+        poisoned state.
+
+        ``stages``: ordered {name: seconds} sub-intervals of the epoch
+        (``step_dispatch``/``step_device``, or ``NTS_TRACE_STEP``'s
+        ``forward_backward``/``optim``), emitted as child spans laid back to
+        back from the epoch's start and attached to the epoch record."""
         if self._first_epoch_trained is None:
             self._first_epoch_trained = epoch
+        if stages:
+            extra = dict(extra, stages={k: float(v) for k, v in stages.items()})
+        rec = self.metrics.epoch_event(
+            epoch, seconds, loss=float(loss) if loss is not None else None, **extra,
+        )
+        self.metrics.hist_observe("train.epoch_ms", seconds * 1000.0)
+        if self.slo is not None:
+            self.slo.tick()
+        # retroactive spans: the epoch just ended, so its end is now
+        end = get_time()
+        span = self.tracer.complete(
+            "epoch", dur_s=seconds, end=end, cat="epoch", parent=self._run_span,
+            epoch=int(epoch),
+        )
+        if stages:
+            t = end - seconds
+            for name, dur in stages.items():
+                self.tracer.complete(name, dur_s=float(dur), t0=t, cat="stage",
+                                     parent=span, epoch=int(epoch))
+                t += float(dur)
         guards.epoch_check(self, epoch, seconds, loss)
+        return rec
+
+    def maybe_emit_numerics(self, epoch: int, stats_dev) -> float:
+        """``NTS_NUMERICS=1``: the step's device stats (``obs/numerics``),
+        fetched in one copy and written as ``tensor_stats`` records every
+        ``NTS_NUMERICS_EVERY`` epochs. Called before ``emit_epoch``, so a
+        failing epoch's stats are in the stream before its guard trips.
+        Returns the host seconds it took, which the run loops keep out of
+        the epoch's time."""
+        if stats_dev is None or epoch % obs_numerics.numerics_every() != 0:
+            return 0.0
+        t0 = get_time()
+        stats = obs_numerics.fetch_stats(stats_dev)
+        try:
+            obs_numerics.emit_stats(self.metrics, stats, epoch)
+        except Exception as e:  # the records are telemetry: a failed write warns
+            log.warning("numerics emission failed at epoch %d: %s", epoch, e)
+        return get_time() - t0
+
+    def numerics_replay(self, epoch: int):
+        """Ordered ``(layer, op, label, tensor)`` intermediates of the
+        failing epoch's forward, replayed layer by layer for the non-finite
+        provenance (``obs/numerics.capture_provenance``), with
+        ``numerics.poison_hook`` applied at each layer. None: this trainer
+        has no replay hook, and the record is unattributed."""
+        return None
+
+    def count_program_cost(self, label: str, step, state: List[torch.Tensor],
+                           **extra) -> None:
+        """Once per trainer, when program costs are captured for this run
+        (``NTS_PROGRAM_COST``, ``obs/cost``): run ``step()`` once, counted,
+        outside any timed epoch, then put back ``state`` (the tensors the
+        step changes) and the optimizer's update count, and write the
+        step's and its kernels' ``program_cost`` records."""
+        if self._step_cost_done or not cost.cost_enabled(self.metrics):
+            return
+        self._step_cost_done = True
+        saved = [t.detach().clone() for t in state]
+        opt_step = self.opt_state.step
+        with cost.count_step(self.device) as count:
+            step()
+        with torch.no_grad():
+            for t, v in zip(state, saved):
+                t.copy_(v)
+        self.opt_state.step = opt_step
+        for p in self.flat_params:
+            p.grad = None
+        g = self.host_graph
+        cost.capture_program_cost(self.metrics, label, count, g.e_num, g.v_num,
+                                  self.device.type, **extra)
+
+    def finalize_metrics(self, result: Optional[dict] = None) -> dict:
+        """Write the consolidated ``run_summary`` record (idempotent: a
+        second call returns the first record) and the ledger row."""
+        if self.run_summary_record is not None:
+            return self.run_summary_record
+        if self.slo is not None:
+            self.slo.close()
+        # the root span closes before the summary that consolidates it
+        if self._run_span is not None:
+            self.tracer.end(self._run_span, epochs=len(self.epoch_times))
+            self._run_span = None
+        fields: dict = {
+            "epochs": len(self.epoch_times),
+            "epoch_time": collectors.steady_state_stats(self.epoch_times),
+            "avg_epoch_s": self.avg_epoch_time(),
+            "epoch_times_s": [float(t) for t in self.epoch_times],
+            "loss_history": [float(v) for v in self.loss_history],
+            "phases": collectors.phase_snapshot(self.timers),
+            "memory": collectors.device_memory_stats(self.device),
+            "compile_cache": collectors.compile_cache_info(),
+        }
+        if result is not None:
+            fields["result"] = {
+                "loss": result.get("loss"),
+                "acc": result.get("acc"),
+                "avg_epoch_s": result.get("avg_epoch_s"),
+            }
+        self.run_summary_record = self.metrics.run_summary(**fields)
+        self._append_ledger_row()
+        self.metrics.close()
+        return self.run_summary_record
+
+    def _append_ledger_row(self) -> None:
+        """One ``kind=run`` row into the perf ledger (``NTS_LEDGER_DIR``;
+        unset: nothing; a failed write warns)."""
+        if not obs_ledger.ledger_dir():
+            return
+        try:
+            digest = graph_digest(self.host_graph) if self.host_graph is not None else None
+            obs_ledger.append_row(obs_ledger.run_row(self.run_summary_record, digest))
+        except Exception as e:
+            log.warning("perf ledger append failed: %s", e)
 
     # ---- accuracy / loss helpers ----------------------------------------
     @staticmethod
@@ -340,8 +481,4 @@ class ToolkitBase:
         return float(np.mean(times)) if times else 0.0
 
     def report(self) -> str:
-        lines = ["--------------------finish algorithm !"]
-        for name, t in sorted(self.phase_times.items()):
-            lines.append(f"#{name}_time={t:.6f}(s)")
-        lines.append(f"#device={self.device}")
-        return "\n".join(lines)
+        return self.timers.report() + f"\n#device={self.device}"

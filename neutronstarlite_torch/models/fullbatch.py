@@ -32,24 +32,57 @@ before the update, as in JAX; the cadence accuracy lines use those
 train-mode logits. Matmuls run in full float32: TF32 is switched off.
 
 The run loop is the reference's: ``ckpt_begin`` (resume or rollback), per
-epoch the step, ``fault_point("epoch_loss")``, ``emit_epoch`` (the guards)
-and ``ckpt_epoch_end``, then ``ckpt_final``. Epoch e's dropout masks come
-from a generator seeded from (seed, e) at the start of the epoch, the
-port's form of JAX's ``fold_in(key, e)``: a resumed or rolled-back run
-draws the masks of a straight run, and the checkpoint needs no RNG leaf.
+epoch the step, ``fault_point("epoch_loss")``, ``emit_epoch`` (the metrics
+stream, then the guards) and ``ckpt_epoch_end``, then ``ckpt_final`` and
+``finalize_metrics``. Epoch e's dropout masks come from a generator seeded
+from (seed, e) at the start of the epoch, the port's form of JAX's
+``fold_in(key, e)``: a resumed or rolled-back run draws the masks of a
+straight run, and the checkpoint needs no RNG leaf.
+
+Observability, as in the reference:
+
+- each epoch's stages are ``step_dispatch`` (the host issuing the step) and
+  ``step_device`` (the loop's one synchronise); ``NTS_TRACE_STEP=1`` runs
+  the epoch as two steps, forward+backward then the optimiser, with a
+  synchronise after each (stages ``forward_backward``/``optim``; the cadence
+  accuracy lines are skipped);
+- ``NTS_NUMERICS=1`` runs ``train_step_stats``, the default step plus the
+  tensor-stat reductions on the device (``obs/numerics``), and leaves
+  ``train_step`` untouched; the stats reach the host every
+  ``NTS_NUMERICS_EVERY`` epochs, outside the timed epoch, as the epoch's
+  own records are;
+- one step, counted and then undone, gives the ``program_cost`` records
+  once per trainer before the first epoch (``obs/cost``);
+- ``NTS_PROFILE_DIR`` records a ``torch.profiler`` trace of the epochs from
+  the second one on;
+- ``NTS_DEBUGINFO=1`` prints the forward / backward / update report after
+  training (``models/debuginfo.py``);
+- GAT and GGCN set the ``kernel.path`` and
+  ``kernel.edge_hbm_bytes_per_epoch`` gauges (and the fused tables'
+  ``kernel.fused_*`` gauges); the edge chain's estimate counts the graph's
+  E edges (the reference counts its chunk-padded edge arrays).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-import time
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from neutronstarlite_torch.models import debuginfo
 from neutronstarlite_torch.models.base import ToolkitBase
-from neutronstarlite_torch.nn.param import AdamConfig, adam_init, adam_update, param_leaves
+from neutronstarlite_torch.nn.param import (
+    AdamConfig,
+    AdamState,
+    adam_init,
+    adam_update,
+    param_leaves,
+    param_tree,
+)
+from neutronstarlite_torch.obs import numerics
 from neutronstarlite_torch.ops.aggregate import ScatterGraph
 from neutronstarlite_torch.ops.blocked_ell import BlockedEllPair
 from neutronstarlite_torch.ops.bsp_ell import DEFAULT_VT, BspEllPair
@@ -58,6 +91,8 @@ from neutronstarlite_torch.ops.fused_edge import FusedEdgePair
 from neutronstarlite_torch.resilience.faults import fault_point
 from neutronstarlite_torch.utils.config import check_supported
 from neutronstarlite_torch.utils.logging import get_logger
+from neutronstarlite_torch.utils.profiling import maybe_trace
+from neutronstarlite_torch.utils.timing import get_time
 
 log = get_logger("fullbatch")
 
@@ -90,6 +125,21 @@ class FullBatchTrainer(ToolkitBase):
 
     def model_forward(self, params, graph, x: torch.Tensor, train: bool) -> torch.Tensor:
         raise NotImplementedError
+
+    def forward_taped(self, params, graph, x: torch.Tensor, tap, train: bool = True):
+        """The numerics hook: ``model_forward`` with ``tap(i, h) -> h``
+        applied to each layer's output (the GCN family implements it).
+        None: the model has no layer taps; the stats step then has no
+        ``acts`` groups and the provenance replay is unattributed."""
+        return None
+
+    # attention / edge-op families (GAT, GGCN) set the kernel.* gauges
+    edge_family = False
+
+    @staticmethod
+    def edge_score_channels(f_out: int) -> int:
+        """Score-channel width per output width (GAT 1; GGCN f)."""
+        return 1
 
     def adapt_ell_graph(self, compute_graph):
         """Hook: wrap or replace the OPTIM_KERNEL tables with the trainer's
@@ -143,9 +193,32 @@ class FullBatchTrainer(ToolkitBase):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.compute_graph = self.build_compute_graph()
+        if type(self).edge_family:
+            self._emit_edge_kernel_gauges()
         self.train01 = (self.mask == 0).to(torch.float32)
         self.init_model()
         log.info("matmul precision: float32 (TF32 off), device %s", self.device)
+
+    def _emit_edge_kernel_gauges(self) -> None:
+        """``kernel.path`` and ``kernel.edge_hbm_bytes_per_epoch`` (the
+        per-epoch bytes of [E, .] edge tensors the chain materializes: per
+        layer two feature-wide passes and three score-wide ones, f32; 0 on
+        the fused and ELL attention paths), and the fused tables' gauges."""
+        cg, m = self.compute_graph, self.metrics
+        if isinstance(cg, FusedEdgePair):
+            path, edge_bytes = "fused_edge", 0
+            m.gauge_set("kernel.fused_levels", len(cg.fwd.nbr))
+            m.gauge_set("kernel.fused_slots", cg.slot_count())
+            m.gauge_set("kernel.fused_vt", cg.fwd.vt)
+        elif isinstance(cg, ScatterGraph):
+            path = "eager_edge"
+            e = self.host_graph.e_num
+            edge_bytes = sum(e * (2 * f + 3 * type(self).edge_score_channels(f)) * 4
+                             for f in self.cfg.layer_sizes()[1:])
+        else:
+            path, edge_bytes = "ell_gat", 0
+        m.gauge_set("kernel.path", path)
+        m.gauge_set("kernel.edge_hbm_bytes_per_epoch", edge_bytes)
 
     def init_model(self) -> None:
         """Parameters from the seed, a fresh optimizer and an AdamConfig
@@ -173,16 +246,49 @@ class FullBatchTrainer(ToolkitBase):
 
     def train_step(self):
         """One epoch: returns (loss, train-mode logits), both detached."""
+        loss, logits = self._forward_backward()
+        self._optim_step()
+        return loss, logits
+
+    def train_step_stats(self):
+        """``NTS_NUMERICS=1``: ``train_step`` plus the tensor-stat
+        reductions on the device; returns (loss, logits, stats). The taps
+        only keep references to the layers' outputs, so the step's math is
+        the default step's."""
+        for p in self.flat_params:
+            p.grad = None
+        acts = []
+
+        def tap(i, h):
+            acts.append(h)
+            return h
+
+        logits = self.forward_taped(self.params, self.compute_graph, self.feature, tap)
+        if logits is None:
+            logits = self.model_forward(self.params, self.compute_graph, self.feature, True)
+        loss = self.masked_nll_loss(logits, self.label, self.train01)
+        loss.backward()
+        grads = [p.grad for p in self.flat_params]
+        adam_update(self.flat_params, grads, self.opt_state, self.adam_cfg)
+        stats = numerics.step_stats(params=self.params,
+                                    grads=param_tree(self.params, grads),
+                                    acts=acts, logits=logits)
+        return loss.detach(), logits.detach(), stats
+
+    def _forward_backward(self):
+        """Forward, loss and backward of one epoch, the gradients left on
+        the parameters; returns (loss, logits), detached. The step's first
+        half (``NTS_TRACE_STEP`` and DEBUGINFO time it alone)."""
         for p in self.flat_params:
             p.grad = None
         logits = self.model_forward(self.params, self.compute_graph, self.feature, True)
         loss = self.masked_nll_loss(logits, self.label, self.train01)
         loss.backward()
-        adam_update(
-            self.flat_params, [p.grad for p in self.flat_params],
-            self.opt_state, self.adam_cfg,
-        )
         return loss.detach(), logits.detach()
+
+    def _optim_step(self) -> None:
+        adam_update(self.flat_params, [p.grad for p in self.flat_params],
+                    self.opt_state, self.adam_cfg)
 
     @torch.no_grad()
     def eval_logits(self) -> torch.Tensor:
@@ -192,47 +298,146 @@ class FullBatchTrainer(ToolkitBase):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def numerics_replay(self, epoch: int):
+        """The non-finite provenance replay: the failing epoch's forward,
+        with its dropout masks, layer by layer through ``forward_taped``,
+        the chaos poison applied at each layer (``numerics.poison_hook``).
+        None when the model has no layer taps."""
+        if type(self).forward_taped is FullBatchTrainer.forward_taped:
+            return None
+        entries = []
+
+        def tap(i, h):
+            h = numerics.poison_hook(h, i)
+            entries.append((i, "activation", f"acts/l{i}", h))
+            return h
+
+        self.drop_gen.manual_seed(epoch_seed(self.seed + 1, epoch))
+        with torch.no_grad():
+            logits = self.forward_taped(self.params, self.compute_graph, self.feature, tap)
+        entries.append((None, "logits", "logits", logits))
+        return entries
+
+    def debug_info(self, n: int = 3) -> str:
+        """The DEBUGINFO report: the forward, forward+backward and the whole
+        step, each timed warm (``models/debuginfo.py``). The parameters and
+        the optimizer state are put back afterwards."""
+        saved = [t.detach().clone() for t in self.flat_params]
+        opt = self.opt_state
+        saved_opt = AdamState([t.clone() for t in opt.m], [t.clone() for t in opt.v], opt.step)
+
+        def fwd():
+            with torch.no_grad():
+                return self.masked_nll_loss(
+                    self.model_forward(self.params, self.compute_graph, self.feature, True),
+                    self.label, self.train01)
+
+        t_fwd = debuginfo.time_median(fwd, self.device, n)
+        t_grad = debuginfo.time_median(self._forward_backward, self.device, n)
+        t_step = debuginfo.time_median(self.train_step, self.device, n)
+        with torch.no_grad():
+            for t, v in zip(self.flat_params, saved):
+                t.copy_(v)
+                t.grad = None
+            self.opt_state = saved_opt
+        return debuginfo.format_report(t_fwd, t_grad, t_step)
+
+    def _epoch_step(self, split: bool):
+        """One epoch's step: (loss, logits or None, stats or None, stages)."""
+        tracer = self.tracer
+        t0 = get_time()
+        stats = None
+        if split:
+            with tracer.annotate("forward_backward"):
+                loss, _ = self._forward_backward()
+                self._sync()
+            t_fb = get_time()
+            with tracer.annotate("optim"):
+                self._optim_step()
+                self._sync()
+            return loss, None, None, {"forward_backward": t_fb - t0,
+                                      "optim": get_time() - t_fb}
+        with tracer.annotate("step_dispatch"):
+            if self._numerics_on:
+                loss, logits, stats = self.train_step_stats()
+            else:
+                loss, logits = self.train_step()
+        t_disp = get_time()
+        with tracer.annotate("step_device"):
+            self._sync()
+        return loss, logits, stats, {"step_dispatch": t_disp - t0,
+                                     "step_device": get_time() - t_disp}
+
     def run(self) -> Dict[str, Any]:
         cfg = self.cfg
         log.info(
             "GNNmini::Engine[torch.%s] running [%d] Epochs on %s",
             type(self).__name__, cfg.epochs, self.device,
         )
+        self._numerics_on = numerics.numerics_enabled()
+        split = os.environ.get("NTS_TRACE_STEP", "0") == "1"
+        if split and self._numerics_on:
+            log.warning(
+                "NTS_TRACE_STEP=1 runs the split two-step epochs, which carry no "
+                "numerics output: NTS_NUMERICS=1 emits no tensor_stats this run "
+                "(drop one of the two knobs)"
+            )
         start_epoch = self.ckpt_begin()
         loss = None
-        for epoch in range(start_epoch, cfg.epochs):
-            self.drop_gen.manual_seed(epoch_seed(self.seed + 1, epoch))
-            t0 = time.perf_counter()
-            loss, logits = self.train_step()
-            self._sync()
-            # chaos hook (NTS_FAULT_SPEC): before the loss reaches the
-            # history, the guards or a checkpoint
-            loss = fault_point("epoch_loss", epoch=epoch, value=loss)
-            dt = time.perf_counter() - t0
-            self.epoch_times.append(dt)
-            self.loss_history.append(float(loss))
-            self.emit_epoch(epoch, dt, loss)
-            cadence = epoch % max(1, cfg.epochs // 20) == 0 or epoch == cfg.epochs - 1
-            if cadence:
-                h = logits.float().cpu().numpy()
-                for which in (0, 1, 2):
-                    self.test(h, which)
-                log.info("Epoch %d loss %f", epoch, float(loss))
-            self.ckpt_epoch_end(epoch)
+        if start_epoch < cfg.epochs:
+            self.drop_gen.manual_seed(epoch_seed(self.seed + 1, start_epoch))
+            self.count_program_cost(
+                f"fullbatch.train_step/{type(self).__name__}",
+                lambda: self._epoch_step(split),
+                self.flat_params + self.opt_state.m + self.opt_state.v,
+            )
+        with contextlib.ExitStack() as trace:
+            for epoch in range(start_epoch, cfg.epochs):
+                if epoch == start_epoch + 1:
+                    # the steady epochs, from the second one (NTS_PROFILE_DIR)
+                    trace.enter_context(maybe_trace(type(self).__name__, self.device))
+                self.drop_gen.manual_seed(epoch_seed(self.seed + 1, epoch))
+                t0 = get_time()
+                with self.tracer.annotate("epoch"):
+                    loss, logits, stats, stages = self._epoch_step(split)
+                # the stats' fetch and records stay outside the timed epoch
+                emit_s = self.maybe_emit_numerics(epoch, stats)
+                # chaos hook (NTS_FAULT_SPEC): before the loss reaches the
+                # history, the guards or a checkpoint
+                loss = fault_point("epoch_loss", epoch=epoch, value=loss)
+                dt = get_time() - t0 - emit_s
+                self.epoch_times.append(dt)
+                self.loss_history.append(float(loss))
+                self.emit_epoch(epoch, dt, loss, stages=stages)
+                cadence = epoch % max(1, cfg.epochs // 20) == 0 or epoch == cfg.epochs - 1
+                if cadence and logits is not None:
+                    h = logits.float().cpu().numpy()
+                    for which in (0, 1, 2):
+                        self.test(h, which)
+                if cadence:
+                    log.info("Epoch %d loss %f", epoch, float(loss))
+                self.ckpt_epoch_end(epoch)
         self.ckpt_final()
-        logits = self.eval_logits().float().cpu().numpy()
-        accs = {
-            "train": self.test(logits, 0),
-            "eval": self.test(logits, 1),
-            "test": self.test(logits, 2),
-        }
+        if os.environ.get("NTS_DEBUGINFO", "0") == "1":
+            log.info("%s", self.debug_info())
+        if self.skip_final_eval(loss):
+            accs = {"train": None, "eval": None, "test": None}
+        else:
+            logits = self.eval_logits().float().cpu().numpy()
+            accs = {
+                "train": self.test(logits, 0),
+                "eval": self.test(logits, 1),
+                "test": self.test(logits, 2),
+            }
         avg = self.avg_epoch_time()
         log.info(
             "--avg epoch time %.4f s (first %.2f s incl. compile)",
             avg, self.epoch_times[0] if self.epoch_times else 0.0,
         )
-        return {
+        result = {
             "loss": float(loss) if loss is not None else float("nan"),
             "acc": accs,
             "avg_epoch_s": avg,
         }
+        self.finalize_metrics(result)
+        return result

@@ -100,6 +100,7 @@ class GATTrainer(FullBatchTrainer):
     weight_mode = "ones"  # the softmax supplies the edge weights
     supports_optim_kernel = True  # OPTIM_KERNEL:1 -> the ELL attention
     supports_fused_edge = True  # KERNEL:fused_edge -> the fused op, C = 1
+    edge_family = True  # sets the kernel.* edge-traffic gauges
 
     def init_params(self, generator: torch.Generator):
         return init_gat_params(self.cfg.layer_sizes(), generator)

@@ -12,6 +12,11 @@ once at the input, W and the BN parameters are cast at use, the logits come
 back as float32. ``SUBLINEAR`` recomputes every non-final layer in the
 backward (``torch.utils.checkpoint``); the dropout masks are drawn before
 the checkpointed layer, so the recomputation reuses them.
+
+``tap(i, h) -> h`` (``forward_taped``) is applied to each layer's output,
+outside the recomputed region: the numerics plane collects the layers'
+activations through it, and the provenance replay walks (and poisons) the
+layer chain through it. Without a tap the forward is unchanged.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ def gcn_forward(
     eager: bool = False,
     compute_dtype=None,
     sublinear: bool = False,
+    tap=None,
 ) -> torch.Tensor:
     """Logits [V, classes] (float32) for all vertices."""
 
@@ -85,6 +91,8 @@ def gcn_forward(
             x = checkpoint(layer_step, x, use_reentrant=False)
         else:
             x = layer_step(x)
+        if tap is not None:
+            x = tap(i, x)
     return x.float()
 
 
@@ -98,11 +106,15 @@ class GCNTrainer(FullBatchTrainer):
         return init_gcn_params(self.cfg.layer_sizes(), generator)
 
     def model_forward(self, params, graph, x, train: bool):
+        return self.forward_taped(params, graph, x, None, train)
+
+    def forward_taped(self, params, graph, x, tap, train: bool = True):
+        """``model_forward`` with the per-layer tap (the numerics hook)."""
         dtype = torch.bfloat16 if self.cfg.precision == "bfloat16" else None
         return gcn_forward(
             graph, params, x, self.cfg.drop_rate if train else 0.0, train,
             self.drop_gen, eager=self.eager, compute_dtype=dtype,
-            sublinear=self.cfg.sublinear,
+            sublinear=self.cfg.sublinear, tap=tap,
         )
 
 

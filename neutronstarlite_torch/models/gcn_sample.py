@@ -29,19 +29,27 @@ replays a straight one; the fused step hashes the same kind of key on the
 device. The full edge set never goes to the card: only the features, the
 labels and (device, fused) the neighbour table do.
 
-The stage split of each epoch (``stage_history``: ``sample_wait``,
-``step_dispatch``, ``step_device``) and the ``sample.batches``,
-``sample.h2d_bytes`` and ``wire.feature_gather_bytes`` counts
-(``counts``) are kept as plain numbers under the reference's names; the
-metrics stream that carries them is the obs slice's. ``NTS_FINAL_EVAL=0``
-(the base's benchmark switch; the reference's sampled trainer ignores it)
-skips the end-of-run accuracy pass. Left for later slices: the
-``NTS_NUMERICS`` stats step (obs) and ``aot_args`` (tools).
+Telemetry (``obs/``), as in the reference: each epoch's stage split
+(``sample_wait``, ``step_dispatch``, ``step_device``; also kept in
+``stage_history``) goes to ``emit_epoch``; the ``sample.batches``,
+``sample.h2d_bytes`` and ``wire.feature_gather_bytes`` registry counters
+(``counts`` reads them) and the ``wire.feature_gather_bytes_per_batch``
+gauge; the pipeline's producer spans and counters
+(``sample/pipeline.py``); in the fused mode one ``epoch_scan`` record per
+epoch (``dispatches``: the graph replays), the ``sample.dispatches``
+counter and one ``program_cost`` record of the batch step, counted once and
+undone. ``NTS_NUMERICS=1`` runs the step with the tensor-stat reductions
+(params and grads per layer, the global grad norm) on the device; the
+epoch keeps the last batch's stats, and the host fetches them every
+``NTS_NUMERICS_EVERY`` epochs. In the fused mode the stats are outputs of
+the captured graph itself, written into one static buffer.
+``NTS_FINAL_EVAL=0`` (the base's benchmark switch; the reference's sampled
+trainer ignores it) skips the end-of-run accuracy pass. Left for a later
+slice: ``aot_args`` (tools).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, List
 
 import numpy as np
@@ -51,6 +59,7 @@ from neutronstarlite_torch.models.base import ToolkitBase, register_algorithm
 from neutronstarlite_torch.models.fullbatch import epoch_seed
 from neutronstarlite_torch.nn.layers import dropout, dropout_mask
 from neutronstarlite_torch.nn.param import AdamConfig, adam_init, adam_update, xavier_uniform
+from neutronstarlite_torch.obs import numerics
 from neutronstarlite_torch.ops.minibatch import get_feature, get_label, minibatch_gather
 from neutronstarlite_torch.resilience.faults import fault_point
 from neutronstarlite_torch.sample.parallel import ParallelEpochSampler
@@ -64,12 +73,15 @@ from neutronstarlite_torch.sample.pipeline import (
 from neutronstarlite_torch.sample.sampler import Sampler, node_capacities
 from neutronstarlite_torch.utils.config import GCN_SAMPLE_ALGORITHMS, check_supported
 from neutronstarlite_torch.utils.logging import get_logger
+from neutronstarlite_torch.utils.timing import get_time
 
 log = get_logger("gcn_sample")
 
 # cfg switches of the full-batch routes, which the sampled trainer has no
 # use for: refused rather than ignored
 _FULL_BATCH_ONLY = ("optim_kernel", "pallas_kernel", "kernel", "kernel_tile", "sublinear")
+# the registry counters ``counts`` reads
+_COUNTS = ("sample.batches", "sample.h2d_bytes", "wire.feature_gather_bytes")
 
 
 @register_algorithm(*GCN_SAMPLE_ALGORITHMS)
@@ -135,9 +147,11 @@ class GCNSampleTrainer(ToolkitBase):
             self.node_caps[0] * self.sizes[0] * self.datum.feature.dtype.itemsize
         )
         self._sample_payload_bytes = sample_batch_payload_bytes(self.node_caps, self.fanouts)
-        self.counts = {"sample.batches": 0, "sample.h2d_bytes": 0,
-                       "wire.feature_gather_bytes": 0}
+        self.metrics.gauge_set("wire.feature_gather_bytes_per_batch",
+                               self._gather_bytes_per_batch)
         self.stage_history: List[Dict[str, float]] = []
+        self._numerics_on = numerics.numerics_enabled()
+        self._stats_layout = None  # the fused step's packed-stats layout
         self._fused = None
         if self.sample_mode == "fused":
             from neutronstarlite_torch.sample.fused import FusedEpochRunner, degree_tables
@@ -151,6 +165,11 @@ class GCNSampleTrainer(ToolkitBase):
                 (hs.nbr, hs.eff_deg) + degree_tables(self.host_graph, self.device),
                 np.where(self.datum.mask == 0)[0], self.seed + 1, self.device,
             )
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        """The sampling counters of this trainer's registry."""
+        return {k: int(self.metrics.counter_get(k)) for k in _COUNTS}
 
     def init_model(self) -> None:
         """Parameters from the seed, a fresh optimizer and its config."""
@@ -194,19 +213,24 @@ class GCNSampleTrainer(ToolkitBase):
     def _mask_shapes(self):
         return [(self.node_caps[i + 1], self.sizes[i + 1]) for i in range(len(self.sizes) - 2)]
 
-    def _step(self, nodes, hops, seed_mask, seeds, masks, step_t=None) -> torch.Tensor:
-        """Loss, gradients and the Adam update of one batch, in place. The
-        gradients are taken with respect to fresh leaves that share the
-        parameters' storage: a captured step then builds its whole autograd
-        graph inside the capture, on the capturing stream."""
+    def _step(self, nodes, hops, seed_mask, seeds, masks, step_t=None):
+        """Loss, gradients and the Adam update of one batch, in place; with
+        ``NTS_NUMERICS=1`` also the step's tensor stats on the device:
+        returns the loss, or (loss, stats). The gradients are taken with
+        respect to fresh leaves that share the parameters' storage: a
+        captured step then builds its whole autograd graph inside the
+        capture, on the capturing stream."""
         weights = [p.detach().requires_grad_(True) for p in self.flat_params]
         logits = self._forward(weights, nodes, hops, masks)
         loss = self.masked_nll_loss(logits, get_label(self.label, seeds), seed_mask)
         grads = torch.autograd.grad(loss, weights)
         adam_update(self.flat_params, grads, self.opt_state, self.adam_cfg, step_t=step_t)
-        return loss.detach()
+        if not self._numerics_on:
+            return loss.detach()
+        stats = numerics.step_stats(params=self.params, grads=[{"W": g} for g in grads])
+        return loss.detach(), stats
 
-    def _train_batch(self, nodes, hops, seed_mask, seeds, epoch: int, bi: int) -> torch.Tensor:
+    def _train_batch(self, nodes, hops, seed_mask, seeds, epoch: int, bi: int):
         masks = None
         rate = self.cfg.drop_rate
         if rate > 0:
@@ -216,9 +240,12 @@ class GCNSampleTrainer(ToolkitBase):
                 masks.append(dropout_mask(shape, rate, self.drop_gen))
         return self._step(nodes, hops, seed_mask, seeds, masks)
 
-    def _fused_step(self, nodes, hops, seed_mask, seeds, key) -> torch.Tensor:
+    def _fused_step(self, nodes, hops, seed_mask, seeds, key):
         """The fused batch update (``FusedEpochRunner``): hashed dropout
-        masks and the device update count, so that it can be captured."""
+        masks and the device update count, so that it can be captured; with
+        ``NTS_NUMERICS=1`` the stats come back packed into one tensor
+        (``numerics.pack_stats``), which the runner keeps in a static
+        buffer."""
         from neutronstarlite_torch.sample.fused import dropout_keep
 
         rate = self.cfg.drop_rate
@@ -226,7 +253,12 @@ class GCNSampleTrainer(ToolkitBase):
         if rate > 0:
             masks = [dropout_keep(key, i, shape, rate, self.device)
                      for i, shape in enumerate(self._mask_shapes())]
-        return self._step(nodes, hops, seed_mask, seeds, masks, step_t=self.adam_step_t)
+        out = self._step(nodes, hops, seed_mask, seeds, masks, step_t=self.adam_step_t)
+        if not self._numerics_on:
+            return out
+        loss, stats = out
+        self._stats_layout, packed = numerics.pack_stats(stats)
+        return loss, packed
 
     def _to_device(self, b):
         tensors = [torch.from_numpy(np.asarray(a)).to(self.device) for a in batch_arrays(b)]
@@ -263,13 +295,13 @@ class GCNSampleTrainer(ToolkitBase):
         sample_s = 0.0
         it = iter(self.par_sampler.sample_epoch(epoch))
         while True:
-            t0 = time.perf_counter()
+            t0 = get_time()
             try:
                 b = next(it)
             except StopIteration:
                 break
             arrays = self._to_device(b)
-            sample_s += time.perf_counter() - t0
+            sample_s += get_time() - t0
             yield arrays
         self._last_sample_s = sample_s
 
@@ -277,33 +309,64 @@ class GCNSampleTrainer(ToolkitBase):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _after_epoch(self, epoch: int, t0: float, losses, dispatch_s: float,
+    def _after_epoch(self, epoch: int, t0: float, losses, stats, dispatch_s: float,
                      device_s: float) -> None:
-        """Epoch-end bookkeeping: the epoch_loss fault point, the loss
-        history, the counts and the stage split, the guards, the checkpoint
-        hook."""
+        """Epoch-end bookkeeping: the numerics records, the epoch_loss fault
+        point, the loss history, the counters and the stage split, the
+        epoch record and the guards (``emit_epoch``), the checkpoint hook."""
         fused = self._fused is not None
+        emit_s = self.maybe_emit_numerics(epoch, stats)  # kept out of the epoch's time
         # chaos hook (NTS_FAULT_SPEC): before the loss reaches the history
         epoch_loss = fault_point("epoch_loss", epoch=epoch, value=float(np.mean(losses)))
-        dt = time.perf_counter() - t0
+        dt = get_time() - t0 - emit_s
         self.epoch_times.append(dt)
         self.loss_history.append(float(epoch_loss))
         n = len(losses)
-        self.counts["sample.batches"] += n
-        if not fused:
-            self.counts["wire.feature_gather_bytes"] += n * self._gather_bytes_per_batch
-        if self.sample_mode == "sync":
+        m = self.metrics
+        # the fused step gathers from the resident slab: no wire gather and
+        # no batch payload from the host
+        gather_bytes = 0 if fused else n * self._gather_bytes_per_batch
+        if self.sample_mode in ("sync", "fused"):
             # pipelined and device count what their producer staged
-            self.counts["sample.h2d_bytes"] += n * self._sample_payload_bytes
-        self.stage_history.append({
+            m.counter_add("sample.h2d_bytes", 0 if fused else n * self._sample_payload_bytes)
+        m.counter_add("sample.batches", n)
+        m.counter_add("wire.feature_gather_bytes", gather_bytes)
+        if fused:
+            r = self._fused
+            m.counter_add("sample.dispatches", r.n_batches)
+            m.gauge_set("sample.graph_captures", r.captures)
+            m.event("epoch_scan", bucket=int(r.n_batches), batches=n,
+                    dispatches=int(r.n_batches), h2d_bytes=0, epoch=int(epoch),
+                    seconds=round(dt, 6), replays=int(r.replays))
+        stages = {
             "sample_wait": self._last_sample_s,
             "step_dispatch": dispatch_s,
             "step_device": device_s,
-        })
-        self.emit_epoch(epoch, dt, self.loss_history[-1])
+        }
+        self.stage_history.append(stages)
+        self.emit_epoch(epoch, dt, self.loss_history[-1], stages=stages, batches=n,
+                        feature_gather_bytes=gather_bytes)
         if epoch % max(1, self.cfg.epochs // 10) == 0 or epoch == self.cfg.epochs - 1:
             log.info("Epoch %d loss %f (%d batches)", epoch, self.loss_history[-1], n)
         self.ckpt_epoch_end(epoch)
+
+    def _count_fused_cost(self, epoch: int) -> None:
+        """The fused batch step's program_cost, counted once on one eager
+        step and undone (``count_program_cost``)."""
+        r = self._fused
+
+        def one():
+            r.epoch_t.fill_(int(epoch))
+            r.batch_t.zero_()
+            r._shuffle()
+            r.step()
+
+        self.adam_step_t.fill_(self.opt_state.step)
+        self.count_program_cost(
+            f"sample.fused_step_b{r.n_batches}", one,
+            self.flat_params + self.opt_state.m + self.opt_state.v + [self.adam_step_t],
+            bucket=int(r.n_batches),
+        )
 
     def run(self) -> Dict[str, Any]:
         cfg = self.cfg
@@ -315,44 +378,50 @@ class GCNSampleTrainer(ToolkitBase):
         loss = None
         start_epoch = self.ckpt_begin()
         pipeline = None
+        if self._fused is not None and start_epoch < cfg.epochs:
+            self._count_fused_cost(start_epoch)
         if self.sample_mode in ("pipelined", "device") and start_epoch < cfg.epochs:
             # a fresh pipeline per run(): a supervised retry re-enters here
             # and schedules from its rollback epoch
             pipeline = SamplePipeline(self.par_sampler, range(start_epoch, cfg.epochs),
-                                      device=self.device)
+                                      device=self.device, metrics=self.metrics,
+                                      tracer=self.tracer)
         try:
             for epoch in range(start_epoch, cfg.epochs):
-                t0 = time.perf_counter()
+                t0 = get_time()
                 dispatch_s = 0.0
+                stats = None
                 if self._fused is not None:
                     self.adam_step_t.fill_(self.opt_state.step)
-                    td = time.perf_counter()
+                    td = get_time()
                     losses_dev = self._fused.run_epoch(epoch)
-                    dispatch_s = time.perf_counter() - td
+                    dispatch_s = get_time() - td
                     self.opt_state.step += self._fused.n_batches
                     self._last_sample_s = 0.0
+                    if self._numerics_on:
+                        stats = (self._stats_layout, self._fused.stats)
                 else:
                     step_losses = []
                     for bi, (nodes, hops, seed_mask, seeds) in enumerate(
                         self._epoch_batches(epoch, pipeline)
                     ):
-                        td = time.perf_counter()
-                        step_losses.append(
-                            self._train_batch(nodes, hops, seed_mask, seeds, epoch, bi)
-                        )
-                        dispatch_s += time.perf_counter() - td
+                        td = get_time()
+                        out = self._train_batch(nodes, hops, seed_mask, seeds, epoch, bi)
+                        if self._numerics_on:
+                            out, stats = out  # the epoch keeps the last batch's
+                        step_losses.append(out)
+                        dispatch_s += get_time() - td
                     losses_dev = torch.stack(step_losses)
-                tw = time.perf_counter()
+                tw = get_time()
                 self._sync()
-                device_s = time.perf_counter() - tw
+                device_s = get_time() - tw
                 losses = losses_dev.cpu().tolist()
                 loss = losses[-1]
-                self._after_epoch(epoch, t0, losses, dispatch_s, device_s)
+                self._after_epoch(epoch, t0, losses, stats, dispatch_s, device_s)
         finally:
             # drain on any exit (early stop, guard trip, worker fault)
             if pipeline is not None:
                 pipeline.close()
-                self.counts["sample.h2d_bytes"] += pipeline.h2d_bytes
         self.ckpt_final()
         # release the worker pool; a second run() samples inline, same batches
         self.par_sampler.close()
@@ -363,8 +432,10 @@ class GCNSampleTrainer(ToolkitBase):
                     "test": self._evaluate(2)}
         avg = self.avg_epoch_time()
         log.info("--avg epoch time %.4f s", avg)
-        return {
+        result = {
             "loss": float(loss) if loss is not None else float("nan"),
             "acc": accs,
             "avg_epoch_s": avg,
         }
+        self.finalize_metrics(result)
+        return result

@@ -77,6 +77,12 @@ def ggcn_forward(graph, params, x, drop_rate: float, train: bool, generator) -> 
 class GGCNTrainer(FullBatchTrainer):
     weight_mode = "ones"  # the learned gate supplies the edge weights
     supports_fused_edge = True  # KERNEL:fused_edge -> the fused op, C = f'
+    edge_family = True  # sets the kernel.* edge-traffic gauges
+
+    @staticmethod
+    def edge_score_channels(f_out: int) -> int:
+        """The gate is per channel: the edge score tensors are f'-wide."""
+        return f_out
 
     def init_params(self, generator: torch.Generator):
         return init_ggcn_params(self.cfg.layer_sizes(), generator)

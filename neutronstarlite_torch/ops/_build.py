@@ -33,6 +33,10 @@ NVCC_FLAGS = (
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _cols: Dict[str, int] = {}
+# how this process got each kernel's library: "built" (nvcc ran here) or
+# "loaded" (an up-to-date library was already there); obs/collectors
+# reports it in the run_summary's compile_cache
+origins: Dict[str, str] = {}
 
 VP = ctypes.c_void_p
 I32 = ctypes.c_int
@@ -105,6 +109,7 @@ def build(names: Iterable[str] = KERNELS) -> float:
             errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
         else:
             os.replace(tmp, _lib_path(name))
+            origins[name] = "built"
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
@@ -116,6 +121,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     build([name])
+    origins.setdefault(name, "loaded")
     lib = ctypes.CDLL(_lib_path(name))
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from neutronstarlite_torch.graph.storage import CSCGraph
+from neutronstarlite_torch.obs import cost
 from neutronstarlite_torch.ops import _build
 from neutronstarlite_torch.utils.logging import get_logger
 
@@ -347,10 +348,12 @@ class BspAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, fwd: BspEll, bwd: BspEll):
         ctx.bwd = bwd
+        cost.note_kernel("bsp_ell", "fwd", x)
         return bsp_aggregate(fwd, x.contiguous())
 
     @staticmethod
     def backward(ctx, g):
+        cost.note_kernel("bsp_ell", "bwd", g)
         return bsp_aggregate(ctx.bwd, g.contiguous()), None, None
 
 

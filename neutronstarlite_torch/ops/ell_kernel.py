@@ -36,6 +36,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from neutronstarlite_torch.obs import cost
 from neutronstarlite_torch.ops import _build
 from neutronstarlite_torch.ops.ell import EllBuckets, ell_tables_aggregate
 
@@ -262,10 +263,12 @@ class EllAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, fwd: EllBuckets, bwd: EllBuckets):
         ctx.bwd = bwd
+        cost.note_kernel("ell_level", "fwd", x)
         return ell_level_aggregate(fwd, x.contiguous())
 
     @staticmethod
     def backward(ctx, g):
+        cost.note_kernel("ell_level", "bwd", g)
         return ell_level_aggregate(ctx.bwd, g.contiguous()), None, None
 
 
@@ -284,12 +287,15 @@ class EllWeightedAggregate(torch.autograd.Function):
         x = x.contiguous()
         ctx.bwd, ctx.transpose, ctx.weight_grad = bwd, transpose, weight_grad
         ctx.save_for_backward(x, *weights)
+        cost.note_kernel("ell_level", "fwd", x)
         return ell_level_aggregate(fwd, x, weights)
 
     @staticmethod
     def backward(ctx, g):
         x, *weights = ctx.saved_tensors
         g = g.contiguous()
+        if ctx.needs_input_grad[0]:
+            cost.note_kernel("ell_level", "bwd", g)
         gx = (ell_level_aggregate(ctx.bwd, g, ctx.transpose(weights))
               if ctx.needs_input_grad[0] else None)
         gw = (ctx.weight_grad(g, x) if any(ctx.needs_input_grad[5:])

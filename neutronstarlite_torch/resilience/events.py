@@ -3,11 +3,12 @@
 
 The layers that detect or inject faults (the checkpoint store, the fault
 injector, the supervisor) report through one process-level sink: any
-object with ``.event(event_kind, **fields)``. The reference installs its
-trainer's metrics registry there; the port's registry comes with the obs
-slice, so until then no sink is installed unless a caller sets one (the
-tests install a recording sink). Each record is also logged as the same
-``FAULT ...`` / ``RECOVERY ...`` line as in the reference.
+object with ``.event(event_kind, **fields)``. Each trainer installs its
+metrics registry there when it is built (``models/base.py``), so fault and
+recovery records land in the run's stream by default; a caller may
+install its own sink instead (the tests install a recording one). Each
+record is also logged as the same ``FAULT ...`` / ``RECOVERY ...`` line as
+in the reference.
 
 Emission is best-effort: a failing sink degrades to a log line and never
 turns a recoverable fault into a fatal one.
@@ -29,6 +30,16 @@ def set_sink(sink) -> None:
     None) as this process's fault/recovery sink."""
     global _sink
     _sink = sink
+
+
+def adopt_registry(registry) -> None:
+    """Install a run's metrics registry as the sink, unless the caller
+    installed a sink of another kind (a recording sink in a test): a newer
+    run's registry replaces an older run's, never a caller's own sink."""
+    from neutronstarlite_torch.obs.registry import MetricsRegistry
+
+    if registry is not None and (_sink is None or isinstance(_sink, MetricsRegistry)):
+        set_sink(registry)
 
 
 def emit(event: str, **fields: Any) -> Optional[Dict[str, Any]]:

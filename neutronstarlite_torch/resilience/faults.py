@@ -12,7 +12,13 @@ rejects exactly what the reference's does. The port runs these kinds:
 ============ ========================== =====================================
 kind         args                       effect at its fault point
 ============ ========================== =====================================
-nan_loss     epoch                      replaces the epoch loss with NaN
+nan_loss     epoch, layer (optional)    replaces the epoch loss with NaN;
+                                        with ``layer=k`` it also arms the
+                                        provenance poison, which the
+                                        replay (obs/numerics) applies at
+                                        layer k, so the
+                                        ``nonfinite_provenance`` record
+                                        must name layer k
 crash        epoch, rank (optional)     ``os._exit(41)``: the simulated kill
 stall        epoch, ms (default 1000)   sleeps ms inside the epoch
 exc          epoch, point (optional)    raises RuntimeError at its point
@@ -28,9 +34,8 @@ directory is published) and ``sample_produce`` (the sampling pipeline's
 producer, before each batch is staged).
 
 Kinds and points of other slices parse as in the reference and are then
-refused, naming the slice they wait for (``UNPORTED``): ``nan_loss@layer``
-(the provenance replay, obs), ``rank_loss`` and ``slow_rank`` (elastic and
-per-partition steps, distributed), ``net_drop`` and ``slow_net`` (the
+refused, naming the slice they wait for (``UNPORTED``): ``rank_loss`` and
+``slow_rank`` (elastic and per-partition steps, distributed), ``net_drop`` and ``slow_net`` (the
 cross-host HTTP fetch, serving), ``writer_crash`` (the delta log, stream),
 and the points those slices plant.
 
@@ -98,7 +103,7 @@ class FaultSpec:
     save: Optional[int] = None  # ckpt_corrupt: 1-based save counter
     ms: float = 1000.0  # stall / slow_rank: sleep duration
     partition: Optional[int] = None  # rank_loss / slow_rank
-    layer: Optional[int] = None  # nan_loss: the provenance poison's layer
+    layer: Optional[int] = None  # nan_loss: poison the provenance replay at this layer
     target: Optional[int] = None  # net_drop / slow_net
     seq: Optional[int] = None  # writer_crash
     times: int = 1  # max firings (one-shot by default)
@@ -165,12 +170,6 @@ def parse_fault_spec(text: str) -> List[FaultSpec]:
 def check_ported(specs: List[FaultSpec]) -> None:
     """Refuse a spec that the port cannot run yet, naming its slice."""
     for spec in specs:
-        if spec.kind == "nan_loss" and spec.layer is not None:
-            raise ValueError(
-                f"nan_loss@layer={spec.layer} poisons the non-finite "
-                "provenance replay, which comes with the obs slice; the torch "
-                "port runs nan_loss without layer="
-            )
         point = spec.point or DEFAULT_POINTS[spec.kind]
         for name in (spec.kind, point):
             if name in UNPORTED:
@@ -185,14 +184,31 @@ def check_ported(specs: List[FaultSpec]) -> None:
 _plan: Optional[List[FaultSpec]] = None
 _plan_src: Optional[str] = None
 _save_count = 0
+# the pending layer poison a ``nan_loss@layer=k`` firing arms: consumed by
+# the one-shot provenance replay (obs/numerics.capture_provenance), which
+# applies it inside the replayed forward through ``poison_hook``
+_layer_poison: Optional[int] = None
+
+
+def pending_layer_poison() -> Optional[int]:
+    """The layer index a fired ``nan_loss@layer=k`` spec armed, or None."""
+    return _layer_poison
+
+
+def clear_layer_poison() -> None:
+    """Consume the pending poison (the provenance replay's one-shot)."""
+    global _layer_poison
+    _layer_poison = None
 
 
 def reset() -> None:
-    """Forget the parsed plan and the fired and save counters (tests)."""
-    global _plan, _plan_src, _save_count
+    """Forget the parsed plan, the fired and save counters and a pending
+    poison (tests)."""
+    global _plan, _plan_src, _save_count, _layer_poison
     _plan = None
     _plan_src = None
     _save_count = 0
+    _layer_poison = None
 
 
 def active_plan() -> List[FaultSpec]:
@@ -256,7 +272,13 @@ def fault_point(point: str, *, epoch: Optional[int] = None, value=None,
             continue
         spec.fired += 1
         if spec.kind == "nan_loss":
-            log.warning("injecting nan_loss at epoch %s", epoch)
+            if spec.layer is not None:
+                global _layer_poison
+                _layer_poison = spec.layer
+                log.warning("injecting nan_loss at epoch %s (provenance poison armed "
+                            "for layer %d)", epoch, spec.layer)
+            else:
+                log.warning("injecting nan_loss at epoch %s", epoch)
             value = float("nan")
         elif spec.kind == "stall":
             log.warning("injecting %.0f ms stall at epoch %s", spec.ms, epoch)

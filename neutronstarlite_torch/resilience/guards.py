@@ -13,8 +13,12 @@ poisoned checkpoint. Checks:
   first epoch of each attempt: :class:`StallError`;
 - non-finite parameters every ``NTS_GUARD_PARAMS_EVERY`` epochs (default
   1, 0 = off): :class:`NonFiniteParamsError`, naming the leaves as
-  ``jax.tree_util.keystr`` does. One reduction covers every leaf and its
-  flags come to the host in one fetch.
+  ``jax.tree_util.keystr`` does (``obs/numerics.nonfinite_leaf_names``:
+  one reduction over every leaf, one host fetch).
+
+Before a non-finite guard raises, ``obs/numerics.capture_provenance``
+replays the failing epoch layer by layer and records the first
+non-finite layer in a ``nonfinite_provenance`` record.
 
 The guards raise only when armed: inside ``supervised_run``, or forced by
 ``NTS_GUARDS=1`` (``NTS_GUARDS=0`` forces them off). Unarmed, a non-finite
@@ -34,9 +38,8 @@ import threading
 import time
 from typing import Callable, List, Optional
 
-import torch
-
-from neutronstarlite_torch.utils import tree as tree_util
+from neutronstarlite_torch.obs import numerics
+from neutronstarlite_torch.resilience import faults
 from neutronstarlite_torch.utils.logging import get_logger
 
 log = get_logger("guards")
@@ -106,16 +109,8 @@ def env_float(name: str, default: float) -> float:
 
 def nonfinite_leaves(tree) -> List[str]:
     """Key paths of the floating tensors of ``tree`` that hold a NaN or an
-    inf. ``0 * x`` is NaN exactly where x is not finite, so the norms of
-    the zeroed leaves (one multi-tensor op each) flag them; the flags
-    reach the host in one copy."""
-    named = [(p, t) for p, t in tree_util.flatten_with_path(tree)
-             if torch.is_tensor(t) and t.is_floating_point()]
-    if not named:
-        return []
-    tensors = [t.detach() for _, t in named]
-    flags = torch.stack(torch._foreach_norm(torch._foreach_mul(tensors, 0.0))).isnan()
-    return [p for (p, _), bad in zip(named, flags.cpu().tolist()) if bad]
+    inf (``obs/numerics.nonfinite_leaf_names``)."""
+    return numerics.nonfinite_leaf_names(tree)
 
 
 def _state(toolkit) -> dict:
@@ -146,6 +141,9 @@ def epoch_check(toolkit, epoch: int, seconds: float, loss: Optional[float]) -> N
                 "wrap with resilience.supervised_run or NTS_GUARDS=1 to recover)",
                 loss, epoch,
             )
+        # an unarmed run never replays: a nan_loss@layer=k poison armed
+        # this epoch is consumed here, or it would corrupt the next replay
+        faults.clear_layer_poison()
         return
 
     if loss is not None and not finite:
@@ -189,10 +187,9 @@ def epoch_check(toolkit, epoch: int, seconds: float, loss: Optional[float]) -> N
 
 
 def _capture_provenance(toolkit, epoch: int, fault_kind: str) -> None:
-    """The reference replays the failing step layer by layer here to name
-    the first non-finite op (obs/numerics); that comes with the obs slice."""
-    log.info("%s at epoch %d: non-finite provenance comes with the obs slice "
-             "(not captured)", fault_kind, epoch)
+    """The guard->provenance handoff (obs/numerics.capture_provenance): the
+    replay runs the model's own forward, so an error in it raises."""
+    numerics.capture_provenance(toolkit, epoch, fault_kind)
 
 
 # ---- asynchronous watchdog -------------------------------------------------

@@ -22,8 +22,15 @@ a :class:`~.guards.HealthError`:
 
 A run killed outright (a crash fault, a preemption) is recovered by the
 next invocation, which resumes from the checkpoint (``ckpt_begin`` records
-``resume``). The reference's tracer spans and metrics gauges come with the
-obs slice, and its elastic survivor replan with the distributed slice.
+``resume``). The elastic survivor replan comes with the distributed slice.
+
+Telemetry (obs/): each attempt is an ``attempt`` span, the backoff sleep a
+``backoff`` span and a re-initialisation a ``rebuild`` span on the
+toolkit's tracer; the ``resilience.state`` / ``resilience.attempt`` /
+``resilience.gave_up`` gauges and the ``resilience.faults`` /
+``resilience.restarts`` counters go to its registry. The toolkit's
+registry becomes the fault/recovery sink unless the caller installed a
+sink of another kind.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import random
 import time
 from typing import Any, Dict, List, Optional
 
+from neutronstarlite_torch.obs.trace import Tracer
 from neutronstarlite_torch.resilience import events, guards
 from neutronstarlite_torch.resilience.guards import env_float
 from neutronstarlite_torch.utils.logging import get_logger, process_index
@@ -89,6 +97,14 @@ def supervised_run(
     watchdog_s = env_float("NTS_EPOCH_TIMEOUT_S", 0.0)
     use_interrupt = os.environ.get("NTS_WATCHDOG_INTERRUPT", "0") == "1"
 
+    metrics = getattr(toolkit, "metrics", None)
+    events.adopt_registry(metrics)
+    tracer = getattr(toolkit, "tracer", None) or Tracer(metrics)
+
+    def gauge(name, value):
+        if metrics is not None:
+            metrics.gauge_set(name, value)
+
     attempt = 0
     divergence_streak = 0
     codes_seen: List[str] = []
@@ -100,9 +116,15 @@ def supervised_run(
                 watchdog = guards.Watchdog(
                     watchdog_s, first_beat_grace_s=grace if grace > 0 else None,
                 ).start()
+            attempt_span = tracer.begin("attempt", cat="resilience", attempt=attempt + 1)
+            gauge("resilience.state", "running")
+            gauge("resilience.attempt", attempt + 1)
             try:
                 try:
-                    return toolkit.run()
+                    result = toolkit.run()
+                    tracer.end(attempt_span, outcome="ok")
+                    gauge("resilience.state", "ok")
+                    return result
                 except KeyboardInterrupt:
                     # only the watchdog's interrupt is a fault; a real
                     # Ctrl-C still ends the run
@@ -117,13 +139,19 @@ def supervised_run(
                     if watchdog is not None:
                         watchdog.stop()
             except guards.HealthError as err:
+                tracer.end(attempt_span, outcome=err.code)
                 attempt += 1
+                if metrics is not None:
+                    metrics.counter_add("resilience.faults")
                 events.emit_fault(err.code, epoch=err.epoch, attempt=attempt, error=str(err))
                 log.warning("supervised run attempt %d failed: [%s] %s",
                             attempt, err.code, err)
                 if err.code not in codes_seen:
                     codes_seen.append(err.code)
+                gauge("resilience.state", "retrying")
                 if attempt > max_restarts:
+                    gauge("resilience.state", "gave_up")
+                    gauge("resilience.gave_up", 1)
                     events.emit_recovery(action="giveup", attempt=attempt, epoch=err.epoch)
                     raise RetriesExhaustedError(
                         f"giving up after {attempt - 1} restart(s) "
@@ -139,7 +167,9 @@ def supervised_run(
                     delay = backoff_base_s * (2.0 ** (attempt - 1))
                     delay *= 1.0 + backoff_jitter_frac(attempt)
                     log.info("backing off %.2fs before restart", delay)
-                    time.sleep(delay)
+                    with tracer.span("backoff", cat="resilience", attempt=attempt,
+                                     delay_s=delay):
+                        time.sleep(delay)
                 scale_lr = divergence_streak >= 2 and lr_backoff > 0 and lr_backoff != 1.0
                 if scale_lr:
                     old = toolkit.cfg.learn_rate
@@ -150,13 +180,16 @@ def supervised_run(
                 if scale_lr or not rollback:
                     # fresh parameters and an AdamConfig with the new rate;
                     # with a checkpoint the retry restores over them
-                    toolkit.init_model()
+                    with tracer.span("rebuild", cat="resilience", attempt=attempt):
+                        toolkit.init_model()
                 if not rollback:
                     # a restart's failed attempt leaves no epochs behind
                     # (a rollback rewinds in ckpt_begin instead)
                     toolkit.epoch_times.clear()
                     toolkit.loss_history.clear()
                     toolkit._first_epoch_trained = None
+                if metrics is not None:
+                    metrics.counter_add("resilience.restarts")
                 guards.new_attempt(toolkit)
                 # tells ckpt_begin not to record a second "resume", and to
                 # re-initialise when a chosen rollback finds no intact step
@@ -166,3 +199,8 @@ def supervised_run(
                     epoch=err.epoch, fault=err.code,
                     **({"lr_scaled_to": toolkit.cfg.learn_rate} if scale_lr else {}),
                 )
+            except BaseException as e:
+                # not a health fault (a real Ctrl-C, a CUDA error): it
+                # propagates, and the failed attempt's span still lands
+                tracer.end(attempt_span, outcome=type(e).__name__)
+                raise

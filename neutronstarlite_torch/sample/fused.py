@@ -147,9 +147,12 @@ class FusedEpochRunner:
     ``step_fn(nodes, hops, seed_mask, seeds, key)`` is the trainer's batch
     update: it changes the trainer's state in place (the tensors
     ``state_fn()`` lists: parameters, Adam moments and update count) and
-    returns the batch loss as a 0-dim tensor. ``tables`` is ``(nbr,
-    eff_deg, out_deg, in_deg)`` on the device. ``run_epoch(epoch)`` returns
-    the epoch's per-batch losses as a device tensor."""
+    returns the batch loss as a 0-dim tensor, or (loss, stats) with the
+    step's packed tensor stats (``NTS_NUMERICS``), which each step writes
+    into the static buffer ``stats``: after an epoch it holds the last
+    batch's. ``tables`` is ``(nbr, eff_deg, out_deg, in_deg)`` on the
+    device. ``run_epoch(epoch)`` returns the epoch's per-batch losses as a
+    device tensor."""
 
     def __init__(self, step_fn: Callable, state_fn: Callable, node_caps: Sequence[int],
                  fanouts: Sequence[int], batch_size: int, tables, train_nids,
@@ -175,6 +178,7 @@ class FusedEpochRunner:
         self.counts = live.sum(dim=1)
         self.seeds_mat = torch.zeros((n, B), dtype=torch.int64, device=dev)
         self.losses = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.stats = None  # the last step's packed stats, when the step returns them
         self.graph = None
         self._captured_state = None
         self.captures = 0  # CUDA graphs captured
@@ -200,8 +204,13 @@ class FusedEpochRunner:
             self.nbr, self.eff_deg, self.out_deg, self.in_deg, seeds, n_live,
             fold(key, DRAW_TAG), self.node_caps, self.fanouts,
         )
-        loss = self.step_fn(nodes, hops, seed_mask, seeds, key)
+        out = self.step_fn(nodes, hops, seed_mask, seeds, key)
+        loss, stats = out if isinstance(out, tuple) else (out, None)
         self.losses.index_copy_(0, bi, loss.detach().float().view(1))
+        if stats is not None:
+            if self.stats is None:  # allocated by the first (eager) step
+                self.stats = torch.zeros_like(stats)
+            self.stats.copy_(stats)
         self.batch_t.add_(1)
 
     def _capture(self) -> None:

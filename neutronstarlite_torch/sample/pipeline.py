@@ -27,8 +27,13 @@ bitwise wherever the step is repeatable.
 and not empty) selects the mode (``resolve_sample_pipeline``): ``sync``
 (the default), ``pipelined`` (this module over the host sampler),
 ``device`` (this module over the device hop sampler) or ``fused``
-(``sample/fused.py``). The reference's metrics stream and trace spans come
-with the obs slice; the pipeline keeps its counts as plain numbers.
+(``sample/fused.py``).
+
+Telemetry, with a metrics registry and a tracer (the trainer's), as in the
+reference: the producer's ``sample_produce`` and ``h2d_copy`` spans, the
+consumer's ``sample_wait`` spans; the ``sample.produced``,
+``sample.h2d_bytes``, ``sample.h2d_ms`` and ``sample.stall_ms`` counters;
+the ``sample.queue_depth`` histogram and peak gauge.
 """
 
 from __future__ import annotations
@@ -199,8 +204,12 @@ class SamplePipeline:
         depth: Optional[int] = None,
         transfer=None,
         stall_timeout_s: float = 120.0,
+        metrics: Any = None,
+        tracer: Any = None,
     ):
         self.source = source
+        self.metrics = metrics
+        self.tracer = tracer
         self.epochs = list(epochs)
         self.depth = default_depth() if depth is None else max(int(depth), 1)
         if transfer is None:
@@ -216,7 +225,6 @@ class SamplePipeline:
         self._stop = threading.Event()
         self.peak_depth = 0
         self.produced = 0
-        self.h2d_bytes = 0  # staged payload bytes, all epochs
         self.stall_s = 0.0  # consumer time blocked on the queue, all epochs
         self.last_epoch_stall_s = 0.0
         self._thread = threading.Thread(target=self._produce, name="sample-pipeline",
@@ -224,6 +232,10 @@ class SamplePipeline:
         self._thread.start()
 
     # ---- producer thread -------------------------------------------------
+    def _span(self, name: str, dur_s: float, t0: float, **attrs) -> None:
+        if self.tracer is not None:
+            self.tracer.complete(name, dur_s=dur_s, t0=t0, cat="sample", **attrs)
+
     def _put(self, item) -> bool:
         """Bounded put that stays responsive to close(); False = stopping."""
         while not self._stop.is_set():
@@ -240,19 +252,32 @@ class SamplePipeline:
                 it = iter(self.source.sample_epoch(epoch))
                 idx = 0
                 while not self._stop.is_set():
+                    t0 = time.perf_counter()
                     try:
                         b = next(it)
                     except StopIteration:
                         break
                     # chaos hook: exc/stall/crash specs with point=sample_produce
                     fault_point("sample_produce", epoch=epoch)
+                    t1 = time.perf_counter()
                     payload = self.transfer(b)
+                    t2 = time.perf_counter()
+                    self._span("sample_produce", t1 - t0, t0, epoch=int(epoch), index=idx)
+                    self._span("h2d_copy", t2 - t1, t1, epoch=int(epoch), index=idx)
                     if not self._put((epoch, idx, payload)):
                         return
                     self.produced += 1
-                    if isinstance(b, SampledBatch):
-                        self.h2d_bytes += payload_nbytes(b)
-                    self.peak_depth = max(self.peak_depth, self._q.qsize())
+                    depth = self._q.qsize()
+                    m = self.metrics
+                    if m is not None:
+                        m.counter_add("sample.produced")
+                        m.counter_add("sample.h2d_ms", (t2 - t1) * 1000.0)
+                        if isinstance(b, SampledBatch):
+                            m.counter_add("sample.h2d_bytes", payload_nbytes(b))
+                        m.hist_observe("sample.queue_depth", depth, unit="")
+                        if depth > self.peak_depth:
+                            m.gauge_set("sample.queue_depth", depth)
+                    self.peak_depth = max(self.peak_depth, depth)
                     idx += 1
                 if self._stop.is_set() or not self._put(_EpochDone(epoch)):
                     return
@@ -295,6 +320,10 @@ class SamplePipeline:
             wait = time.perf_counter() - t0
             self.stall_s += wait
             self.last_epoch_stall_s += wait
+            if self.metrics is not None:
+                self.metrics.counter_add("sample.stall_ms", wait * 1000.0)
+                self.metrics.hist_observe("sample.stall_ms", wait * 1000.0)
+            self._span("sample_wait", wait, t0, epoch=int(epoch))
             if isinstance(item, _WorkerFailed):
                 raise SampleWorkerError(f"sampling pipeline worker failed: {item.msg}")
             if isinstance(item, _EpochDone):

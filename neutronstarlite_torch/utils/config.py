@@ -79,12 +79,40 @@ _STR_KEYS = {
     "CHECKPOINT_DIR": "checkpoint_dir",
     "FANOUT": "fanout_string",
 }
-# distributed switches: accepted only at the single-device value
+# distributed switches: accepted only at the single-device value (and
+# recorded, as the reference records them, for the config fingerprint)
 _SINGLE_DEVICE_KEYS = {
     "PROC_OVERLAP": ("0",),
     "PROC_LOCAL": ("0",),
     "PROC_REP": ("0",),
     "PARTITIONS": ("0", "1"),
+}
+_SINGLE_DEVICE_FIELDS = {
+    "PROC_OVERLAP": ("process_overlap", lambda v: bool(int(v))),
+    "PROC_LOCAL": ("process_local", lambda v: bool(int(v))),
+    "PROC_REP": ("process_rep", lambda v: bool(int(v))),
+    "PARTITIONS": ("partitions", int),
+}
+
+# every field of the reference's InputInfo with its default, in its order:
+# the obs config fingerprint (obs/registry.config_fingerprint) is a digest
+# of this dict, so the port fingerprints a cfg as the reference does
+REFERENCE_FIELDS = {
+    "algorithm": "", "vertices": 0, "epochs": 10, "batch_size": 64,
+    "layer_string": "", "fanout_string": "", "edge_file": "", "feature_file": "",
+    "label_file": "", "mask_file": "", "learn_rate": 0.01, "weight_decay": 0.0001,
+    "decay_rate": 0.97, "decay_epoch": 100, "drop_rate": 0.5,
+    "process_overlap": False, "process_local": False, "with_cuda": False,
+    "process_rep": False, "lock_free": False, "optim_kernel": False, "partitions": 0,
+    "precision": "float32", "checkpoint_dir": "", "checkpoint_every": 0,
+    "ckpt_backend": "", "rep_threshold": 0, "cache_budget_mib": 256,
+    "cache_refresh": 1, "sublinear": False, "undirected": False,
+    "data_format": "auto", "comm_layer": "auto", "dist_path": "", "mesh": "",
+    "wire_dtype": "", "ell_levels": "", "kernel_tile": 0, "kernel": "",
+    "pallas_kernel": False, "edge_chunk": 0, "serve_max_batch": 16,
+    "serve_max_wait_ms": 5.0, "serve_max_queue": 256, "serve_buckets": "",
+    "serve_cache_cap": 0, "serve_cache_max_age_s": 60.0, "serve_hot_threshold": 0,
+    "serve_replicas": 1, "serve_route": "", "serve_cb": 0, "sample_pipeline": "",
 }
 
 
@@ -120,6 +148,11 @@ class InputInfo:
     batch_size: int = 64  # sampled trainer: seeds per mini-batch
     fanout_string: str = ""  # sampled trainer: FANOUT, e.g. "25-10"
     sample_pipeline: str = ""  # SAMPLE_PIPELINE: "" (sync) or one of SAMPLE_PIPELINE_MODES
+    # distributed switches at their single-device values
+    process_overlap: bool = False
+    process_local: bool = False
+    process_rep: bool = False
+    partitions: int = 0
 
     @staticmethod
     def read_from_cfg_file(path: str) -> "InputInfo":
@@ -173,10 +206,17 @@ class InputInfo:
                     f"{key}:{value} selects a distributed feature the torch "
                     "port does not implement yet (single device only)"
                 )
+            field, parse = _SINGLE_DEVICE_FIELDS[key]
+            setattr(self, field, parse(value))
         else:
             raise ValueError(
                 f"cfg key {key}:{value} is not implemented by the torch port yet"
             )
+
+    def reference_dict(self) -> dict:
+        """This cfg as the reference's ``dataclasses.asdict(InputInfo)``:
+        its defaults, with this cfg's values laid over them."""
+        return dict(REFERENCE_FIELDS, **dataclasses.asdict(self))
 
     def layer_sizes(self) -> List[int]:
         """Parse "1433-128-7" -> [1433, 128, 7]."""

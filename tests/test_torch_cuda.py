@@ -646,3 +646,60 @@ def test_cuda_fused_subgraph_matches_cpu_bitwise(cuda_device):
         subs.append([t.cpu() for t in nodes] + [t.cpu() for h in hops for t in h])
     for a, b in zip(*subs):
         assert torch.equal(a, b)
+
+
+# ---- the obs plane on the card ----------------------------------------------------
+
+
+def test_cuda_numerics_leaves_the_ell_route_bitwise(cuda_device, monkeypatch, tmp_path):
+    """NTS_NUMERICS=1 on the ELL route: the same losses and parameters,
+    bitwise, and every group's stats each epoch, finite."""
+    import glob
+    import json
+
+    runs = []
+    for numerics in ("0", "1"):
+        monkeypatch.setenv("NTS_NUMERICS", numerics)
+        monkeypatch.setenv("NTS_METRICS_DIR", str(tmp_path / numerics))
+        tr = _ell_gcn(cuda_device, monkeypatch, 4)
+        tr.run()
+        runs.append(tr)
+    a, b = runs
+    assert a.loss_history == b.loss_history and all(np.isfinite(a.loss_history))
+    for p, q in zip(_leaves(a), _leaves(b)):
+        assert torch.equal(p, q)
+    (path,) = glob.glob(str(tmp_path / "1" / "*.jsonl"))
+    with open(path) as fh:
+        stats = [r for r in map(json.loads, fh) if r["event"] == "tensor_stats"]
+    assert len(stats) == 4 * 8 and all(r["finite_fraction"] == 1.0 for r in stats)
+
+
+def test_cuda_numerics_leaves_the_fused_step_bitwise(cuda_device, monkeypatch):
+    """The fused sampled step with its stats as outputs of the captured
+    graph: the same losses and parameters, bitwise, one capture."""
+    runs = []
+    for numerics in ("0", "1"):
+        monkeypatch.setenv("NTS_NUMERICS", numerics)
+        tr = _cora_sampled(cuda_device, monkeypatch, "fused")
+        tr.run()
+        runs.append(tr)
+    a, b = runs
+    assert a.loss_history == b.loss_history
+    for p, q in zip(a.flat_params, b.flat_params):
+        assert torch.equal(p, q)
+    assert b._fused.captures == 1 and b._fused.stats is not None
+
+
+def test_cuda_memory_collector_reads_the_allocator(cuda_device, monkeypatch):
+    from neutronstarlite_torch.obs.collectors import device_memory_stats
+
+    x = torch.empty(1 << 20, dtype=torch.float32, device=cuda_device)
+    got = device_memory_stats(cuda_device)
+    assert got["available"] is True
+    assert got["bytes_in_use"] == torch.cuda.memory_allocated() >= x.numel() * 4
+    assert got["peak_bytes_in_use"] == torch.cuda.max_memory_allocated()
+    assert got["devices"][0]["bytes_limit"] == torch.cuda.mem_get_info()[1]
+    tr = _ell_gcn(cuda_device, monkeypatch, 2)
+    tr.run()
+    summary = tr.run_summary_record
+    assert summary["memory"]["peak_bytes_in_use"] == torch.cuda.max_memory_allocated()

@@ -19,6 +19,7 @@ guards, the watchdog, the supervisor and the supervised CLI.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -126,8 +127,15 @@ def test_fault_spec_parsers_agree(text):
     ("exc@point=partition_step", "distributed"),
 ])
 def test_unported_faults_are_refused(monkeypatch, text, slice_):
+    """Kinds and points of later slices refuse, naming the slice. The obs
+    slice's ``nan_loss@layer=k`` is ported: it fires as in the reference,
+    replacing the loss with NaN and arming the provenance poison."""
     monkeypatch.setenv("NTS_FAULT_SPEC", text)
     j_faults.parse_fault_spec(text)  # the reference runs it
+    if slice_ == "obs slice":
+        assert math.isnan(faults.fault_point("epoch_loss", epoch=0, value=1.0))
+        assert faults.pending_layer_poison() == 1
+        return
     with pytest.raises(ValueError, match=slice_):
         faults.fault_point("epoch_loss", epoch=0, value=1.0)
 
