@@ -22,8 +22,8 @@ record, the ``train.epoch_ms`` histogram, the SLO tick and the epoch and
 stage spans, then runs the guards; ``maybe_emit_numerics`` writes the
 ``NTS_NUMERICS`` tensor stats; ``finalize_metrics`` writes the
 ``run_summary`` (epoch times, memory, phases, counters, program costs) and
-the ``NTS_LEDGER_DIR`` row. ``NTS_METRICS_PORT`` (the live scrape endpoint)
-is refused: it comes with the serving slice.
+the ``NTS_LEDGER_DIR`` row. ``NTS_METRICS_PORT`` starts the live scrape
+endpoint (``obs/exporter.py``) over the trainer's registry.
 
 Device rule: every entry point takes an explicit ``device``. ``None`` means
 the CUDA card, and raises when there is none: the port never carries on
@@ -44,6 +44,7 @@ from neutronstarlite_torch.graph.digest import graph_digest
 from neutronstarlite_torch.graph.storage import CSCGraph, build_graph, load_edges
 from neutronstarlite_torch.nn.param import adam_init, param_leaves, param_tree
 from neutronstarlite_torch.obs import collectors, cost
+from neutronstarlite_torch.obs import exporter as obs_exporter
 from neutronstarlite_torch.obs import ledger as obs_ledger
 from neutronstarlite_torch.obs import numerics as obs_numerics
 from neutronstarlite_torch.obs.slo import SloEngine
@@ -109,7 +110,6 @@ class ToolkitBase:
         self.base_dir = base_dir
         self.seed = seed
         self.device = resolve_device(device)
-        obs.check_exporter_env()
         self.host_graph: Optional[CSCGraph] = None
         self.datum: Optional[GNNDatum] = None
         self.epoch_times: list = []
@@ -133,6 +133,9 @@ class ToolkitBase:
         self._step_cost_done = False  # program_cost is captured once per trainer
         events.adopt_registry(self.metrics)
         self.slo = SloEngine.from_env(self.metrics, scope="train")
+        # NTS_METRICS_PORT: the process's scrape endpoint rebinds to the
+        # newest trainer (a train-then-serve run hands it to the server)
+        obs_exporter.maybe_start(self.metrics, slo=self.slo)
 
     def _log_graph(self) -> None:
         g = self.host_graph

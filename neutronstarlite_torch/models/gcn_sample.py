@@ -84,6 +84,31 @@ _FULL_BATCH_ONLY = ("optim_kernel", "pallas_kernel", "kernel", "kernel_tile", "s
 _COUNTS = ("sample.batches", "sample.h2d_bytes", "wire.feature_gather_bytes")
 
 
+def batch_forward(weights, feature: torch.Tensor, nodes, hops, node_caps, compute_dtype=None,
+                  masks=None, drop_rate: float = 0.0) -> torch.Tensor:
+    """Logits [B, classes] (f32) of one padded batch: the feature gather,
+    then per hop ``minibatch_gather`` and a matmul (ReLU between layers).
+    ``node_caps`` are the batch's per-layer capacities; ``compute_dtype``
+    (bf16 under ``PRECISION:bfloat16``, else None) casts the gathered rows,
+    the aggregations and the weights; ``masks``: one dropout keep-mask per
+    hidden layer, or None (eval: the serving engine's forward)."""
+
+    def cast(a: torch.Tensor) -> torch.Tensor:
+        return a.to(compute_dtype) if compute_dtype is not None else a
+
+    x = cast(get_feature(feature, nodes[0]))
+    last = len(weights) - 1
+    for i, (W, (src_l, dst_l, w)) in enumerate(zip(weights, hops)):
+        agg = minibatch_gather(src_l, dst_l, w, x, node_caps[i + 1])
+        h = cast(agg) @ cast(W)
+        if i < last:
+            h = torch.relu(h)
+            if masks is not None:
+                h = dropout(h, masks[i], drop_rate)
+        x = h
+    return x.float()
+
+
 @register_algorithm(*GCN_SAMPLE_ALGORITHMS)
 class GCNSampleTrainer(ToolkitBase):
     weight_mode = "gcn_norm"
@@ -191,24 +216,12 @@ class GCNSampleTrainer(ToolkitBase):
         self.drop_gen = torch.Generator(device=dev)
 
     # ---- the batch step ----------------------------------------------------
-    def _cast(self, a: torch.Tensor) -> torch.Tensor:
-        return a.to(self.compute_dtype) if self.compute_dtype is not None else a
-
     def _forward(self, weights, nodes, hops, masks=None) -> torch.Tensor:
         """Logits [B, classes] (f32) of one padded batch at ``weights`` (one
         W per layer); ``masks``: one dropout keep-mask per hidden layer, or
         None (eval, or rate 0)."""
-        x = self._cast(get_feature(self.feature, nodes[0]))
-        last = len(weights) - 1
-        for i, (W, (src_l, dst_l, w)) in enumerate(zip(weights, hops)):
-            agg = minibatch_gather(src_l, dst_l, w, x, self.node_caps[i + 1])
-            h = self._cast(agg) @ self._cast(W)
-            if i < last:
-                h = torch.relu(h)
-                if masks is not None:
-                    h = dropout(h, masks[i], self.cfg.drop_rate)
-            x = h
-        return x.float()
+        return batch_forward(weights, self.feature, nodes, hops, self.node_caps,
+                             self.compute_dtype, masks, self.cfg.drop_rate)
 
     def _mask_shapes(self):
         return [(self.node_caps[i + 1], self.sizes[i + 1]) for i in range(len(self.sizes) - 2)]

@@ -22,14 +22,15 @@ variables, and records that validate under the reference's schema:
   (``NTS_PROGRAM_COST``);
 - :mod:`ledger` — the cross-run perf ledger (``NTS_LEDGER_DIR``);
 - :mod:`numerics` — ``NTS_NUMERICS`` tensor stats and the non-finite
-  provenance replay.
+  provenance replay;
+- :mod:`exporter` — the ``NTS_METRICS_PORT`` scrape endpoint (``/metrics``,
+  ``/healthz``, ``/slo``, ``/telemetry``; copied), started by the trainers
+  and the serving stack.
 
-Left for later slices: the scrape exporter, the hub, its HTTP client and
-the clock-skew join (``NTS_METRICS_PORT`` refuses, naming the serving
-slice), the report tools, and the wire quantization probe.
+Left for later slices: the telemetry hub and its HTTP client (cross-host
+serving), the clock-skew join (distributed), the report tools, and the
+wire quantization probe.
 """
-
-import os
 
 from neutronstarlite_torch.obs.cost import capture_program_cost
 from neutronstarlite_torch.obs.hist import LogHistogram
@@ -48,21 +49,9 @@ __all__ = [
     "SCHEMA_VERSION",
     "Tracer",
     "capture_program_cost",
-    "check_exporter_env",
     "config_fingerprint",
     "metrics_dir",
     "open_run",
     "validate_event",
 ]
 
-
-def check_exporter_env() -> None:
-    """``NTS_METRICS_PORT`` asks for the live scrape endpoint, which the
-    port does not have yet: refuse rather than ignore it."""
-    port = os.environ.get("NTS_METRICS_PORT", "")
-    if port:
-        raise ValueError(
-            f"NTS_METRICS_PORT={port} asks for the live scrape endpoint "
-            "(obs/exporter), which comes with the serving slice of the torch "
-            "port; unset it (the JSONL stream under NTS_METRICS_DIR works)"
-        )

@@ -20,7 +20,11 @@
    (resilience/faults) arms a poison that ``poison_hook`` applies inside
    the replayed forward at layer k, so provenance must name layer k.
 
-3. ``nonfinite_leaf_names``: the key paths of the floating leaves of a tree
+3. ``observe_serve_batch``: the serving engine's gauges over each executed
+   request batch's logits (host numpy), and a ``tensor_stats`` record when
+   a batch carries a non-finite logit.
+
+4. ``nonfinite_leaf_names``: the key paths of the floating leaves of a tree
    that hold a NaN or an inf, in one reduction and one host fetch for the
    whole tree (the guards use it).
 
@@ -35,6 +39,7 @@ import math
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from neutronstarlite_torch.utils import tree as tree_util
@@ -292,6 +297,37 @@ def _pin(metrics, key: str, rec: dict) -> None:
     flight = getattr(metrics, "flight", None)
     if flight is not None:
         flight.pin(key, rec)
+
+
+def observe_serve_batch(metrics, logits: np.ndarray, bucket: int) -> None:
+    """Engine-side numerics on one executed request batch (host numpy —
+    the logits are already fetched for the reply, so this costs no extra
+    device sync): the finite-fraction/absmax gauges always, a LOUD
+    ``tensor_stats`` record only when a batch actually carries a
+    non-finite logit."""
+    if metrics is None:
+        return
+    try:
+        arr = np.asarray(logits, dtype=np.float32)
+        n = arr.size or 1
+        finite = float(np.isfinite(arr).sum()) / n
+        with np.errstate(invalid="ignore"):
+            absmax = float(np.max(np.abs(arr))) if arr.size else 0.0
+        metrics.gauge_set("numerics.serve_logits_finite_fraction", finite)
+        if math.isfinite(absmax):
+            metrics.gauge_set("numerics.serve_logits_absmax", absmax)
+        if finite < 1.0:
+            metrics.counter_add("numerics.serve_nonfinite_batches")
+            rec = metrics.event(
+                "tensor_stats", name=f"serve/logits/bucket_{int(bucket)}",
+                finite_fraction=finite,
+                absmax=absmax if math.isfinite(absmax) else None,
+                rms=None,
+                zero_fraction=float((arr == 0).sum()) / n,
+            )
+            _pin(metrics, "tensor_stats/serve/logits", rec)
+    except Exception as e:  # telemetry must never fail a reply
+        log.warning("serve batch numerics failed: %s", e)
 
 
 # ---- batched non-finite leaf check --------------------------------------------

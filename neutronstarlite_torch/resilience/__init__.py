@@ -6,7 +6,9 @@
   divergence, stall) and the hung-step watchdog;
 - :mod:`supervisor`: ``supervised_run(toolkit)``, rollback to the last
   good checkpoint with bounded retries and backoff;
-- :mod:`events`: every fault and recovery as a typed record for a sink.
+- :mod:`events`: every fault and recovery as a typed record for a sink;
+- :mod:`elastic`: heartbeats and the liveness monitor (the serve fleet's
+  replica supervision).
 
 Checkpoint integrity (digests, atomic publication, retention, quarantine)
 lives in ``utils/checkpoint.py`` and reports through :mod:`events`.

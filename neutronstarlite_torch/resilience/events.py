@@ -32,6 +32,11 @@ def set_sink(sink) -> None:
     _sink = sink
 
 
+def get_sink():
+    """The installed sink, or None."""
+    return _sink
+
+
 def adopt_registry(registry) -> None:
     """Install a run's metrics registry as the sink, unless the caller
     installed a sink of another kind (a recording sink in a test): a newer

@@ -36,7 +36,7 @@ producer, before each batch is staged).
 Kinds and points of other slices parse as in the reference and are then
 refused, naming the slice they wait for (``UNPORTED``): ``rank_loss`` and
 ``slow_rank`` (elastic and per-partition steps, distributed), ``net_drop`` and ``slow_net`` (the
-cross-host HTTP fetch, serving), ``writer_crash`` (the delta log, stream),
+cross-host HTTP fetch, cross-host serving), ``writer_crash`` (the delta log, stream),
 and the points those slices plant.
 
 The plan, its fired counts and the save counter are process-global on
@@ -78,15 +78,16 @@ DEFAULT_POINTS = {
     "writer_crash": "delta_commit",
 }
 
+_CROSS_HOST = "the live-graph and cross-host serving slice (the cross-host HTTP fetch)"
 # the slice each unported kind or point waits for
 UNPORTED = {
     "rank_loss": "the distributed slice (elastic survivor replan)",
     "slow_rank": "the distributed slice (per-partition steps)",
-    "net_drop": "the serving slice (the cross-host HTTP fetch)",
-    "slow_net": "the serving slice (the cross-host HTTP fetch)",
+    "net_drop": _CROSS_HOST,
+    "slow_net": _CROSS_HOST,
     "writer_crash": "the stream slice (the delta log)",
     "partition_step": "the distributed slice (per-partition steps)",
-    "http_fetch": "the serving slice (the cross-host HTTP fetch)",
+    "http_fetch": _CROSS_HOST,
     "delta_commit": "the stream slice (the delta log)",
     "finetune_round": "the stream slice (the fine-tune worker)",
 }

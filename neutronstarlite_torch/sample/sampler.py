@@ -156,6 +156,20 @@ class Sampler:
             nodes=list(nodes), hops=list(hops), seed_mask=seed_mask, seeds=seeds_pad
         )
 
+    def sample_batch(self, seeds) -> SampledBatch:
+        """One padded batch for an arbitrary seed set (<= batch_size): the
+        online-serving entry point (serve/sampling.py), a request's fresh
+        fan-out at the training capacities and distribution."""
+        seeds = np.asarray(seeds, dtype=np.int64)
+        if seeds.ndim != 1 or len(seeds) == 0:
+            raise ValueError("sample_batch needs a non-empty 1-D seed array")
+        if len(seeds) > self.batch_size:
+            raise ValueError(
+                f"{len(seeds)} seeds exceed this sampler's batch capacity "
+                f"{self.batch_size}"
+            )
+        return self._make_batch(seeds)
+
     def sample_epoch(self, shuffle: bool = True):
         """Yield a SampledBatch for every seed batch (the work-queue walk)."""
         nids = self.seed_nids.copy()

@@ -25,7 +25,11 @@ reference compatibility flags that the single-device trainer has no use for
 single-device values. ``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY`` turn on
 checkpoints (``utils/checkpoint.py``); ``CKPT_BACKEND`` takes ``npz`` alone:
 ``orbax`` is a JAX library, and the sharded asynchronous saves it gives
-the reference come with the distributed slice.
+the reference come with the distributed slice. The serving keys
+(``SERVE_MAX_BATCH``, ``SERVE_MAX_WAIT_MS``, ``SERVE_MAX_QUEUE``,
+``SERVE_BUCKETS``, ``SERVE_CACHE_CAP``, ``SERVE_CACHE_MAX_AGE_S``,
+``SERVE_HOT_THRESHOLD``, ``SERVE_REPLICAS``, ``SERVE_ROUTE``, ``SERVE_CB``)
+parse as in the reference; ``serve/`` reads them.
 """
 
 from __future__ import annotations
@@ -56,12 +60,20 @@ _INT_KEYS = {
     "KERNEL_TILE": "kernel_tile",
     "CHECKPOINT_EVERY": "checkpoint_every",
     "BATCH_SIZE": "batch_size",
+    "SERVE_MAX_BATCH": "serve_max_batch",
+    "SERVE_MAX_QUEUE": "serve_max_queue",
+    "SERVE_CACHE_CAP": "serve_cache_cap",
+    "SERVE_HOT_THRESHOLD": "serve_hot_threshold",
+    "SERVE_REPLICAS": "serve_replicas",
+    "SERVE_CB": "serve_cb",
 }
 _FLOAT_KEYS = {
     "LEARN_RATE": "learn_rate",
     "WEIGHT_DECAY": "weight_decay",
     "DECAY_RATE": "decay_rate",
     "DROP_RATE": "drop_rate",
+    "SERVE_MAX_WAIT_MS": "serve_max_wait_ms",
+    "SERVE_CACHE_MAX_AGE_S": "serve_cache_max_age_s",
 }
 _BOOL_KEYS = {
     "PROC_CUDA": "with_cuda",
@@ -78,6 +90,8 @@ _STR_KEYS = {
     "MASK_FILE": "mask_file",
     "CHECKPOINT_DIR": "checkpoint_dir",
     "FANOUT": "fanout_string",
+    "SERVE_BUCKETS": "serve_buckets",
+    "SERVE_ROUTE": "serve_route",
 }
 # distributed switches: accepted only at the single-device value (and
 # recorded, as the reference records them, for the config fingerprint)
@@ -148,6 +162,18 @@ class InputInfo:
     batch_size: int = 64  # sampled trainer: seeds per mini-batch
     fanout_string: str = ""  # sampled trainer: FANOUT, e.g. "25-10"
     sample_pipeline: str = ""  # SAMPLE_PIPELINE: "" (sync) or one of SAMPLE_PIPELINE_MODES
+    # online serving (serve/); each has an NTS_SERVE_* override, resolved in
+    # serve.batcher.ServeOptions.from_cfg and serve.fleet.FleetOptions.from_cfg
+    serve_max_batch: int = 16  # micro-batch flush size == largest bucket
+    serve_max_wait_ms: float = 5.0  # deadline coalescing window per flush
+    serve_max_queue: int = 256  # pending-request bound; beyond it: shed
+    serve_buckets: str = ""  # dash-separated bucket ladder; "" = geometric x4
+    serve_cache_cap: int = 0  # inference embedding cache entries (0 = off)
+    serve_cache_max_age_s: float = 60.0  # cache staleness bound (seconds)
+    serve_hot_threshold: int = 0  # out-degree >= threshold => cacheable
+    serve_replicas: int = 1  # serve-fleet size (serve/fleet.py)
+    serve_route: str = ""  # fleet routing policy: least_burn | round_robin
+    serve_cb: int = 0  # continuous batching (serve/batcher.py)
     # distributed switches at their single-device values
     process_overlap: bool = False
     process_local: bool = False
@@ -229,6 +255,13 @@ class InputInfo:
         if not self.fanout_string:
             return []
         return [int(tok) for tok in self.fanout_string.split("-") if tok]
+
+    def serve_bucket_list(self) -> List[int]:
+        """Parse SERVE_BUCKETS:1-4-16 -> [1, 4, 16] (the bucket ladder;
+        empty = derive geometrically, serve.batcher.ServeOptions)."""
+        if not self.serve_buckets:
+            return []
+        return [int(tok) for tok in self.serve_buckets.split("-") if tok]
 
     def resolve_path(self, path: str, base_dir: Optional[str] = None) -> str:
         """Data paths resolve relative to the cfg file's directory."""

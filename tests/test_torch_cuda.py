@@ -20,7 +20,8 @@ edge op are plain PyTorch on both devices: the card against the CPU at
 float32 rtol=1e-5, atol=1e-5 of the CPU output's rms (cuBLAS-free, but
 the reductions sum in another order), two calls on the card bitwise
 equal. Checkpoints on the ELL route: a resume and a supervised rollback
-equal a straight run bitwise (the kernel is repeatable).
+equal a straight run bitwise (the kernel is repeatable). Serving: each
+bucket's captured CUDA graph equals the eager forward bitwise.
 """
 
 from __future__ import annotations
@@ -703,3 +704,42 @@ def test_cuda_memory_collector_reads_the_allocator(cuda_device, monkeypatch):
     tr.run()
     summary = tr.run_summary_record
     assert summary["memory"]["peak_bytes_in_use"] == torch.cuda.max_memory_allocated()
+
+
+# ---- serving on the card: one captured CUDA graph per bucket -------------------
+
+@pytest.mark.parametrize("mode", ["sync", "fused"])
+def test_cuda_captured_buckets_equal_the_eager_forward(cuda_device, monkeypatch, tmp_path, mode):
+    """Each bucket's captured graph against the eager forward on the same
+    operands, bitwise (sync: the same sampled batch; fused: the same seeds
+    and draw key); one capture per bucket, a clone captures nothing."""
+    from neutronstarlite_torch.models.gcn_sample import batch_forward
+    from neutronstarlite_torch.serve.batcher import ServeOptions
+    from neutronstarlite_torch.serve.engine import InferenceEngine, batch_device_arrays, unflatten
+
+    tr = _cora_sampled(cuda_device, monkeypatch, mode, epochs=1,
+                       checkpoint_dir=str(tmp_path / "ck"))
+    tr.run()
+    opts = ServeOptions(max_batch=16, buckets=(1, 4, 16), sample_pipeline=mode)
+    eng = InferenceEngine(tr, str(tmp_path / "ck"), options=opts,
+                          rng=np.random.default_rng(0))
+    eng.warmup()
+    clone = eng.clone(rng=np.random.default_rng(1))
+    rng = np.random.default_rng(2)
+    for b in (1, 4, 16):
+        ids = rng.choice(2708, size=b, replace=False)
+        if mode == "fused":
+            served = clone.execute_fused_prepared(clone.prepare_fused(ids, b, key=99), b)
+            buf = torch.tensor(list(ids) + [b, 99], device=cuda_device)
+            want = clone.fused_forward(buf, b)
+        else:
+            batch = clone.sampler.sample(b, ids)
+            served = clone.forward_batch(batch, b)
+            arrays = [torch.from_numpy(a).to(cuda_device) for a in batch_device_arrays(batch)]
+            with torch.no_grad():
+                want = batch_forward(clone.weights, clone.feature,
+                                     *unflatten(arrays, len(clone.fanouts)),
+                                     clone.sampler.node_caps(b), clone.compute_dtype)
+        assert served.shape == (b, 7) and np.isfinite(served).all()
+        np.testing.assert_array_equal(served, want.cpu().numpy())
+    assert eng.compile_counts == {1: 1, 4: 1, 16: 1}

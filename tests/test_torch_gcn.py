@@ -238,21 +238,32 @@ with open("configs/gcn_cora_smoke.cfg") as fh:
     blocked = fh.read() + "OPTIM_KERNEL:1\nKERNEL_TILE:512\n"
 with open(sys.argv[1], "w") as fh:
     fh.write(blocked.replace("../tests", os.getcwd() + "/tests"))
-sys.exit(main([sys.argv[1], "--device", "cpu"]))
+assert main([sys.argv[1], "--device", "cpu"]) == 0
+from neutronstarlite_torch.serve.server import main as serve_main
+with open("configs/serve_cora_smoke.cfg") as fh:
+    serve = fh.read().replace("../tests", os.getcwd() + "/tests")
+with open(sys.argv[2], "w") as fh:
+    fh.write(serve + "CHECKPOINT_DIR:" + sys.argv[2] + ".ck\n")
+os.environ["NTS_SAMPLE_WORKERS"] = "0"
+assert main([sys.argv[2], "--device", "cpu"]) == 0
+sys.exit(serve_main([sys.argv[2], "--device", "cpu"]))
 """
 
 
 def test_port_runs_with_jax_poisoned(tmp_path):
     """The port's module tree, chip_smoke.py and the CLI on the default,
     fused (KERNEL:fused_edge) and blocked (OPTIM_KERNEL:1 KERNEL_TILE)
-    routes, with jax and the JAX package made unimportable."""
+    routes, then the sampled serve smoke trained through the CLI and served
+    by the serve CLI, with jax and the JAX package made unimportable."""
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX, str(tmp_path / "blocked.cfg")], cwd=REPO,
+        [sys.executable, "-c", _NO_JAX, str(tmp_path / "blocked.cfg"),
+         str(tmp_path / "serve.cfg")], cwd=REPO,
         capture_output=True, text=True, timeout=180,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.count("Epoch 1 loss") == 3
-    for line in ("KERNEL:fused_edge", "OPTIM_KERNEL: blocked ELL aggregation"):
+    assert proc.stdout.count("Epoch 1 loss") == 4
+    for line in ("KERNEL:fused_edge", "OPTIM_KERNEL: blocked ELL aggregation",
+                 "served 50 requests (shed 0, errors 0)"):
         assert line in proc.stdout, line
 
 

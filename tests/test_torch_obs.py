@@ -468,10 +468,25 @@ def test_fault_and_recovery_records_land_in_the_stream_by_default(tmp_path, monk
 
 
 def test_metrics_port_refuses(monkeypatch):
+    """``NTS_METRICS_PORT`` no longer refuses: a trainer starts the scrape
+    endpoint (``obs/exporter``) over its registry, as the reference does."""
+    import urllib.request
+
+    from neutronstarlite_torch.obs import exporter
+
+    monkeypatch.setattr(exporter, "_singleton", None)
     monkeypatch.setenv("NTS_METRICS_PORT", "0")
     src, dst = load_edges(EDGES)
-    with pytest.raises(ValueError, match="serving slice"):
-        GCNTrainer.from_arrays(_cfg(InputInfo, 1), src, dst, _data(GNNDatum), device="cpu")
+    tr = GCNTrainer.from_arrays(_cfg(InputInfo, 1), src, dst, _data(GNNDatum), device="cpu")
+    exp = exporter._singleton
+    try:
+        assert exp is not None and exp.registry is tr.metrics
+        tr.run()
+        with urllib.request.urlopen(f"http://127.0.0.1:{exp.port}/metrics", timeout=30) as r:
+            text = r.read().decode()
+        assert r.status == 200 and "nts_train_epoch_ms_count 1" in text
+    finally:
+        exp.close()
 
 
 def test_profile_dir_trace_holds_the_tracer_scopes(tmp_path, monkeypatch):
