@@ -86,14 +86,19 @@ Phases (each prints its lines; any failure exits non-zero):
    epoch loop with the guards armed and not;
 12. the sampled trainer (GCNSAMPLE, plain PyTorch, no kernel: every run
    must leave both kernels' launch counts at 0), 602-128-41 bf16,
-   BATCH_SIZE 512, FANOUT 25-10 (caps [128000, 5120, 512]) on phase 4's
-   graph, DROP_RATE 0: (a) sync, one epoch, its batch count, epoch time and
-   stage split (sample_wait, step_dispatch, step_device); (b) pipelined,
-   the same epoch with 4 spawned sampling workers, its losses and
-   parameters against (a)'s bitwise (else against the spread of two sync
-   runs) and its sample_wait against (a)'s; (c) device, 3 epochs, its
-   first-epoch loss within SAMPLED_LOSS_ATOL of (a)'s, epoch times and
-   peak memory; (d) fused, 3 epochs twice: one CUDA-graph capture and
+   BATCH_SIZE 512, FANOUT 25-10 (caps [128000, 5120, 512]), DROP_RATE 0, on
+   a planted-partition graph at phase 4's V (graph/synthetic.py
+   planted_partition_graph: mean degree 50, the data-prep tool's Reddit
+   degree, 41 classes, 602-wide class-embedding features, phase 4's split):
+   every mode trains 3 epochs, its loss must fall epoch by epoch and its
+   final train accuracy (the sync sampler's evaluation pass) must sit
+   within SAMPLED_ACC_ATOL of sync's; (a) sync, its batch count, epoch
+   times and stage split (sample_wait, step_dispatch, step_device); (b)
+   pipelined with 4 spawned sampling workers, its losses and parameters
+   against (a)'s bitwise (else against the spread of two sync runs) and its
+   sample_wait against (a)'s; (c) device, its first-epoch loss within
+   SAMPLED_LOSS_ATOL of (a)'s, epoch times and peak memory; (d) fused, 3
+   epochs twice: one CUDA-graph capture and
    n_batches replays per epoch, 0 batch bytes from the host, the rerun
    bitwise, the first-epoch loss as in (c), the per-batch step time (CUDA
    events), one profiled epoch (device busy, idle share, kernels, the top
@@ -126,7 +131,31 @@ Phases (each prints its lines; any failure exits non-zero):
    ELL and the bsp routes: the Chrome traces hold the tracer's
    record_function scopes (epoch, step_dispatch, step_device) and both
    kernels (ell_work_kernel, bsp_ell_kernel), and the bsp run's
-   program_cost records hold the bound formula too.
+   program_cost records hold the bound formula too;
+14. online serving (see phase_serving);
+15. the distributed trainers on the sim twin (NTS_DIST_SIMULATE=1,
+   PARTITIONS 8: NCCL cannot put two ranks on one card): (a) on phase 4's
+   graph, every shard's rectangular ELL and bsp tables ([vp, P*vp]), both
+   directions, each kernel against its plain version at f 602, 128, 41
+   bf16 and 41 f32 (the f32 check adds F32_SUM_TOL of each output's
+   absolute sum of terms, as phase 7's), then one training epoch's per-shard calls (fwd 602,
+   fwd 128, bwd 128 on 8 shards) timed beside the plain version,
+   torch.sparse.mm over each shard's [vp, P*vp] CSR and the bound (x read
+   over P*vp rows), with the heaviest shard's launch geometry; (b) GCNDIST
+   602-128-41 bf16 through the ELL, bsp, blocked (KERNEL_TILE 4096) and
+   ring routes and GCNEAGERDIST on the bsp route, 3 epochs each from the
+   seeded parameters, first logits (valid rows) and epoch-0 loss held
+   against the single-device ELL route (LOGITS_TOL, LOSS_RTOL; the eager
+   one against a single-device eager ELL run), launches in the run and
+   per epoch (a kernel route launches its kernel only, blocked and ring
+   neither), epoch times, host table build, peak memory; (c) python -m
+   neutronstarlite_torch.graph.prep --dataset reddit --out data (timed),
+   then configs/gcn_reddit_full.cfg unchanged through run.main: 10 epochs,
+   falling loss, test accuracy >= NORTH_STAR_MIN_TEST_ACC, its epoch times,
+   host build and peak memory; (d) configs/gcn_reddit_full_dist_bsp.cfg
+   and _dist_blocked.cfg through run.main on (c)'s data, the twin at full
+   scale (P=8): falling loss, the bsp cfg launching only bsp_ell, the
+   blocked one neither kernel.
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -137,7 +166,9 @@ trainers' program_cost records. In the
 {"kernels": [...]} line, ms, plain_ms, library_ms and bound_ms are those of
 one training epoch's aggregation calls: the sums over the pairs above
 (phase 6 for ell_level and bsp_ell, phase 7 for ell_level_gat, the same
-kernel on runtime weights).
+kernel on runtime weights; phase 15 (a) for ell_level_dist and
+bsp_ell_dist, the kernels on the rectangular per-shard tables, whose
+launches are those of phase 15 (b)'s ELL and bsp runs).
 
 Tolerances scale with the reference: atol is a fraction of the reference's
 root mean square, so a wrong kernel cannot hide under a fixed atol when the
@@ -445,6 +476,8 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
             defer(str(exc))
             logits_err = float("nan")
         rms = float(ref_logits.pow(2).mean().sqrt())
+        if route == "ell":  # phase 15 holds the distributed routes against it
+            results["ell_first_logits"] = first
         del first
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
@@ -1626,33 +1659,52 @@ def phase_resilience(dev, g, seed: int, results, failures) -> None:
 # phase 12: the first-epoch loss of the device and fused modes against the
 # sync mode's. The modes draw other neighbourhoods (pre-thinning at D=512
 # changes the distribution above degree 512; fused also shuffles on the
-# device, so its batches hold other seeds); with random labels over 41
-# classes the loss sits near ln 41 = 3.71, and the gap a different draw
+# device, so its batches hold other seeds), and the gap a different draw
 # makes is of the order of JAX's own fused-vs-sync pin (0.08 on its test
-# graph). 0.05 absolute is 1.3 % of the loss.
+# graph); 0.05 absolute.
 SAMPLED_LOSS_ATOL = 0.05
+# phase 12: each mode's train accuracy after 3 epochs against sync's. The
+# planted labels are learnable, so every mode climbs far above 1/41; the
+# modes' different draws move the 48-step trajectory, and over 7,765
+# training vertices one point of accuracy is 78 of them. 0.05 absolute.
+SAMPLED_ACC_ATOL = 0.05
+SAMPLED_DEGREE = 50  # graph/prep.py's Reddit mean degree
+SAMPLED_EPOCHS = 3
 
 
 def phase_sampled(dev, g, seed: int, results) -> None:
     """Phase 12: the sampled trainer (GCNSAMPLE) at 602-128-41 bf16,
-    BATCH_SIZE 512, FANOUT 25-10, on phase 4's graph, DROP_RATE 0, the
-    final accuracy pass off (NTS_FINAL_EVAL=0) at this scale. (a) sync, one
-    epoch; (b) pipelined, the same epoch, with spawned sampling workers; (c)
-    device, 3 epochs; (d) fused, 3 epochs, twice, then its per-batch step
-    time, one profiled epoch, and one batch's subgraph on the card against
-    the CPU; (e) the two Cora sampled smoke cfgs through the CLI. Every run
-    must leave both kernels' launch counts at 0. A failed check prints
-    FAILED and fails the run at the end of the phase."""
+    BATCH_SIZE 512, FANOUT 25-10, DROP_RATE 0, on a planted-label graph at
+    phase 4's V, the trainers' own accuracy pass off (NTS_FINAL_EVAL=0;
+    the train accuracy is taken once per mode). Every mode trains
+    SAMPLED_EPOCHS: (a) sync; (b) pipelined, with spawned sampling workers;
+    (c) device; (d) fused, twice, then its per-batch step time, one
+    profiled epoch, and one batch's subgraph on the card against the CPU;
+    (e) the two Cora sampled smoke cfgs through the CLI. Every mode's loss
+    must fall each epoch and its train accuracy sit within
+    SAMPLED_ACC_ATOL of sync's. Every run must leave both kernels' launch
+    counts at 0. A failed check prints FAILED and fails the run at the end
+    of the phase."""
     import numpy as np
     import torch
 
     from neutronstarlite_torch import run
+    from neutronstarlite_torch.graph.dataset import GNNDatum
+    from neutronstarlite_torch.graph.storage import build_graph
+    from neutronstarlite_torch.graph.synthetic import planted_partition_graph
     from neutronstarlite_torch.models.gcn_sample import GCNSampleTrainer
     from neutronstarlite_torch.sample import fused as t_fused
     from neutronstarlite_torch.utils.config import InputInfo
 
-    src, dst = results["edges"]
-    datum = results["datum"]
+    t0 = time.perf_counter()
+    src, dst, feature, label = planted_partition_graph(
+        g.v_num, 41, avg_degree=SAMPLED_DEGREE, feature_size=602, seed=seed)
+    datum = GNNDatum(feature=feature, label=label,
+                     mask=(np.arange(g.v_num) % 3).astype(np.int32))
+    g = build_graph(src, dst, g.v_num)
+    log(f"phase 12 planted-partition graph V={g.v_num} E={g.e_num} (mean degree "
+        f"{SAMPLED_DEGREE}, 41 planted classes, 602-wide features): host generate+build "
+        f"{time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -1682,6 +1734,8 @@ def phase_sampled(dev, g, seed: int, results) -> None:
                                           host_graph=g)
         return tr, time.perf_counter() - t0
 
+    accs = {}
+
     def drive(tr, name):
         zero_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -1689,8 +1743,15 @@ def phase_sampled(dev, g, seed: int, results) -> None:
         torch.cuda.synchronize()
         check_no_kernel(f"phase 12 {name}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        check(f"{name} finite", all(math.isfinite(x) for x in tr.loss_history),
-              f"losses {tr.loss_history}")
+        losses = tr.loss_history
+        check(f"{name} finite", all(math.isfinite(x) for x in losses), f"losses {losses}")
+        check(f"{name} loss falls", all(b < a for a, b in zip(losses, losses[1:])),
+              f"losses {losses}")
+        if name not in accs:
+            te = time.perf_counter()
+            accs[name] = tr._evaluate(0)
+            log(f"({name}) train accuracy {accs[name]:.4f} after {len(losses)} epochs "
+                f"(sync-sampler pass, {time.perf_counter() - te:.1f} s)")
         stages = "; ".join(
             f"epoch {i}: " + ", ".join(f"{k} {v:.4f}" for k, v in st.items())
             for i, st in enumerate(tr.stage_history))
@@ -1706,19 +1767,19 @@ def phase_sampled(dev, g, seed: int, results) -> None:
     try:
         # (a) sync, inline sampling
         os.environ["NTS_SAMPLE_WORKERS"] = "0"
-        sync, build_s = trainer("sync", 1)
+        sync, build_s = trainer("sync", SAMPLED_EPOCHS)
         drive(sync, "a sync")
-        n_batches = sync.counts["sample.batches"]
+        n_batches = sync.counts["sample.batches"] // SAMPLED_EPOCHS
         wait = sync.stage_history[0]["sample_wait"]
-        log(f"(a) sync: {n_batches} batches, epoch {sync.epoch_times[0]:.3f} s, sample_wait "
-            f"{wait:.3f} s = {wait / sync.epoch_times[0]:.1%} of the epoch (host-bound share); "
-            f"trainer build {build_s:.1f} s")
+        log(f"(a) sync: {n_batches} batches per epoch, epoch 0 {sync.epoch_times[0]:.3f} s, "
+            f"sample_wait {wait:.3f} s = {wait / sync.epoch_times[0]:.1%} of the epoch "
+            f"(host-bound share); trainer build {build_s:.1f} s")
 
         # (b) pipelined, 4 spawned workers (a fork after the CUDA context
         # exists is refused)
         os.environ["NTS_SAMPLE_WORKERS"] = "4"
         os.environ["NTS_SAMPLE_CTX"] = "spawn"
-        pipe, build_s = trainer("pipelined", 1)
+        pipe, build_s = trainer("pipelined", SAMPLED_EPOCHS)
         drive(pipe, "b pipelined")
         os.environ["NTS_SAMPLE_WORKERS"] = "0"
         bitwise = pipe.loss_history == sync.loss_history and params_equal(pipe, sync)
@@ -1728,7 +1789,7 @@ def phase_sampled(dev, g, seed: int, results) -> None:
             f"sample_wait {pwait:.3f} s vs sync {wait:.3f} s; losses and parameters bitwise "
             f"equal to sync: {bitwise}")
         if not bitwise:
-            again, _ = trainer("sync", 1)
+            again, _ = trainer("sync", SAMPLED_EPOCHS)
             drive(again, "a' second sync")
             spread = abs(again.loss_history[0] - sync.loss_history[0])
             gap = abs(pipe.loss_history[0] - sync.loss_history[0])
@@ -1740,7 +1801,7 @@ def phase_sampled(dev, g, seed: int, results) -> None:
 
         ref_loss = sync.loss_history[0]
         # (c) device, 3 epochs
-        devm, build_s = trainer("device", 3)
+        devm, build_s = trainer("device", SAMPLED_EPOCHS)
         peak = drive(devm, "c device")
         gap = abs(devm.loss_history[0] - ref_loss)
         check("c device first-epoch loss", gap <= SAMPLED_LOSS_ATOL,
@@ -1755,13 +1816,13 @@ def phase_sampled(dev, g, seed: int, results) -> None:
         # (d) fused, 3 epochs, twice
         fused = []
         for _ in range(2):
-            tr, build_s = trainer("fused", 3)
+            tr, build_s = trainer("fused", SAMPLED_EPOCHS)
             peak = drive(tr, "d fused")
             fused.append((tr, peak, build_s))
         tr, peak, build_s = fused[0]
         runner = tr._fused
         check("d one capture", runner.captures == 1, f"{runner.captures} captures")
-        check("d replays", runner.replays == 3 * runner.n_batches,
+        check("d replays", runner.replays == SAMPLED_EPOCHS * runner.n_batches,
               f"{runner.replays} replays for {runner.n_batches} batches x 3 epochs")
         check("d h2d bytes", tr.counts["sample.h2d_bytes"] == 0, tr.counts)
         results["fused_counts"] = tr.counts
@@ -1779,6 +1840,13 @@ def phase_sampled(dev, g, seed: int, results) -> None:
             f"{[round(t, 4) for t in again.epoch_times]}); peak {peak:.2f} GiB; build "
             f"{build_s:.1f} s")
         del again, fused
+        ref_acc = accs["a sync"]
+        for name, acc in accs.items():
+            check(f"{name} train accuracy", abs(acc - ref_acc) <= SAMPLED_ACC_ATOL,
+                  f"{acc:.4f} vs sync {ref_acc:.4f} (atol {SAMPLED_ACC_ATOL})")
+        log(f"train accuracy after {SAMPLED_EPOCHS} epochs per mode (sync {ref_acc:.4f}, atol "
+            f"{SAMPLED_ACC_ATOL}; chance 1/41 = {1 / 41:.4f}): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in accs.items()))
         # per-batch step time: CUDA events around one epoch's replays
         zero_launches()
         runner.run_epoch(3)
@@ -2590,6 +2658,339 @@ def phase_serving(dev, g, seed: int, results) -> None:
     results["failures"].extend(failures)
 
 
+# phase 15: the distributed trainers (GCNDIST and its family) on the sim
+# twin. NCCL cannot put two ranks on one card, so PARTITIONS runs as the
+# collective-free twin (NTS_DIST_SIMULATE=1): each shard's rectangular
+# tables ([vp, P*vp]) run over the whole [P*vp, f] slab in turn.
+DIST_P = 8
+DIST_EPOCHS = 3
+# (c): configs/gcn_reddit_full.cfg on the data-prep tool's Reddit (planted
+# labels over 41 classes, mean degree 50). A model that learned nothing
+# sits at 1/41 = 0.024; the planted classes are learnable (GCN 602-128-41
+# f32 on the CPU at a tenth of the vertices reaches 1.0 in the cfg's 10
+# epochs), and 0.5 leaves room for bf16 and dropout 0.5
+NORTH_STAR_MIN_TEST_ACC = 0.5
+
+
+def dist_shard_calls(tables, d, sizes):
+    """(direction, f, shard, tables) of one standard-order training epoch's
+    per-shard kernel calls: each layer's forward at its input width on
+    every shard, and the backward of every layer but the first."""
+    return [(direction, f, p, getattr(tables, direction)[p])
+            for direction, f in epoch_calls(sizes) for p in range(d.partitions)]
+
+
+def phase_dist(dev, g, seed: int, results) -> list:
+    """Phase 15 (see the module docstring): (a) both kernels on every
+    shard's rectangular tables, checked and timed; (b) GCNDIST 602-128-41
+    bf16 at P=8 through the ELL, bsp, blocked and ring routes, and
+    GCNEAGERDIST on the bsp route, against the single-device ELL route;
+    (c) the data-prep tool and configs/gcn_reddit_full.cfg through the CLI;
+    (d) the two distributed Reddit cfgs through the CLI on (c)'s data.
+    Returns the {"kernels": ...} rows ell_level_dist and bsp_ell_dist."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch import run
+    from neutronstarlite_torch.models.gcn import GCNEagerTrainer
+    from neutronstarlite_torch.models.gcn_dist import DistGCNEagerTrainer, DistGCNTrainer
+    from neutronstarlite_torch.obs.cost import aggregation_cost
+    from neutronstarlite_torch.ops.bsp_ell import (
+        DEFAULT_VT,
+        bsp_aggregate,
+        bsp_tables_aggregate,
+    )
+    from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
+    from neutronstarlite_torch.parallel.dist_bsp import build_dist_bsp
+    from neutronstarlite_torch.parallel.dist_ell import build_dist_ell, per_device_adjacency
+    from neutronstarlite_torch.parallel.dist_graph import DistGraph
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    log(f"phase 15 on {smi}")
+    t_phase = time.perf_counter()
+    failures = results["failures"]
+
+    def check(name, ok, detail):
+        if not ok:
+            failures.append(f"phase 15 {name}: {detail}")
+            log(f"FAILED {failures[-1]}")
+
+    saved_env = {k: os.environ.get(k) for k in ("NTS_DIST_SIMULATE", "NTS_PALLAS_RESIDENT")}
+    os.environ["NTS_DIST_SIMULATE"] = "1"
+    os.environ.pop("NTS_PALLAS_RESIDENT", None)
+    sizes = [602, 128, 41]
+    try:
+        # ---- (a) the kernels on every shard's rectangular tables ----------------
+        t0 = time.perf_counter()
+        d = DistGraph.build(g, DIST_P)
+        t_graph = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ell = build_dist_ell(d, range(DIST_P), device=dev)
+        t_ell = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bsp = build_dist_bsp(d, range(DIST_P), vt=DEFAULT_VT, device=dev)
+        t_bsp = time.perf_counter() - t0
+        n_src = DIST_P * d.vp
+        adj = {direction: per_device_adjacency(d, direction == "bwd")[0]
+               for direction in ("fwd", "bwd")}
+        edges = {(direction, p): int(a[0][-1]) for direction in adj
+                 for p, a in enumerate(adj[direction])}
+        log(f"(a) DistGraph P={DIST_P} vp={d.vp} (P*vp={n_src}) over V={g.v_num} "
+            f"E={g.e_num}: {t_graph:.1f} s; per-shard ELL tables {t_ell:.1f} s, bsp tables "
+            f"{t_bsp:.1f} s (both directions); shard edges fwd "
+            f"{[edges[('fwd', p)] for p in range(DIST_P)]}")
+        specs = {
+            "ell_level_dist": (ell, ell_level_aggregate, lambda t, v: t.plain(v),
+                               "neutronstarlite_torch/csrc/ell_level.cu",
+                               "neutronstarlite_tpu/ops/pallas_kernels.py:91"),
+            "bsp_ell_dist": (bsp, bsp_aggregate, bsp_tables_aggregate,
+                             "neutronstarlite_torch/csrc/bsp_ell.cu",
+                             "neutronstarlite_tpu/ops/bsp_ell.py:503"),
+        }
+        rng = np.random.default_rng(seed + 15)
+        errs = {name: 0.0 for name in specs}
+        checks = [(602, torch.bfloat16, BF16_TOL), (128, torch.bfloat16, BF16_TOL),
+                  (41, torch.bfloat16, BF16_TOL), (41, torch.float32, F32_TOL)]
+        for f, dtype, tol in checks:
+            x = torch.from_numpy(rng.standard_normal((n_src, f), dtype=np.float32)).to(dev, dtype)
+            for name, (tables, wrapper, plain, _, _) in specs.items():
+                err = 0.0
+                for direction in ("fwd", "bwd"):
+                    for p, t in getattr(tables, direction).items():
+                        got = wrapper(t, x)
+                        if got.shape != (d.vp, f):
+                            raise AssertionError(f"{name} shard {p}: shape {tuple(got.shape)}")
+                        # f32: rows of up to ~400k terms that cancel keep their
+                        # rounding; the weights are >= 0, so the plain version
+                        # over |x| is each output's absolute sum of terms
+                        abs_sum = plain(t, x.abs()) if dtype == torch.float32 else None
+                        err = max(err, check_close(f"{name} {direction} shard {p} f={f} "
+                                                   f"{dtype}", got, plain(t, x), tol, abs_sum))
+                errs[name] = max(errs[name], err)
+                log(f"(a) check {name:14s} f={f:3d} {str(dtype):14s} every shard, fwd and "
+                    f"bwd: max abs err {err:.3e} against the plain version")
+        del x
+        xs = {f: torch.from_numpy(rng.standard_normal((n_src, f), dtype=np.float32)).to(
+            dev, torch.bfloat16) for f in (602, 128)}
+        library = {}  # (direction, shard, f) -> ms of torch.sparse.mm over the shard's CSR
+        for direction in ("fwd", "bwd"):
+            for p, (offs, nbr, w, _deg) in enumerate(adj[direction]):
+                a = torch.sparse_csr_tensor(
+                    torch.from_numpy(offs).to(dev), torch.from_numpy(nbr).to(dev),
+                    torch.from_numpy(w).to(dev, torch.bfloat16), size=(d.vp, n_src))
+                for dd, f, pp, _ in dist_shard_calls(ell, d, sizes):
+                    if (dd, pp) == (direction, p):
+                        library[(dd, p, f)] = cuda_ms(lambda: torch.sparse.mm(a, xs[f]))
+                del a
+        rows = []
+        for name, (tables, wrapper, plain, source, replaces) in specs.items():
+            tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                       bound_ms=0.0)
+            for direction, f, p, t in dist_shard_calls(tables, d, sizes):
+                x = xs[f]
+                flops, moved = aggregation_cost(edges[(direction, p)], d.vp, f,
+                                                x.element_size(), n_src=n_src)
+                b_ms, o_ms = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+                for k, val in (("ms", cuda_ms(lambda: wrapper(t, x))),
+                               ("plain_ms", cuda_ms(lambda: plain(t, x), n=3, warmup=1)),
+                               ("library_ms", library[(direction, p, f)]),
+                               ("bytes_ms", b_ms), ("ops_ms", o_ms),
+                               ("bound_ms", max(b_ms, o_ms))):
+                    tot[k] += val
+            for direction, f in epoch_calls(sizes):
+                heavy = max(range(DIST_P), key=lambda p: edges[(direction, p)])
+                t = getattr(tables, direction)[heavy]
+                geo = (bsp_geometry_text(bsp_geometry(t, f, torch.bfloat16))
+                       if name == "bsp_ell_dist"
+                       else ell_geometry_text(ell_geometry(t, f, torch.bfloat16)))
+                log(f"(a) {name} {direction} f={f} bf16, heaviest shard {heavy} "
+                    f"({edges[(direction, heavy)]} edges, {t.slot_count()} slots): {geo}")
+            rows.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": 0, "max_abs_err": errs[name], "ms": tot["ms"],
+                "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+                "library_ms": tot["library_ms"],
+            })
+            log(f"(a) timing {name}, one epoch's {len(epoch_calls(sizes)) * DIST_P} per-shard "
+                f"calls {epoch_calls(sizes)} x {DIST_P} shards (CUDA events, 20 after 3): "
+                f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, torch.sparse.mm "
+                f"over each shard's [{d.vp}, {n_src}] CSR {tot['library_ms']:.4f} ms, bound "
+                f"{tot['bound_ms']:.4f} ms (bytes {tot['bytes_ms']:.4f}, f32 ops "
+                f"{tot['ops_ms']:.4f}; x read over n_src = {n_src} rows)")
+        del ell, bsp, xs, adj
+        torch.cuda.empty_cache()
+
+        # ---- (b) the trainers on the twin ----------------------------------------
+        src, dst = results["edges"]
+        datum = results["datum"]
+
+        def cfg_of(algorithm, route, epochs):
+            return InputInfo(
+                algorithm=algorithm, vertices=g.v_num, layer_string="602-128-41",
+                epochs=epochs, drop_rate=0.0, precision="bfloat16", learn_rate=0.01,
+                weight_decay=1e-4, decay_rate=0.97, decay_epoch=100, partitions=DIST_P,
+                optim_kernel=route != "ring", pallas_kernel=route == "bsp",
+                kernel_tile=4096 if route == "blocked" else 0,
+                comm_layer="ring" if route == "ring" else "auto",
+            )
+
+        eager_ref = GCNEagerTrainer.from_arrays(
+            InputInfo(algorithm="GCNEAGER", vertices=g.v_num, layer_string="602-128-41",
+                      epochs=1, drop_rate=0.0, precision="bfloat16", learn_rate=0.01,
+                      weight_decay=1e-4, decay_rate=0.97, decay_epoch=100, optim_kernel=True),
+            src, dst, datum, seed=seed, device=dev, host_graph=g)
+        refs = {"GCNDIST": (results.pop("ell_first_logits"), results["ell"]["losses"][0])}
+        first = eager_ref.eval_logits()
+        eager_ref.run()
+        refs["GCNEAGERDIST"] = (first, eager_ref.loss_history[0])
+        del eager_ref, first
+        dist_runs = {}
+        for algorithm, route in (("GCNDIST", "ell"), ("GCNDIST", "bsp"),
+                                 ("GCNDIST", "blocked"), ("GCNDIST", "ring"),
+                                 ("GCNEAGERDIST", "bsp")):
+            cls = DistGCNEagerTrainer if algorithm == "GCNEAGERDIST" else DistGCNTrainer
+            name = f"{algorithm} {route}"
+            tr = cls.from_arrays(cfg_of(algorithm, route, DIST_EPOCHS), src, dst, datum,
+                                 seed=seed, device=dev, host_graph=g)
+            valid = torch.from_numpy(np.nonzero(tr.dist.valid_mask())[0]).to(dev)
+            ref_logits, ref_loss = refs[algorithm]
+            try:
+                err = check_close(f"{name} first logits", tr.eval_logits()[valid],
+                                  ref_logits, LOGITS_TOL)
+            except AssertionError as exc:
+                failures.append(f"phase 15 {exc}")
+                log(f"FAILED {exc}")
+                err = float("nan")
+            zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            tr.run()
+            torch.cuda.synchronize()
+            launches = kernel_launches()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            zero_launches()
+            tr.train_step()
+            torch.cuda.synchronize()
+            per_epoch = kernel_launches()
+            losses = tr.loss_history
+            check(f"{name} finite", all(math.isfinite(x) for x in losses), losses)
+            rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+            check(f"{name} epoch-0 loss", rel <= LOSS_RTOL,
+                  f"{losses[0]} vs single-device ELL {ref_loss} (rel {rel:.2e})")
+            want = {"ell": "ell_level", "bsp": "bsp_ell"}.get(route)
+            for k, n in launches.items():
+                check(f"{name} {k} launches", (n > 0) == (k == want),
+                      f"{launches} in the run")
+            dist_runs[(algorithm, route)] = launches
+            log(f"(b) {name}: first logits max abs err {err:.3e} against the single-device "
+                f"ELL route's; epoch-0 loss {losses[0]:.6f} vs {ref_loss:.6f} (rel "
+                f"{rel:.2e}); losses {[round(x, 6) for x in losses]}; epochs (s) "
+                f"{[round(t, 4) for t in tr.epoch_times]}; launches {launches} in "
+                f"{DIST_EPOCHS} epochs + eval, {per_epoch} per training epoch; host table "
+                f"build {tr.build_model_s:.1f} s; peak device memory {peak:.2f} GiB")
+            del tr
+            torch.cuda.empty_cache()
+        rows[0]["launches"] = dist_runs[("GCNDIST", "ell")]["ell_level"]
+        rows[1]["launches"] = dist_runs[("GCNDIST", "bsp")]["bsp_ell"]
+
+        # ---- (c) the data-prep tool and the north-star cfg -----------------------
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "neutronstarlite_torch.graph.prep", "--dataset", "reddit",
+             "--out", "data"], cwd=REPO, capture_output=True, text=True, timeout=600,
+        )
+        t_prep = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"prep failed ({proc.returncode}): {proc.stderr[-2000:]}")
+        log(f"(c) python -m neutronstarlite_torch.graph.prep --dataset reddit --out data: "
+            f"{t_prep:.1f} s; {' '.join(proc.stdout.split())}")
+
+        def cli(cfg_name):
+            """The cfg through run.main on the card; the trainer and its result
+            are read from supervised_run."""
+            seen = {}
+            original = run.supervised_run
+
+            def spy(toolkit, *a, **k):
+                seen["tr"] = toolkit
+                seen["result"] = original(toolkit, *a, **k)
+                return seen["result"]
+
+            run.supervised_run = spy
+            zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                rc = run.main([os.path.join(REPO, "configs", cfg_name)])
+            finally:
+                run.supervised_run = original
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            tr = seen.get("tr")
+            return rc, tr, seen.get("result"), wall, kernel_launches(), \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+
+        rc, tr, res, wall, launches, peak = cli("gcn_reddit_full.cfg")
+        check("(c) gcn_reddit_full.cfg rc", rc == 0, rc)
+        if tr is not None and res is not None:
+            losses, acc = tr.loss_history, res["acc"]
+            check("(c) 10 epochs", len(losses) == 10, losses)
+            check("(c) loss falls", losses[-1] < losses[0], losses)
+            check("(c) test accuracy", acc["test"] >= NORTH_STAR_MIN_TEST_ACC,
+                  f"{acc['test']} < {NORTH_STAR_MIN_TEST_ACC:.3f}")
+            check("(c) ELL kernel", launches["ell_level"] > 0 and not launches["bsp_ell"],
+                  launches)
+            log(f"(c) configs/gcn_reddit_full.cfg through the CLI (V={tr.host_graph.v_num} "
+                f"E={tr.host_graph.e_num}, ELL, bf16, dropout 0.5): losses "
+                f"{[round(x, 4) for x in losses]}; Train/Eval/Test accuracy "
+                f"{acc['train']:.4f} / {acc['eval']:.4f} / {acc['test']:.4f} (floor "
+                f"{NORTH_STAR_MIN_TEST_ACC:.3f}, chance 1/41); epochs (s) "
+                f"{[round(t, 4) for t in tr.epoch_times]}, steady mean "
+                f"{tr.avg_epoch_time():.4f}; host graph load + CSC/CSR build "
+                f"{tr.timers.total('graph_load'):.1f} s, table build {tr.build_model_s:.1f} s; "
+                f"peak device memory {peak:.2f} GiB; {launches['ell_level']} ell_level "
+                f"launches; CLI wall {wall:.1f} s")
+        del tr, res
+        torch.cuda.empty_cache()
+
+        # ---- (d) the distributed Reddit cfgs on (c)'s data -----------------------
+        for cfg_name, want in (("gcn_reddit_full_dist_bsp.cfg", "bsp_ell"),
+                               ("gcn_reddit_full_dist_blocked.cfg", None)):
+            rc, tr, res, wall, launches, peak = cli(cfg_name)
+            check(f"(d) {cfg_name} rc", rc == 0, rc)
+            if tr is None or res is None:
+                continue
+            losses = tr.loss_history
+            check(f"(d) {cfg_name} loss falls", losses[-1] < losses[0], losses)
+            for k, n in launches.items():
+                check(f"(d) {cfg_name} {k} launches", (n > 0) == (k == want), launches)
+            acc = res["acc"]
+            log(f"(d) configs/{cfg_name} through the CLI, NTS_DIST_SIMULATE=1 (P="
+                f"{tr.dist.partitions}, vp={tr.dist.vp}): losses "
+                f"{[round(x, 4) for x in losses]}; Train/Eval/Test accuracy "
+                f"{acc['train']:.4f} / {acc['eval']:.4f} / {acc['test']:.4f}; epochs (s) "
+                f"{[round(t, 4) for t in tr.epoch_times]}, steady mean "
+                f"{tr.avg_epoch_time():.4f}; host graph load + CSC/CSR build "
+                f"{tr.timers.total('graph_load'):.1f} s, table build {tr.build_model_s:.1f} "
+                f"s; peak device memory {peak:.2f} GiB; launches {launches}; CLI wall "
+                f"{wall:.1f} s")
+            del tr, res
+            torch.cuda.empty_cache()
+    finally:
+        for k, val in saved_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+    log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1, help="fraction of Reddit's V and E")
@@ -2636,6 +3037,7 @@ def main(argv=None) -> int:
     phase_sampled(dev, g, args.seed, results)
     phase_obs(dev, g, args.seed, results)
     phase_serving(dev, g, args.seed, results)
+    rows += phase_dist(dev, g, args.seed, results)
     if results["failures"]:
         for msg in results["failures"]:
             log(f"FAILED {msg}")

@@ -149,3 +149,23 @@ def build_graph(
         out_degree=out_degree,
         in_degree=in_degree,
     )
+
+
+def partition_offsets(v_num: int, in_degree: np.ndarray, partitions: int) -> np.ndarray:
+    """Contiguous vertex-range partition boundaries [partitions + 1]:
+    each range balances ``in-edges + alpha * vertices`` with ``alpha = 12 *
+    (partitions + 1)`` (the reference's chunking; JAX's alpha and page-size
+    arguments, which no caller sets, are not ported). The distributed
+    trainers' partition map (``parallel/dist_graph.py``)."""
+    alpha = 12.0 * (partitions + 1)
+    weights = in_degree.astype(np.float64) + alpha
+    cum = np.concatenate([[0.0], np.cumsum(weights)])
+    total = cum[-1]
+    offsets = np.zeros(partitions + 1, dtype=np.int64)
+    offsets[partitions] = v_num
+    for p in range(1, partitions):
+        target = total * p / partitions
+        pos = int(np.searchsorted(cum, target))
+        pos = min(max(pos, offsets[p - 1]), v_num)
+        offsets[p] = pos
+    return offsets

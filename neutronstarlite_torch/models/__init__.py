@@ -1,6 +1,16 @@
 """Trainers of the torch port; importing registers the ALGORITHM names."""
 
-from neutronstarlite_torch.models import commnet, gat, gcn, gcn_sample, ggcn, gin  # noqa: F401
+from neutronstarlite_torch.models import (  # noqa: F401
+    commnet,
+    commnet_dist,
+    gat,
+    gcn,
+    gcn_dist,
+    gcn_sample,
+    ggcn,
+    gin,
+    gin_dist,
+)
 from neutronstarlite_torch.models.base import get_algorithm, register_algorithm
 
 __all__ = ["get_algorithm", "register_algorithm"]

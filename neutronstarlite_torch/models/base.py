@@ -51,7 +51,7 @@ from neutronstarlite_torch.obs.slo import SloEngine
 from neutronstarlite_torch.resilience import events, guards
 from neutronstarlite_torch.utils import checkpoint as ckpt
 from neutronstarlite_torch.utils import tree as tree_util
-from neutronstarlite_torch.utils.config import SUPPORTED_ALGORITHMS, InputInfo
+from neutronstarlite_torch.utils.config import SUPPORTED_ALGORITHMS, InputInfo, check_algorithm
 from neutronstarlite_torch.utils.logging import get_logger
 from neutronstarlite_torch.utils.timing import PhaseTimers, get_time
 
@@ -74,6 +74,7 @@ def register_algorithm(*names: str):
 def get_algorithm(name: str) -> Type["ToolkitBase"]:
     cls = _REGISTRY.get(name.upper())
     if cls is None:
+        check_algorithm(name)  # names the slice of a planned trainer
         raise ValueError(
             f"ALGORITHM {name!r} is not ported yet; the torch port implements "
             f"{', '.join(SUPPORTED_ALGORITHMS)}"

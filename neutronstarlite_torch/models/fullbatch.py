@@ -135,6 +135,8 @@ class FullBatchTrainer(ToolkitBase):
 
     # attention / edge-op families (GAT, GGCN) set the kernel.* gauges
     edge_family = False
+    # the step's program_cost label (obs/cost)
+    cost_label = "fullbatch.train_step"
 
     @staticmethod
     def edge_score_channels(f_out: int) -> int:
@@ -387,7 +389,7 @@ class FullBatchTrainer(ToolkitBase):
         if start_epoch < cfg.epochs:
             self.drop_gen.manual_seed(epoch_seed(self.seed + 1, start_epoch))
             self.count_program_cost(
-                f"fullbatch.train_step/{type(self).__name__}",
+                f"{type(self).cost_label}/{type(self).__name__}",
                 lambda: self._epoch_step(split),
                 self.flat_params + self.opt_state.m + self.opt_state.v,
             )

@@ -5,7 +5,10 @@ and in evaluation alike (the reference's full-batch toolkits never switch
 BN to eval mode). The variance is the population variance
 (``correction=0``, as ``jnp.var``), not torch's default unbiased one. The
 statistics are taken in float32 and cast back to the input dtype, as
-``jnp.mean``/``jnp.var`` do for bfloat16 input.
+``jnp.mean``/``jnp.var`` do for bfloat16 input. The distributed trainers
+pass a valid mask (padded rows excluded) and a cross-rank sum; their
+masked statistics are f32 too, where JAX sums the masked ones in the
+input dtype.
 """
 
 from __future__ import annotations
@@ -23,12 +26,26 @@ def batch_norm_init(width: int, device) -> Dict[str, torch.Tensor]:
 
 
 def batch_norm_apply(
-    p: Dict[str, torch.Tensor], x: torch.Tensor, eps: float = 1e-5
+    p: Dict[str, torch.Tensor], x: torch.Tensor, eps: float = 1e-5,
+    valid_mask: Optional[torch.Tensor] = None, reduce=None,
 ) -> torch.Tensor:
-    """Full-batch batch-norm over the vertex axis; ``p`` already in x.dtype."""
+    """Full-batch batch-norm over the vertex axis; ``p`` already in x.dtype.
+
+    ``valid_mask`` [V] (1 real, 0 padding) keeps the padded rows of the
+    distributed layout out of the statistics; ``reduce`` sums a tensor over
+    the ranks that hold the other rows (the distributed trainers'
+    differentiable all-reduce; None when this process holds every row)."""
     xf = x.float()
-    mean = xf.mean(dim=0, keepdim=True).to(x.dtype)
-    var = xf.var(dim=0, keepdim=True, correction=0).to(x.dtype)
+    if valid_mask is None:
+        mean = xf.mean(dim=0, keepdim=True).to(x.dtype)
+        var = xf.var(dim=0, keepdim=True, correction=0).to(x.dtype)
+    else:
+        total = reduce if reduce is not None else (lambda t: t)
+        m = valid_mask[:, None].float()
+        n = torch.clamp(total(m.sum()), min=1.0)
+        mean32 = total((xf * m).sum(dim=0, keepdim=True)) / n
+        var = (total(((xf - mean32) ** 2 * m).sum(dim=0, keepdim=True)) / n).to(x.dtype)
+        mean = mean32.to(x.dtype)
     xn = (x - mean) * torch.rsqrt(var + eps)
     return xn * p["gamma"] + p["beta"]
 

@@ -18,7 +18,9 @@ port has no compiler analysis to read, so its numbers are counted
 
 The kernels' wrappers report each call through :func:`note_kernel` while a
 step is counted (:func:`count_step`); otherwise the note is one ``None``
-check. ``NTS_PROGRAM_COST`` is three-state as in the reference: ``0``
+check. A distributed exchange notes each shard's call with the shard's own
+tables (its edges, ``vp`` rows over ``P*vp`` sources), one record per
+shard. ``NTS_PROGRAM_COST`` is three-state as in the reference: ``0``
 never, ``1`` always, unset = only when the telemetry persists (a JSONL sink
 or an armed ledger). Counting never hides a failing step: an error in the
 counted step raises as it would without the count; a record that cannot
@@ -53,38 +55,44 @@ def cost_enabled(metrics=None) -> bool:
     return bool(os.environ.get("NTS_LEDGER_DIR"))
 
 
-def aggregation_cost(e_num: int, v_num: int, f: int, elem_bytes: int) -> Tuple[float, float]:
-    """(operations, bytes) of one weighted aggregation over a graph of
-    ``v_num`` vertices and ``e_num`` edges at width ``f``: 2*E*f float32
-    operations; E int32 indices and f32 weights, V+1 int32 offsets, x read
-    once and the output written once (padding is a cost of a layout, so it
-    is not counted)."""
+def aggregation_cost(e_num: int, v_num: int, f: int, elem_bytes: int,
+                     n_src: Optional[int] = None) -> Tuple[float, float]:
+    """(operations, bytes) of one weighted aggregation of ``e_num`` edges
+    into ``v_num`` rows at width ``f``: 2*E*f float32 operations; E int32
+    indices and f32 weights, V+1 int32 offsets, x read once (``n_src``
+    rows: ``v_num`` unless the tables are rectangular, as a distributed
+    shard's are) and the output written once (padding is a cost of a
+    layout, so it is not counted)."""
+    n_src = v_num if n_src is None else n_src
     flops = 2.0 * e_num * f
-    moved = e_num * 8 + (v_num + 1) * 4 + 2 * v_num * f * elem_bytes
+    moved = e_num * 8 + (v_num + 1) * 4 + (n_src + v_num) * f * elem_bytes
     return flops, float(moved)
 
 
 # ---- kernel calls of a counted step ----------------------------------------
 
-_calls: Optional[List[Tuple[str, str, int, Any]]] = None
+# (shard, edges, rows, source rows) of a call over one shard's tables
+Shard = Tuple[int, int, int, int]
+_calls: Optional[List[Tuple[str, str, int, Any, Optional[Shard]]]] = None
 
 
-def note_kernel(kernel: str, direction: str, x) -> None:
+def note_kernel(kernel: str, direction: str, x, shard: Optional[Shard] = None) -> None:
     """Called by a hand-written kernel's autograd wrapper for each call: the
     kernel, the tables' direction (fwd/bwd) and its input; recorded only
-    while a step is counted."""
+    while a step is counted. ``shard`` = (shard, edges, rows, source rows)
+    when the tables are one shard's, else the call covers the whole graph."""
     if _calls is not None:
-        _calls.append((kernel, direction, int(x.shape[1]), x.dtype))
+        _calls.append((kernel, direction, int(x.shape[1]), x.dtype, shard))
 
 
 class StepCount:
     """What :func:`count_step` measured: ``flops`` of the library ops,
-    ``calls`` the kernels' (kernel, direction, f, dtype) calls in order,
+    ``calls`` the kernels' (kernel, direction, f, dtype, shard) calls in order,
     ``memory_rise`` the allocator's peak rise in bytes (None on the CPU)."""
 
     def __init__(self) -> None:
         self.flops: Optional[float] = None
-        self.calls: List[Tuple[str, str, int, Any]] = []
+        self.calls: List[Tuple[str, str, int, Any, Optional[Shard]]] = []
         self.memory_rise: Optional[int] = None
 
 
@@ -138,26 +146,33 @@ def _dtype_name(dtype) -> str:
 def capture_program_cost(metrics, label: str, count: StepCount, e_num: int, v_num: int,
                          platform: str, **extra: Any) -> List[Dict[str, Any]]:
     """The counted step's record, then one record per distinct kernel call
-    (kernel, direction, width, dtype) with its calls per step. The step's
-    ``flops`` adds the kernels' count to the library ops'; its
-    ``bytes_accessed`` is null (no byte count covers the library ops)."""
+    (kernel, direction, width, dtype, and the shard for a shard's tables)
+    with its calls per step. The step's ``flops`` adds the kernels' count to
+    the library ops'; its ``bytes_accessed`` is null (no byte count covers
+    the library ops)."""
     recs: List[Dict[str, Any]] = []
-    kernels: Dict[Tuple[str, str, int, str], int] = {}
-    for kernel, direction, f, dtype in count.calls:
-        key = (kernel, direction, f, _dtype_name(dtype))
+    kernels: Dict[Tuple[str, str, int, str, Optional[Shard]], int] = {}
+    for kernel, direction, f, dtype, shard in count.calls:
+        key = (kernel, direction, f, _dtype_name(dtype), shard)
         kernels[key] = kernels.get(key, 0) + 1
     kernel_flops = 0.0
     kernel_recs = []
-    for (kernel, direction, f, dtype), calls in kernels.items():
+    for (kernel, direction, f, dtype, shard), calls in kernels.items():
         elem = torch.empty((), dtype=getattr(torch, dtype)).element_size()
-        flops, moved = aggregation_cost(e_num, v_num, f, elem)
+        klabel = f"kernel.{kernel}/{direction}/f{f}/{dtype}"
+        edges, rows, n_src = e_num, v_num, v_num
+        if shard is not None:
+            p, edges, rows, n_src = shard
+            klabel += f"/shard{p}"
+        flops, moved = aggregation_cost(edges, rows, f, elem, n_src=n_src)
         kernel_flops += flops * calls
         kernel_recs.append({
-            "label": f"kernel.{kernel}/{direction}/f{f}/{dtype}", "available": True,
+            "label": klabel, "available": True,
             "source": "counted", "flops": flops, "bytes_accessed": moved,
             "transcendentals": None, "memory": None, "platform": platform,
             "kernel": kernel, "direction": direction, "width": f, "dtype": dtype,
-            "calls_per_step": calls, "edges": int(e_num), "vertices": int(v_num),
+            "calls_per_step": calls, "edges": int(edges), "vertices": int(rows),
+            **({"shard": p, "sources": int(n_src)} if shard is not None else {}),
         })
     step = {
         "label": str(label), "available": count.flops is not None,

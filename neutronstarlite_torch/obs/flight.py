@@ -213,6 +213,9 @@ class FlightRecorder:
 
 _active: Optional["weakref.ref[FlightRecorder]"] = None
 _signal_installed = False
+# the SIGUSR2 handler this module displaced (another recorder's, in a
+# process that runs both packages): it still runs after our dump
+_displaced = None
 
 
 def set_active(recorder: Optional[FlightRecorder]) -> None:
@@ -220,20 +223,22 @@ def set_active(recorder: Optional[FlightRecorder]) -> None:
     registry wins — the events.set_sink convention) and hook the signal
     once. Signal installation only works on the main thread; elsewhere
     the recorder still rings and record-triggers still dump."""
-    global _active, _signal_installed
+    global _active, _signal_installed, _displaced
     _active = weakref.ref(recorder) if recorder is not None else None
     if _signal_installed or recorder is None:
         return
     if not hasattr(signal, "SIGUSR2"):  # non-POSIX
         return
     try:
-        signal.signal(signal.SIGUSR2, _on_sigusr2)
+        _displaced = signal.signal(signal.SIGUSR2, _on_sigusr2)
         _signal_installed = True
     except ValueError:  # not the main thread
         pass
 
 
-def _on_sigusr2(_signum, _frame) -> None:
+def _on_sigusr2(signum, frame) -> None:
     rec = _active() if _active is not None else None
     if rec is not None:
         rec.dump("sigusr2")
+    if callable(_displaced) and _displaced is not _on_sigusr2:
+        _displaced(signum, frame)

@@ -35,6 +35,11 @@ within ``ops/ell.py::_PLAIN_CHUNK_ELEMS``; rows are independent, so the
 chunk size does not change a result. (The JAX module's 32 MiB
 ``NTS_ELL_CHUNK_MIB`` sized TPU VMEM and is not ported.)
 
+Rectangular form (``src_num``, as in JAX): the distributed trainer's
+per-shard tables (``parallel/dist_blocked.py``) have one shard's ``vp``
+destination rows over the whole gathered ``[P*vp, f]`` source slab, so
+the tiles cut ``src_num`` source rows; ``src_num = 0`` is the square form.
+
 ``BlockedAggregate`` pairs the forward over the CSC tables (tiled by
 source) with the backward over the CSR tables (tiled by destination), as
 JAX's ``_blocked_aggregate`` custom_vjp does. The route is
@@ -120,6 +125,7 @@ class BlockedEll:
     vt: int
     v_num: int
     n_tiles: int
+    src_num: int = 0  # source rows when they differ from v_num (rectangular)
 
     @staticmethod
     def build(
@@ -130,11 +136,13 @@ class BlockedEll:
         vt: int,
         levels: str = "",
         device="cpu",
+        src_num: int = 0,  # 0 = square; else rectangular (adj < src_num)
     ) -> "BlockedEll":
         levels = resolve_levels(levels)
-        n_tiles = -(-v_num // vt)
+        n_src = _ell.source_rows(v_num, src_num)
+        n_tiles = -(-n_src // vt)
         # with T*V < 2^31 the (tile, dst) key fits int32 (JAX's fast path)
-        idx_t = np.int32 if n_tiles * v_num < 2 ** 31 else np.int64
+        idx_t = np.int32 if max(n_tiles * v_num, n_src) < 2 ** 31 else np.int64
         deg = np.diff(offsets).astype(np.int64)
         dst_of_edge = np.repeat(np.arange(v_num, dtype=idx_t), deg)
         adj = np.asarray(adj, dtype=idx_t)
@@ -205,6 +213,7 @@ class BlockedEll:
             vt=int(vt),
             v_num=int(v_num),
             n_tiles=int(n_tiles),
+            src_num=int(src_num),
         )
 
     def slot_count(self) -> int:
@@ -226,8 +235,8 @@ class BlockedEll:
                     yield t * self.vt, nbr[t, r0:r1], wgt[t, r0:r1], dstr[t, r0:r1]
 
     def aggregate(self, x: torch.Tensor) -> torch.Tensor:
-        """out[v] = sum over in-edges of w * x[src]; [V, f] -> [V, f] in
-        x.dtype (f32 products and accumulation, one cast)."""
+        """out[v] = sum over in-edges of w * x[src]; [src_num or V, f] -> [V, f]
+        in x.dtype (f32 products and accumulation, one cast)."""
         acc = torch.zeros((self.v_num, x.shape[1]), dtype=torch.float32, device=x.device)
         return self.aggregate_into(acc, x).to(x.dtype)
 

@@ -28,8 +28,14 @@ blocks; one cast to ``x.dtype`` at the end.
 
 Not ported, because they exist only so that the TPU kernel's Mosaic
 scalar-prefetch key fits SMEM: the grid segmentation, ``bsp_bseg_menu`` /
-``bsp_tseg_menu`` and ``NTS_BSP_MAX_BLOCKS``. The rectangular ``src_num``
-form (the distributed per-shard case) comes with the distributed slice.
+``bsp_tseg_menu`` and ``NTS_BSP_MAX_BLOCKS``.
+
+Rectangular form (``src_num``, as in JAX): the distributed trainer's
+per-shard tables (``parallel/dist_bsp.py``) have one shard's ``vp``
+destination rows and index the whole gathered ``[P*vp, f]`` slab, so the
+source tiling is sized by ``src_num`` (``t_src = ceil(src_num / vt)``)
+apart from the destination tiling; ``src_num = 0`` is the square form.
+The kernel reads source rows below ``n_src`` and writes ``v_num`` rows.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 from neutronstarlite_torch.graph.storage import CSCGraph
 from neutronstarlite_torch.obs import cost
 from neutronstarlite_torch.ops import _build
+from neutronstarlite_torch.ops.ell import source_rows
 from neutronstarlite_torch.utils.logging import get_logger
 
 log = get_logger("bsp_ell")
@@ -68,6 +75,7 @@ class BspEll:
     v_num: int
     dt: int
     vt: int
+    src_num: int = 0  # source rows when they differ from v_num (rectangular)
     # piece lists of the CUDA launch, by column-chunk count (see ``pieces``)
     _pieces: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
@@ -76,8 +84,12 @@ class BspEll:
         return -(-self.v_num // self.dt)
 
     @property
+    def n_src(self) -> int:
+        return source_rows(self.v_num, self.src_num)
+
+    @property
     def t_src(self) -> int:
-        return -(-self.v_num // self.vt)
+        return -(-self.n_src // self.vt)
 
     @staticmethod
     def build(
@@ -90,10 +102,11 @@ class BspEll:
         k_slots: int = DEFAULT_K,
         r_rows: int = DEFAULT_R,
         device="cpu",
+        src_num: int = 0,  # 0 = square; else rectangular (adj < src_num)
     ) -> "BspEll":
         K, R = int(k_slots), int(r_rows)
         t_dst = -(-v_num // dt)
-        t_src = -(-v_num // vt)
+        t_src = -(-source_rows(v_num, src_num) // vt)
         e_num = len(adj)
         deg = np.diff(offsets).astype(np.int64)
         dst_of_edge = np.repeat(np.arange(v_num, dtype=np.int64), deg)
@@ -179,7 +192,7 @@ class BspEll:
         return BspEll(
             nbr=dev(nbr), wgt=dev(wgt), ldst=dev(ldst), blk_key=dev(blk_key),
             tile_ptr=dev(tile_ptr.astype(np.int32)),
-            v_num=int(v_num), dt=int(dt), vt=int(vt),
+            v_num=int(v_num), dt=int(dt), vt=int(vt), src_num=int(src_num),
         )
 
     def slot_count(self) -> int:
@@ -272,7 +285,7 @@ def bsp_blocks_aggregate(t: BspEll, x: torch.Tensor, lo: int, hi: int) -> torch.
         src = (key % t.t_src)[:, None, None] * t.vt + t.nbr[a:b].long()
         dst = (key // t.t_src)[:, None] * t.dt + t.ldst[a:b].long()
         w = t.wgt[a:b].to(x.dtype).float()
-        valid = src < t.v_num
+        valid = src < t.n_src
         src = torch.where(valid, src, torch.zeros_like(src))
         w = torch.where(valid, w, torch.zeros_like(w))
         rows = (x[src].float() * w[..., None]).sum(dim=1)  # [b, R, f]
@@ -281,14 +294,14 @@ def bsp_blocks_aggregate(t: BspEll, x: torch.Tensor, lo: int, hi: int) -> torch.
 
 
 def bsp_tables_aggregate(t: BspEll, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of ``csrc/bsp_ell.cu``: [V, f] -> [V, f]."""
+    """Plain PyTorch version of ``csrc/bsp_ell.cu``: [n_src, f] -> [V, f]."""
     out = bsp_blocks_aggregate(t, x, 0, t.nbr.shape[0])
     return out[: t.v_num].to(x.dtype)
 
 
 def _check_inputs(t: BspEll, x: torch.Tensor) -> None:
-    if x.dim() != 2 or x.shape[0] != t.v_num:
-        raise ValueError(f"x must be [{t.v_num}, f], got {tuple(x.shape)}")
+    if x.dim() != 2 or x.shape[0] != t.n_src:
+        raise ValueError(f"x must be [{t.n_src}, f], got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"bsp_ell takes float32 or bfloat16 x, got {x.dtype}")
     if not x.is_contiguous():
@@ -310,7 +323,7 @@ def _check_inputs(t: BspEll, x: torch.Tensor) -> None:
 
 def bsp_aggregate(t: BspEll, x: torch.Tensor) -> torch.Tensor:
     """The wrapper: the CUDA kernel on a CUDA tensor, the plain version on
-    a CPU tensor; [V, f] -> [V, f]. On the card it runs two kernels, the
+    a CPU tensor; [n_src, f] -> [V, f]. On the card it runs two kernels, the
     aggregation into an f32 buffer and its cast to x's dtype (only the cast
     when the tables hold no edge); ``launches`` counts both."""
     if x.device.type == "cpu":
@@ -330,7 +343,7 @@ def bsp_aggregate(t: BspEll, x: torch.Tensor) -> torch.Tensor:
     err = lib.nts_bsp_ell(
         t.nbr.data_ptr(), t.wgt.data_ptr(), t.ldst.data_ptr(), t.blk_key.data_ptr(),
         piece_ptr.data_ptr(), x.data_ptr(), acc.data_ptr(), out.data_ptr(), n_pieces,
-        t.t_src, t.dt, t.vt, k, r, t.v_num, t.v_num, f,
+        t.t_src, t.dt, t.vt, k, r, t.n_src, t.v_num, f,
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, f"bsp_ell B={t.nbr.shape[0]} f={f}")

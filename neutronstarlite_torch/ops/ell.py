@@ -11,7 +11,11 @@ put back in vertex order by ``inv_perm``. ``EllPair`` holds the forward
 aggregation is the same operation over the transposed adjacency.
 
 The tables are filled by the JAX module's NumPy branch, so they are bitwise
-the JAX tables. ``ell_tables_aggregate`` is the plain PyTorch version of
+the JAX tables. The tables may be rectangular (``src_num``): the
+distributed trainer's per-shard tables have one shard's ``vp`` rows and
+index the whole gathered ``[P*vp, f]`` source slab
+(``parallel/dist_ell.py``); ``src_num = 0`` is the square form.
+``ell_tables_aggregate`` is the plain PyTorch version of
 the ELL-level kernel (``ops/ell_kernel.py``, ``csrc/ell_level.cu``): f32
 products and accumulation whatever the input dtype, one cast to
 ``x.dtype``, zero rows for a K=0 level; it works through each level in
@@ -74,6 +78,12 @@ def ell_tables_aggregate(
     return torch.cat(outs, dim=0)
 
 
+def source_rows(v_num: int, src_num: int) -> int:
+    """The rows of x a table set reads: ``src_num``, or ``v_num`` in the
+    square form (``src_num`` 0)."""
+    return int(src_num) or int(v_num)
+
+
 @dataclasses.dataclass
 class EllBuckets:
     """One direction's degree-bucketed tables (torch tensors).
@@ -82,7 +92,8 @@ class EllBuckets:
     weights, ``rows_vertex[i]`` [Nk] int32 the vertex of each table row,
     ``inv_perm`` [V] int64 vertex -> row of the bucket-ordered concatenation,
     ``deg[i]`` [Nk] int32 each table row's degree: its live slots are the
-    prefix ``[:deg]``, the rest is padding.
+    prefix ``[:deg]``, the rest is padding. ``src_num`` is the source rows
+    x has (0: ``v_num``, the square form).
     """
 
     nbr: List[torch.Tensor]
@@ -91,6 +102,7 @@ class EllBuckets:
     inv_perm: torch.Tensor
     v_num: int
     deg: List[torch.Tensor]
+    src_num: int = 0
     # the CUDA kernel's work lists and the level pointers it reads, by
     # column-chunk count (ops/ell_kernel.py): the tables are not replaced
     # once built
@@ -103,6 +115,7 @@ class EllBuckets:
         adj: np.ndarray,  # [E] neighbour ids, grouped by vertex
         weights: np.ndarray,  # [E]
         device="cpu",
+        src_num: int = 0,  # source rows when they differ from v_num
     ) -> "EllBuckets":
         deg = np.diff(offsets).astype(np.int64)
         order = np.argsort(deg, kind="stable")
@@ -145,13 +158,18 @@ class EllBuckets:
             inv_perm=torch.from_numpy(inv).to(device),
             v_num=int(v_num),
             deg=[torch.from_numpy(d).to(device) for d in degs],
+            src_num=int(src_num),
         )
+
+    @property
+    def n_src(self) -> int:
+        return source_rows(self.v_num, self.src_num)
 
     def slot_count(self) -> int:
         return sum(int(n.numel()) for n in self.nbr)
 
     def plain(self, x: torch.Tensor) -> torch.Tensor:
-        """out[v] = sum over v's table row of w * x[nbr]; [V, f] -> [V, f]."""
+        """out[v] = sum over v's table row of w * x[nbr]; [n_src, f] -> [V, f]."""
         return ell_tables_aggregate(x, self.nbr, self.wgt)[self.inv_perm]
 
 

@@ -9,8 +9,10 @@ than the cap. Rows of zero degree (the K=0 level) have no item and stay
 zero. ``launches`` counts every kernel launched, the reduction included.
 On a CPU tensor it takes the plain version ``EllBuckets.plain``
 (``ops/ell.ell_tables_aggregate``). There is no fallback from one to the
-other. ``EllAggregate`` pairs the forward over the CSC tables with the
-backward over the CSR tables.
+other. Rectangular tables (``EllBuckets.src_num``) read x of ``src_num``
+rows and write ``v_num``; the kernel indexes x only through the tables, so
+its launch is the square one. ``EllAggregate`` pairs the forward over the
+CSC tables with the backward over the CSR tables.
 
 Runtime weights (GAT's attention): ``ell_level_aggregate(buckets, x,
 weights)`` reads per-level weights computed at run time instead of the
@@ -173,8 +175,8 @@ def work_list(buckets: EllBuckets, f: int) -> EllWork:
 
 
 def _check_inputs(buckets: EllBuckets, x: torch.Tensor, weights) -> None:
-    if x.dim() != 2 or x.shape[0] != buckets.v_num:
-        raise ValueError(f"x must be [{buckets.v_num}, f], got {tuple(x.shape)}")
+    if x.dim() != 2 or x.shape[0] != buckets.n_src:
+        raise ValueError(f"x must be [{buckets.n_src}, f], got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ell_level takes float32 or bfloat16 x, got {x.dtype}")
     if not x.is_contiguous():
@@ -212,7 +214,8 @@ def runtime_levels(buckets: EllBuckets, weights: Sequence[torch.Tensor]) -> torc
 def ell_level_aggregate(
     buckets: EllBuckets, x: torch.Tensor, weights: Optional[Sequence[torch.Tensor]] = None
 ) -> torch.Tensor:
-    """[V, f] -> [V, f]: out[v] = sum over v's table row of w * x[nbr].
+    """[n_src, f] -> [V, f]: out[v] = sum over v's table row of w * x[nbr]
+    (``n_src = V`` unless the tables are rectangular).
 
     ``weights``: per-level weights computed at run time (same shapes as
     ``buckets.wgt``, float32, contiguous, on x's device) in place of the
@@ -225,7 +228,7 @@ def ell_level_aggregate(
         raise ValueError(f"ell_level runs on cuda or cpu tensors, got {x.device}")
     _check_inputs(buckets, x, weights)
     lib = _build.load("ell_level")
-    v_num, f = x.shape
+    v_num, f = buckets.v_num, x.shape[1]
     if f == 0:
         return torch.empty((v_num, 0), dtype=x.dtype, device=x.device)
     work = work_list(buckets, f)

@@ -29,8 +29,8 @@ from neutronstarlite_torch.utils.logging import get_logger
 log = get_logger("elastic")
 
 _DISTRIBUTED = (
-    "the distributed slice of the torch port (partitioned trainers and their "
-    "survivor replan)"
+    "the last distributed slice of the torch port (the survivor replan of the "
+    "partitioned trainers; the all_gather trainers came without it)"
 )
 
 

@@ -81,12 +81,12 @@ DEFAULT_POINTS = {
 _CROSS_HOST = "the live-graph and cross-host serving slice (the cross-host HTTP fetch)"
 # the slice each unported kind or point waits for
 UNPORTED = {
-    "rank_loss": "the distributed slice (elastic survivor replan)",
-    "slow_rank": "the distributed slice (per-partition steps)",
+    "rank_loss": "the last distributed slice (elastic survivor replan)",
+    "slow_rank": "the last distributed slice (per-partition steps, skew)",
     "net_drop": _CROSS_HOST,
     "slow_net": _CROSS_HOST,
     "writer_crash": "the stream slice (the delta log)",
-    "partition_step": "the distributed slice (per-partition steps)",
+    "partition_step": "the last distributed slice (per-partition steps, skew)",
     "http_fetch": _CROSS_HOST,
     "delta_commit": "the stream slice (the delta log)",
     "finetune_round": "the stream slice (the fine-tune worker)",

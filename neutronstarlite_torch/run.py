@@ -9,6 +9,15 @@ loss``, ``Train/Eval/Test Acc:``, ``--avg epoch time``). With
 ``CHECKPOINT_DIR`` in the cfg a run resumes where the last one stopped. It
 returns 1 only when the retries (``NTS_MAX_RESTARTS``) are spent. Without
 ``--device`` it runs on the CUDA card and raises when there is none.
+
+A distributed cfg (``PARTITIONS:P``) runs one partition per process when
+launched by ``torch.distributed.run`` (gloo with ``--device cpu``, NCCL on
+one card per rank)::
+
+    python -m torch.distributed.run --nproc_per_node P \
+        -m neutronstarlite_torch.run <cfg> --device cpu
+
+or all P in one process with ``NTS_DIST_SIMULATE=1`` (the sim twin).
 """
 
 from __future__ import annotations
@@ -17,7 +26,10 @@ import argparse
 import os
 import sys
 
+import torch.distributed as dist
+
 from neutronstarlite_torch.models import get_algorithm
+from neutronstarlite_torch.parallel import mesh
 from neutronstarlite_torch.resilience.supervisor import RetriesExhaustedError, supervised_run
 from neutronstarlite_torch.utils.config import InputInfo
 from neutronstarlite_torch.utils.logging import get_logger
@@ -36,19 +48,24 @@ def main(argv=None) -> int:
     cfg = InputInfo.read_from_cfg_file(args.cfg)
     print(cfg.print())
     cls = get_algorithm(cfg.algorithm)
-    toolkit = cls(
-        cfg, base_dir=os.path.dirname(os.path.abspath(args.cfg)), device=args.device
-    )
-    toolkit.init_graph()
-    toolkit.init_nn()
+    device = mesh.maybe_init_process_group(args.device)
     try:
-        result = supervised_run(toolkit)
-    except RetriesExhaustedError as e:
-        log.error("run failed permanently: %s", e)
-        return 1
-    print(toolkit.report())
-    log.info("result: %s", result)
-    return 0
+        toolkit = cls(
+            cfg, base_dir=os.path.dirname(os.path.abspath(args.cfg)), device=device
+        )
+        toolkit.init_graph()
+        toolkit.init_nn()
+        try:
+            result = supervised_run(toolkit)
+        except RetriesExhaustedError as e:
+            log.error("run failed permanently: %s", e)
+            return 1
+        print(toolkit.report())
+        log.info("result: %s", result)
+        return 0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

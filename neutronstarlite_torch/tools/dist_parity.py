@@ -1,0 +1,161 @@
+"""Run a distributed trainer as P ranks and hold it against its sim twin.
+
+    python -m neutronstarlite_torch.tools.dist_parity --partitions 4 \\
+        [--device cpu] [--routes ell,bsp,ring] [--vertices V --edges E] \\
+        [--layers 602-128-41] [--precision bfloat16] [--epochs 3] [--drop 0] \
+        [--kernel-tile 512]
+
+Launched without ``RANK`` in the environment, it starts itself as P
+processes under ``torch.distributed.run`` (127.0.0.1, a free port; gloo on
+the CPU, NCCL with one card per rank), each training ``GCNDIST`` on every
+route in turn on a seeded power-law graph (``graph/synthetic.py``); then it
+trains the collective-free twin (``NTS_DIST_SIMULATE=1``) in this process
+on the same graph, data and parameters, and compares every epoch's loss:
+within ``--atol`` (f32) or ``--rtol`` of the twin's. It prints one JSON
+line (each route's rank and twin curves, epoch times, accuracies, the
+largest gap, ``ok``) and exits 1 when a route disagrees.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+
+
+def _args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--partitions", type=int, default=2)
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
+    ap.add_argument("--routes", default="ell,ring")
+    ap.add_argument("--vertices", type=int, default=2000)
+    ap.add_argument("--edges", type=int, default=40000)
+    ap.add_argument("--layers", default="64-32-7")
+    ap.add_argument("--precision", default="float32")
+    ap.add_argument("--epochs", type=int, default=8)
+    ap.add_argument("--drop", type=float, default=0.5)
+    ap.add_argument("--kernel-tile", type=int, default=512,
+                    help="the blocked and bsp routes' source tile (KERNEL_TILE)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--atol", type=float, default=1e-5)
+    ap.add_argument("--rtol", type=float, default=0.0)
+    ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--out", default="", help="rank curves' file prefix (internal)")
+    return ap.parse_args(argv)
+
+
+def _train(a, route: str, device):
+    """GCNDIST on ``route``; returns its curve, epoch times and accuracies."""
+    import torch
+
+    from neutronstarlite_torch.graph.dataset import GNNDatum
+    from neutronstarlite_torch.graph.synthetic import synthetic_power_law_graph
+    from neutronstarlite_torch.models.gcn_dist import DistGCNTrainer
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    v = a.vertices
+    src, dst = synthetic_power_law_graph(v, a.edges, seed=a.seed)
+    sizes = [int(t) for t in a.layers.split("-")]
+    rng = np.random.default_rng(a.seed)
+    datum = GNNDatum(
+        feature=rng.standard_normal((v, sizes[0]), dtype=np.float32),
+        label=rng.integers(0, sizes[-1], size=v, dtype=np.int32),
+        mask=(np.arange(v) % 3).astype(np.int32),
+    )
+    cfg = InputInfo(
+        algorithm="GCNDIST", vertices=v, layer_string=a.layers, epochs=a.epochs,
+        drop_rate=a.drop, precision=a.precision, learn_rate=0.01, weight_decay=1e-4,
+        decay_rate=0.97, decay_epoch=max(a.epochs // 2, 1), partitions=a.partitions,
+        optim_kernel=route != "ring", pallas_kernel=route == "bsp",
+        kernel_tile=a.kernel_tile if route in ("bsp", "blocked") else 0,
+        comm_layer="ring" if route == "ring" else "auto",
+    )
+    tr = DistGCNTrainer.from_arrays(cfg, src, dst, datum, seed=a.seed, device=device)
+    tables = tr.compute_graph.tables
+    kind = type(tables if route == "ring" else next(iter(tables.fwd.values()))).__name__
+    res = tr.run()
+    if tr.device.type == "cuda":
+        torch.cuda.synchronize(tr.device)
+    return {"losses": [float(x) for x in tr.loss_history],
+            "epoch_s": [float(t) for t in tr.epoch_times], "acc": res["acc"],
+            "rows": int(tr.feature.shape[0]), "vp": tr.dist.vp, "tables": kind}
+
+
+def _rank_main(a) -> int:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    from neutronstarlite_torch.parallel import mesh
+
+    device = mesh.maybe_init_process_group("cpu" if a.device == "cpu" else None)
+    try:
+        curves = {route: _train(a, route, device) for route in a.routes.split(",")}
+        with open(f"{a.out}.{dist.get_rank()}", "w") as fh:
+            json.dump(curves, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def main(argv=None) -> int:
+    a = _args(argv)
+    if "RANK" in os.environ:
+        return _rank_main(a)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "curves")
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        env.pop("NTS_DIST_SIMULATE", None)
+        argv = sys.argv[1:] if argv is None else list(argv)
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+             str(a.partitions), "--master_addr", "127.0.0.1", "--master_port",
+             str(_free_port()), "-m", "neutronstarlite_torch.tools.dist_parity", *argv,
+             "--out", out],
+            env=env, capture_output=True, text=True, timeout=a.timeout,
+        )
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr[-4000:])
+            return 1
+        ranks = []
+        for r in range(a.partitions):
+            with open(f"{out}.{r}") as fh:
+                ranks.append(json.load(fh))
+    import torch
+
+    torch.set_num_threads(1)
+    os.environ["NTS_DIST_SIMULATE"] = "1"
+    report, ok = {"partitions": a.partitions, "device": a.device, "routes": {}}, True
+    for route in a.routes.split(","):
+        twin = _train(a, route, "cpu" if a.device == "cpu" else None)
+        ref = np.asarray(twin["losses"])
+        gap = max(float(np.abs(np.asarray(r[route]["losses"]) - ref).max()) for r in ranks)
+        tol = a.atol + a.rtol * float(np.abs(ref).max())
+        same_rows = all(r[route]["rows"] == twin["vp"] for r in ranks)
+        route_ok = gap <= tol and same_rows and all(
+            r[route]["tables"] == twin["tables"] for r in ranks)
+        ok = ok and route_ok
+        report["routes"][route] = {
+            "ok": route_ok, "max_loss_gap": gap, "tol": tol,
+            "rank0": ranks[0][route], "twin": twin,
+        }
+    report["ok"] = ok
+    print(json.dumps(report), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -20,9 +20,16 @@ kernel (``PALLAS:1``), of the blocked ELL route (``OPTIM_KERNEL:1``
 without ``PALLAS``) and of the fused tables. ``PROC_CUDA`` and ``LOCK_FREE`` are
 reference compatibility flags that the single-device trainer has no use for
 (the JAX trainer ignores them too; the port's device comes from
-``--device``); ``PROC_OVERLAP``, ``PROC_LOCAL``, ``PROC_REP`` and
-``PARTITIONS`` select distributed features and are accepted only at their
-single-device values. ``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY`` turn on
+``--device``); ``PROC_OVERLAP``, ``PROC_LOCAL`` and ``PROC_REP`` select
+distributed features and are accepted only at their single-device values.
+The distributed trainers (``GCNDIST``, ``GCNEAGERDIST``, ``GINDIST``,
+``COMMNETDIST``, ``models/gcn_dist.py``) read ``PARTITIONS`` (any count; a
+single-device trainer refuses one above 1), ``COMM_LAYER`` (``ring``,
+``ell`` or ``auto``) and ``DIST_PATH`` (``all_gather`` or ``auto``);
+``DIST_PATH:ring_blocked(_sim)``, ``WIRE_DTYPE`` and ``MESH`` come with the
+pipelined ring, ``COMM_LAYER:mirror`` with the edge families, and both are
+refused naming their slice, as are the distributed GAT, GGCN and DepCache
+trainers. ``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY`` turn on
 checkpoints (``utils/checkpoint.py``); ``CKPT_BACKEND`` takes ``npz`` alone:
 ``orbax`` is a JAX library, and the sharded asynchronous saves it gives
 the reference come with the distributed slice. The serving keys
@@ -47,10 +54,37 @@ GIN_ALGORITHMS = ("GINCPU", "GINGPU", "GIN")
 COMMNET_ALGORITHMS = ("COMMNETGPU", "COMMNETCPU", "COMMNET")
 GGCN_ALGORITHMS = ("GGCNCPU", "GGCN", "GGNN")
 GCN_SAMPLE_ALGORITHMS = ("GCNSAMPLESINGLE", "GCNSAMPLE", "GCNCPUSAMPLE")
+# the distributed trainers (models/gcn_dist.py, gin_dist.py, commnet_dist.py)
+GCN_DIST_ALGORITHMS = ("GCNDIST", "GCNTPUDIST")
+GCN_EAGER_DIST_ALGORITHMS = ("GCNEAGERDIST", "GCNDISTEAGER", "GCNEAGERTPUDIST")
+GIN_DIST_ALGORITHMS = ("GINDIST", "GINTPUDIST", "GINCPUDIST")
+COMMNET_DIST_ALGORITHMS = ("COMMNETDIST", "COMMNETTPUDIST", "COMMNETGPUDIST")
+DIST_ALGORITHMS = (
+    GCN_DIST_ALGORITHMS + GCN_EAGER_DIST_ALGORITHMS + GIN_DIST_ALGORITHMS
+    + COMMNET_DIST_ALGORITHMS
+)
 SUPPORTED_ALGORITHMS = (
     GCN_ALGORITHMS + GCN_EAGER_ALGORITHMS + GAT_ALGORITHMS + GIN_ALGORITHMS
-    + COMMNET_ALGORITHMS + GGCN_ALGORITHMS + GCN_SAMPLE_ALGORITHMS
+    + COMMNET_ALGORITHMS + GGCN_ALGORITHMS + GCN_SAMPLE_ALGORITHMS + DIST_ALGORITHMS
 )
+# the slices that bring what this one refuses
+RING_SLICE = (
+    "the next distributed slice of the torch port (the pipelined ring: "
+    "ring_blocked, ring_schedule and the MESH partitioner)"
+)
+EDGE_SLICE = (
+    "the distributed edge-family slice of the torch port (the mirror "
+    "exchange, GAT/GGCN dist)"
+)
+PLANE_SLICE = (
+    "the last distributed slice of the torch port (the DepCache trainer, "
+    "skew, elastic replan, numerics and DEBUGINFO on the dist trainers)"
+)
+UNPORTED_ALGORITHMS = {
+    **{a: EDGE_SLICE for a in ("GATCPUDIST", "GATGPUDIST", "GATDIST", "GATCPUDISTOPTM",
+                               "GGCNDIST", "GGCNCPUDIST", "GGNNDIST")},
+    **{a: PLANE_SLICE for a in ("GCNDISTMIRROR", "GCNDISTCACHE", "GCNDISTREP")},
+}
 SAMPLE_PIPELINE_MODES = ("sync", "pipelined", "device", "fused")
 
 _INT_KEYS = {
@@ -99,14 +133,14 @@ _SINGLE_DEVICE_KEYS = {
     "PROC_OVERLAP": ("0",),
     "PROC_LOCAL": ("0",),
     "PROC_REP": ("0",),
-    "PARTITIONS": ("0", "1"),
 }
 _SINGLE_DEVICE_FIELDS = {
     "PROC_OVERLAP": ("process_overlap", lambda v: bool(int(v))),
     "PROC_LOCAL": ("process_local", lambda v: bool(int(v))),
     "PROC_REP": ("process_rep", lambda v: bool(int(v))),
-    "PARTITIONS": ("partitions", int),
 }
+COMM_LAYERS = ("", "auto", "ring", "ell")
+DIST_PATHS = ("", "auto", "all_gather")
 
 # every field of the reference's InputInfo with its default, in its order:
 # the obs config fingerprint (obs/registry.config_fingerprint) is a digest
@@ -178,7 +212,11 @@ class InputInfo:
     process_overlap: bool = False
     process_local: bool = False
     process_rep: bool = False
+    # the distributed trainers: partition count (0: the world size),
+    # exchange layer and path
     partitions: int = 0
+    comm_layer: str = "auto"
+    dist_path: str = ""
 
     @staticmethod
     def read_from_cfg_file(path: str) -> "InputInfo":
@@ -190,15 +228,12 @@ class InputInfo:
                     continue
                 key, _, value = line.partition(":")
                 cfg._apply(key.strip().upper(), value.strip())
+        check_partitions(cfg)
         return cfg
 
     def _apply(self, key: str, value: str) -> None:
         if key == "ALGORITHM":
-            if value.upper() not in SUPPORTED_ALGORITHMS:
-                raise ValueError(
-                    f"ALGORITHM {value!r} is not ported yet; the torch port "
-                    f"implements {', '.join(SUPPORTED_ALGORITHMS)}"
-                )
+            check_algorithm(value)
             self.algorithm = value
         elif key in _INT_KEYS:
             setattr(self, _INT_KEYS[key], int(value))
@@ -220,6 +255,18 @@ class InputInfo:
         elif key == "CKPT_BACKEND":
             check_ckpt_backend(value)
             self.ckpt_backend = value
+        elif key == "PARTITIONS":
+            self.partitions = int(value)
+            if self.partitions < 0:
+                raise ValueError(f"PARTITIONS must be >= 0, got {value!r}")
+        elif key == "COMM_LAYER":
+            self.comm_layer = value.strip().lower()
+            check_comm_layer(self.comm_layer)
+        elif key == "DIST_PATH":
+            self.dist_path = value.strip().lower()
+            check_dist_path(self.dist_path)
+        elif key in ("WIRE_DTYPE", "MESH"):
+            raise ValueError(f"{key}:{value} (the pipelined ring) comes with {RING_SLICE}")
         elif key == "PRECISION":
             if value not in ("float32", "bfloat16"):
                 raise ValueError(
@@ -294,6 +341,44 @@ class InputInfo:
         return "\n".join(lines)
 
 
+def check_algorithm(value: str) -> None:
+    """Refuse an ALGORITHM the port does not implement, naming the slice
+    that brings it where one is planned."""
+    name = value.upper()
+    if name in UNPORTED_ALGORITHMS:
+        raise ValueError(f"ALGORITHM {value!r} comes with {UNPORTED_ALGORITHMS[name]}")
+    if name not in SUPPORTED_ALGORITHMS:
+        raise ValueError(
+            f"ALGORITHM {value!r} is not ported yet; the torch port "
+            f"implements {', '.join(SUPPORTED_ALGORITHMS)}"
+        )
+
+
+def check_partitions(cfg: "InputInfo") -> None:
+    """Refuse PARTITIONS above 1 on a single-device trainer, which would
+    ignore it."""
+    if cfg.partitions > 1 and cfg.algorithm.upper() not in DIST_ALGORITHMS:
+        raise ValueError(
+            f"PARTITIONS:{cfg.partitions} is read only by the distributed trainers "
+            f"({', '.join(DIST_ALGORITHMS)}); ALGORITHM {cfg.algorithm!r} runs on "
+            "one device: drop the key or set it to 1"
+        )
+
+
+def check_comm_layer(value: str) -> None:
+    if value == "mirror":
+        raise ValueError(f"COMM_LAYER:mirror comes with {EDGE_SLICE}")
+    if value not in COMM_LAYERS:
+        raise ValueError(f"COMM_LAYER must be ring, ell or auto, got {value!r}")
+
+
+def check_dist_path(value: str) -> None:
+    if value in ("ring_blocked", "ring_blocked_sim"):
+        raise ValueError(f"DIST_PATH:{value} comes with {RING_SLICE}")
+    if value not in DIST_PATHS:
+        raise ValueError(f"DIST_PATH must be all_gather or auto, got {value!r}")
+
+
 def _check_kernel(value: str) -> None:
     if value == "auto":
         raise ValueError(
@@ -354,11 +439,10 @@ def check_supported(cfg: InputInfo, resident: bool, supports_fused_edge: bool = 
     ``resident`` is the NTS_PALLAS_RESIDENT=1 switch (the ELL-level kernel
     instead of the bsp kernel under PALLAS:1); ``supports_fused_edge`` is
     the trainer's flag (GAT, GGCN)."""
-    if cfg.algorithm.upper() not in SUPPORTED_ALGORITHMS:
-        raise ValueError(
-            f"ALGORITHM {cfg.algorithm!r} is not ported yet; the torch port "
-            f"implements {', '.join(SUPPORTED_ALGORITHMS)}"
-        )
+    check_algorithm(cfg.algorithm)
+    check_comm_layer(cfg.comm_layer)
+    check_dist_path(cfg.dist_path)
+    check_partitions(cfg)
     if cfg.precision not in ("float32", "bfloat16"):
         raise ValueError(
             f"PRECISION must be float32 or bfloat16, got {cfg.precision!r}"

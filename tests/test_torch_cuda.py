@@ -743,3 +743,42 @@ def test_cuda_captured_buckets_equal_the_eager_forward(cuda_device, monkeypatch,
         assert served.shape == (b, 7) and np.isfinite(served).all()
         np.testing.assert_array_equal(served, want.cpu().numpy())
     assert eng.compile_counts == {1: 1, 4: 1, 16: 1}
+
+
+# ---- the rectangular per-shard tables of the distributed trainers --------------
+
+
+def _shard_tables(kernel, device, P=4):
+    """Per-shard rectangular tables (vp rows over P*vp sources) of the hub
+    graph, forward and transposed, on ``device``."""
+    from neutronstarlite_torch.parallel.dist_bsp import build_dist_bsp
+    from neutronstarlite_torch.parallel.dist_ell import build_dist_ell
+    from neutronstarlite_torch.parallel.dist_graph import DistGraph
+
+    _, _, g = _hub_graph()
+    d = DistGraph.build(g, P)
+    if kernel == "ell_level":
+        return d, build_dist_ell(d, range(P), device=device), t_ellk.ell_level_aggregate, \
+            lambda t, v: t.plain(v)
+    return d, build_dist_bsp(d, range(P), vt=64, device=device, dt=32), \
+        t_bsp.bsp_aggregate, t_bsp.bsp_tables_aggregate
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["ell_level", "bsp_ell"])
+def test_cuda_rectangular_kernel_matches_plain_on_every_shard(cuda_device, kernel, dtype):
+    """Each shard's kernel call over the gathered [P*vp, f] x against its
+    plain version, both directions; the kernel writes vp rows."""
+    d, tables, wrapper, plain = _shard_tables(kernel, cuda_device)
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (d.partitions * d.vp, 41), dtype=np.float32)).to(cuda_device, tdt)
+    for direction in ("fwd", "bwd"):
+        for p, t in getattr(tables, direction).items():
+            got = wrapper(t, x)
+            torch.cuda.synchronize()
+            assert got.shape == (d.vp, 41) and got.dtype == tdt
+            want = _np(plain(t, x))
+            tol = BF16_TOL if dtype == "bfloat16" else dict(
+                rtol=F32_TOL["rtol"], atol=4e-5 * float(np.sqrt(np.mean(np.square(want)))))
+            np.testing.assert_allclose(_np(got), want, **tol)

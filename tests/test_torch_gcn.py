@@ -239,6 +239,12 @@ with open("configs/gcn_cora_smoke.cfg") as fh:
 with open(sys.argv[1], "w") as fh:
     fh.write(blocked.replace("../tests", os.getcwd() + "/tests"))
 assert main([sys.argv[1], "--device", "cpu"]) == 0
+with open(sys.argv[3], "w") as fh:
+    fh.write(blocked.replace("../tests", os.getcwd() + "/tests").replace(
+        "KERNEL_TILE:512", "PARTITIONS:4").replace("ALGORITHM:GCNCPU", "ALGORITHM:GCNDIST"))
+os.environ["NTS_DIST_SIMULATE"] = "1"
+assert main([sys.argv[3], "--device", "cpu"]) == 0
+del os.environ["NTS_DIST_SIMULATE"]
 from neutronstarlite_torch.serve.server import main as serve_main
 with open("configs/serve_cora_smoke.cfg") as fh:
     serve = fh.read().replace("../tests", os.getcwd() + "/tests")
@@ -253,16 +259,18 @@ sys.exit(serve_main([sys.argv[2], "--device", "cpu"]))
 def test_port_runs_with_jax_poisoned(tmp_path):
     """The port's module tree, chip_smoke.py and the CLI on the default,
     fused (KERNEL:fused_edge) and blocked (OPTIM_KERNEL:1 KERNEL_TILE)
-    routes, then the sampled serve smoke trained through the CLI and served
-    by the serve CLI, with jax and the JAX package made unimportable."""
+    routes and a distributed cfg (GCNDIST, PARTITIONS:4, the sim twin),
+    then the sampled serve smoke trained through the CLI and served by the
+    serve CLI, with jax and the JAX package made unimportable."""
     proc = subprocess.run(
         [sys.executable, "-c", _NO_JAX, str(tmp_path / "blocked.cfg"),
-         str(tmp_path / "serve.cfg")], cwd=REPO,
+         str(tmp_path / "serve.cfg"), str(tmp_path / "dist.cfg")], cwd=REPO,
         capture_output=True, text=True, timeout=180,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.count("Epoch 1 loss") == 4
+    assert proc.stdout.count("Epoch 1 loss") == 5
     for line in ("KERNEL:fused_edge", "OPTIM_KERNEL: blocked ELL aggregation",
+                 "OPTIM_KERNEL: dist all_gather aggregation (ELL kernel per shard",
                  "served 50 requests (shed 0, errors 0)"):
         assert line in proc.stdout, line
 
@@ -304,4 +312,6 @@ def test_algorithm_registry():
     assert get_algorithm("gcncpu") is GCNTrainer
     assert get_algorithm("GCN_CPU_EAGER") is GCNEagerTrainer
     with pytest.raises(ValueError, match="not ported"):
-        get_algorithm("GCNDIST")
+        get_algorithm("TEST_GETDEP")
+    with pytest.raises(ValueError, match="edge-family slice"):
+        get_algorithm("GATDIST")

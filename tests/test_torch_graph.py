@@ -72,14 +72,16 @@ def test_cfg_parse_agrees_or_refuses(path):
         "DECAY_EPOCH", "DROP_RATE", "OPTIM_KERNEL", "PALLAS", "KERNEL_TILE",
         "PRECISION", "SUBLINEAR", "PROC_CUDA", "LOCK_FREE", "PROC_OVERLAP",
         "PROC_LOCAL", "PROC_REP", "PARTITIONS", "BATCH_SIZE", "FANOUT", "SAMPLE_PIPELINE",
+        "COMM_LAYER", "DIST_PATH",
     }
     sampled = ref.algorithm.upper() not in t_config.SUPPORTED_ALGORITHMS
-    if unsupported or sampled or ref.partitions > 1:
+    ring = ref.dist_path in ("ring_blocked", "ring_blocked_sim")
+    if unsupported or sampled or ring:
         with pytest.raises(ValueError):
             t_config.InputInfo.read_from_cfg_file(path)
         return
     got = t_config.InputInfo.read_from_cfg_file(path)
-    for field in HONOURED:
+    for field in HONOURED + ("partitions", "comm_layer", "dist_path"):
         assert getattr(got, field) == getattr(ref, field), field
     assert got.layer_sizes() == ref.layer_sizes()
     assert got.fanouts() == ref.fanouts()
@@ -89,7 +91,8 @@ def test_cfg_parse_agrees_or_refuses(path):
 
 @pytest.mark.parametrize("line", [
     "PARTITIONS:4", "KERNEL:auto", "ELL_LEVELS:auto", "SAMPLE_PIPELINE:auto",
-    "CKPT_BACKEND:orbax", "ALGORITHM:GCNDIST", "PROC_REP:1", "DIST_PATH:ring",
+    "CKPT_BACKEND:orbax", "ALGORITHM:GATDIST", "PROC_REP:1", "DIST_PATH:ring",
+    "DIST_PATH:ring_blocked", "COMM_LAYER:mirror", "WIRE_DTYPE:bf16", "MESH:2,2",
     "PRECISION:bf16", "NO_SUCH_KEY:1",
 ])
 def test_cfg_refuses_unported_keys(tmp_path, line):

@@ -250,21 +250,76 @@ def test_parse_slo_spec_equals_reference(spec):
     assert parse(t_slo) == parse(j_slo)
 
 
+# the one difference the flight copy carries: its SIGUSR2 handler keeps the
+# handler it displaced and chains to it after its own dump, so that in a
+# process running both packages the reference's recorder still dumps
+FLIGHT_CHAIN = (
+    ("_signal_installed = False\n# the SIGUSR2 handler this module displaced (another "
+     "recorder's, in a\n# process that runs both packages): it still runs after our "
+     "dump\n_displaced = None\n", "_signal_installed = False\n"),
+    ("global _active, _signal_installed, _displaced", "global _active, _signal_installed"),
+    ("_displaced = signal.signal(signal.SIGUSR2, _on_sigusr2)",
+     "signal.signal(signal.SIGUSR2, _on_sigusr2)"),
+    ("def _on_sigusr2(signum, frame) -> None:", "def _on_sigusr2(_signum, _frame) -> None:"),
+    ("        rec.dump(\"sigusr2\")\n    if callable(_displaced) and _displaced is not "
+     "_on_sigusr2:\n        _displaced(signum, frame)\n", "        rec.dump(\"sigusr2\")\n"),
+)
+
+
 @pytest.mark.parametrize("name", ["hist", "schema", "flight", "slo"])
 def test_copied_module_code_equals_the_original(name):
     """The copies differ from the originals only in their docstring's port
-    note and the import paths."""
-    def body(path, pkg):
+    note and the import paths (and flight in its SIGUSR2 chaining,
+    ``FLIGHT_CHAIN``)."""
+    def body(path, pkg, diffs=()):
         with open(path) as fh:
             src = fh.read()
+        for mine, original in diffs:
+            assert src.count(mine) == 1, mine
+            src = src.replace(mine, original)
         head, doc, rest = src.split('"""', 2)
         return doc.split("\n", 1)[0], rest.replace(pkg, "PKG")
 
     t = body(os.path.join(REPO, "neutronstarlite_torch", "obs", f"{name}.py"),
-             "neutronstarlite_torch")
+             "neutronstarlite_torch", FLIGHT_CHAIN if name == "flight" else ())
     j = body(os.path.join(REPO, "neutronstarlite_tpu", "obs", f"{name}.py"),
              "neutronstarlite_tpu")
     assert t == j
+
+
+@pytest.mark.skipif(not hasattr(__import__("signal"), "SIGUSR2"),
+                    reason="no SIGUSR2 on this platform")
+def test_sigusr2_reaches_the_reference_recorder_after_a_port_registry(tmp_path,
+                                                                       monkeypatch):
+    """JAX registry, port registry, JAX registry, then SIGUSR2: the JAX
+    recorder dumps (the port's handler chains to the one it displaced).
+    The process's SIGUSR2 handler is restored afterwards."""
+    import signal
+
+    from neutronstarlite_tpu.obs import flight as j_flight
+    from neutronstarlite_torch.obs import flight as t_flight
+
+    monkeypatch.setenv("NTS_METRICS_DIR", str(tmp_path))
+    saved = signal.getsignal(signal.SIGUSR2)
+    state = (j_flight._active, j_flight._signal_installed, t_flight._active,
+             t_flight._signal_installed, t_flight._displaced)
+    try:
+        signal.signal(signal.SIGUSR2, signal.SIG_DFL)
+        j_flight._signal_installed = t_flight._signal_installed = False
+        j_registry.MetricsRegistry("run-j1", algorithm="A", fingerprint="f")
+        t_registry.MetricsRegistry("run-t", algorithm="A", fingerprint="f")
+        assert signal.getsignal(signal.SIGUSR2) is t_flight._on_sigusr2
+        reg = j_registry.MetricsRegistry("run-j2", algorithm="A", fingerprint="f")
+        reg.event("epoch", epoch=0, seconds=0.1, loss=1.0)
+        before = list(reg.flight.dumps)
+        os.kill(os.getpid(), signal.SIGUSR2)
+        assert len(reg.flight.dumps) == len(before) + 1
+        with open(reg.flight.dumps[-1]) as fh:
+            assert any(json.loads(line)["event"] == "epoch" for line in fh)
+    finally:
+        signal.signal(signal.SIGUSR2, saved)
+        (j_flight._active, j_flight._signal_installed, t_flight._active,
+         t_flight._signal_installed, t_flight._displaced) = state
 
 
 # ---- GCN on Cora: the stream against the reference's ------------------------------
