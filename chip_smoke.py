@@ -155,7 +155,26 @@ Phases (each prints its lines; any failure exits non-zero):
    host build and peak memory; (d) configs/gcn_reddit_full_dist_bsp.cfg
    and _dist_blocked.cfg through run.main on (c)'s data, the twin at full
    scale (P=8): falling loss, the bsp cfg launching only bsp_ell, the
-   blocked one neither kernel.
+   blocked one neither kernel;
+16. the pipelined ring, the 2D mesh and the split mirror (plain PyTorch,
+   no hand-written kernel: every run must leave both kernels' launch
+   counts at 0) on the sim twin at P=8, GCN 602-128-41 bf16 on phase 4's
+   graph and parameters, drop 0: (a) GCNDIST on DIST_PATH:ring_blocked
+   (vt = min(vp, 512)), on MESH:4,2 (ring_blocked_sim), on
+   COMM_LAYER:mirror and on COMM_LAYER:auto without OPTIM_KERNEL (its
+   choice, mb and vp printed), and GCNEAGERDIST on ring_blocked, 3 epochs
+   each: first logits (valid rows) and epoch-0 loss against phase 15's
+   single-device ELL references (LOGITS_TOL, LOSS_RTOL), the live wire,
+   ring and mesh gauges and the wire counter equal to ring_wire_plan /
+   predict_mesh / (P-1)*mb, epoch times, host table build, peak memory;
+   (b) GCNDIST f32 on ring_blocked with WIRE_DTYPE:bf16 beside f32: first
+   logits within 0.02 max|f32| and not bitwise equal, the wire bytes
+   halved; (c) NTS_OVERLAP_PROBE=1 on (a)'s ring_blocked run: the
+   ring.probe_* gauges present (the twin's hop is a slice, so the probe
+   measures the schedule's overhead, not wire time); (d)
+   configs/gcn_dist_ring_smoke.cfg and gcn_dist_mesh_smoke.cfg unchanged
+   through run.main on the card with NTS_DIST_SIMULATE=1: exit 0, finite
+   losses.
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -2848,6 +2867,7 @@ def phase_dist(dev, g, seed: int, results) -> list:
         first = eager_ref.eval_logits()
         eager_ref.run()
         refs["GCNEAGERDIST"] = (first, eager_ref.loss_history[0])
+        results["dist_refs"] = refs  # phase 16 holds its routes against them too
         del eager_ref, first
         dist_runs = {}
         for algorithm, route in (("GCNDIST", "ell"), ("GCNDIST", "bsp"),
@@ -2991,6 +3011,220 @@ def phase_dist(dev, g, seed: int, results) -> list:
 
 
 
+def phase_ring(dev, g, seed: int, results) -> None:
+    """Phase 16 (see the module docstring): the pipelined ring, the 2D mesh
+    and the split mirror on the sim twin, against the single-device ELL
+    route; the wire dtype; the overlap probe; the two smoke cfgs."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch import run
+    from neutronstarlite_torch.models.gcn_dist import (
+        DistGCNEagerTrainer,
+        DistGCNTrainer,
+        exchange_widths,
+    )
+    from neutronstarlite_torch.parallel.dist_ring_blocked import ring_wire_plan
+    from neutronstarlite_torch.parallel.mirror import SplitMirror
+    from neutronstarlite_torch.tools.wire_accounting import predict_mesh
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    log("phase 16 on " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip())
+    t_phase = time.perf_counter()
+    failures = results["failures"]
+
+    def check(name, ok, detail):
+        if not ok:
+            failures.append(f"phase 16 {name}: {detail}")
+            log(f"FAILED {failures[-1]}")
+
+    keys = ("NTS_DIST_SIMULATE", "NTS_OVERLAP_PROBE", "NTS_PALLAS_RESIDENT", "NTS_WIRE_DTYPE",
+            "NTS_MESH")
+    saved_env = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    os.environ["NTS_DIST_SIMULATE"] = "1"
+    src, dst = results["edges"]
+    datum = results["datum"]
+    refs = results.pop("dist_refs")
+    sizes = [602, 128, 41]
+
+    def cfg_of(algorithm, epochs=DIST_EPOCHS, precision="bfloat16", **kw):
+        cfg = InputInfo(
+            algorithm=algorithm, vertices=g.v_num, layer_string="602-128-41", epochs=epochs,
+            drop_rate=0.0, precision=precision, learn_rate=0.01, weight_decay=1e-4,
+            decay_rate=0.97, decay_epoch=100, partitions=DIST_P,
+        )
+        for k, v in kw.items():
+            setattr(cfg, k, v)
+        return cfg
+
+    def trainer(algorithm, **kw):
+        cls = DistGCNEagerTrainer if algorithm == "GCNEAGERDIST" else DistGCNTrainer
+        return cls.from_arrays(cfg_of(algorithm, **kw), src, dst, datum, seed=seed,
+                               device=dev, host_graph=g)
+
+    def expected_gauges(tr, epochs):
+        """The wire gauges and counter from the accounting alone."""
+        eager, itemsize = type(tr).eager, 2
+        widths = exchange_widths(eager, sizes)
+        P, vp = tr.dist.partitions, tr.dist.vp
+        if tr.comm_layer == "mirror":
+            rows = (P - 1) * tr.dist.mb
+            return {"wire.rows_per_layer": rows,
+                    "wire.bytes_per_epoch_fwd": rows * sum(widths) * itemsize}, \
+                rows * sum(widths) * itemsize * epochs
+        spec = tr.mesh_spec
+        plan = ring_wire_plan(tr.compute_graph.tables.fwd, widths, itemsize,
+                              pf=spec.pf if spec is not None else 1)
+        want = {"wire.rows_per_layer": plan["transfers"] * vp,
+                "wire.bytes_per_epoch_fwd": sum(h["bytes"] for h in plan["steps"]),
+                "wire.peak_resident_rows": plan["peak_resident_rows"],
+                "ring.transfers": plan["transfers"],
+                "ring.skipped_steps": len(plan["skipped_steps"]),
+                "wire.peak_resident_feature_bytes": plan["peak_resident_feature_bytes"]}
+        if spec is not None:
+            pred = predict_mesh(g, spec.pv, spec.pf, widths, itemsize)
+            want.update({"mesh.shape": spec.label(), "mesh.pv": spec.pv, "mesh.pf": spec.pf,
+                         "mesh.devices": spec.devices, "mesh.slab_cols": plan["slab_cols"],
+                         "wire.peak_resident_feature_bytes":
+                             pred["peak_resident_feature_bytes"]})
+            if not plan["skipped_steps"]:
+                want["wire.bytes_per_epoch_fwd"] = pred["bytes_per_epoch"]
+        return want, want["wire.bytes_per_epoch_fwd"] * epochs
+
+    try:
+        # ---- (a) the routes, 3 epochs each --------------------------------------
+        os.environ["NTS_OVERLAP_PROBE"] = "1"  # (c): on the first ring run
+        for name, algorithm, kw in (
+                ("ring_blocked", "GCNDIST", dict(dist_path="ring_blocked")),
+                ("MESH:4,2", "GCNDIST", dict(dist_path="ring_blocked_sim", mesh="4,2")),
+                ("mirror", "GCNDIST", dict(comm_layer="mirror")),
+                ("auto", "GCNDIST", {}),
+                ("eager ring_blocked", "GCNEAGERDIST", dict(dist_path="ring_blocked"))):
+            t0 = time.perf_counter()
+            tr = trainer(algorithm, **kw)
+            t_build = time.perf_counter() - t0
+            if name == "auto":
+                mb, vp = SplitMirror.estimate_mb_remote(g, DIST_P)
+                check("auto choice", tr.comm_layer == ("mirror" if mb <= vp else "ring"),
+                      f"{tr.comm_layer} with mb={mb} vp={vp}")
+                log(f"(a) COMM_LAYER:auto at P={DIST_P} without OPTIM_KERNEL -> "
+                    f"{tr.comm_layer} (mirror mb={mb} remote slots/pair vs ring vp={vp})")
+            valid = torch.from_numpy(np.nonzero(tr.dist.valid_mask())[0]).to(dev)
+            ref_logits, ref_loss = refs[algorithm]
+            zero_launches()
+            try:
+                err = check_close(f"{name} first logits", tr.eval_logits()[valid],
+                                  ref_logits, LOGITS_TOL)
+            except AssertionError as exc:
+                failures.append(f"phase 16 {exc}")
+                log(f"FAILED {exc}")
+                err = float("nan")
+            torch.cuda.reset_peak_memory_stats()
+            tr.run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            launches = kernel_launches()
+            check(f"{name} kernels", not any(launches.values()), f"{launches} launched")
+            losses = tr.loss_history
+            check(f"{name} finite", all(math.isfinite(x) for x in losses), losses)
+            rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+            check(f"{name} epoch-0 loss", rel <= LOSS_RTOL,
+                  f"{losses[0]} vs single-device ELL {ref_loss} (rel {rel:.2e})")
+            gauges = tr.metrics._gauges
+            want, counter = expected_gauges(tr, len(losses))
+            got = {k: gauges.get(k) for k in want}
+            check(f"{name} gauges", got == want, f"{got} vs the accounting's {want}")
+            live = tr.metrics._counters.get("wire.bytes_fwd")
+            check(f"{name} wire counter", live == counter, f"{live} vs {counter}")
+            log(f"(a) {name} (P={tr.dist.partitions}, vp={tr.dist.vp}, "
+                f"{tr.comm_layer}): first logits max abs err {err:.3e} against the "
+                f"single-device ELL route's; epoch-0 loss {losses[0]:.6f} vs {ref_loss:.6f} "
+                f"(rel {rel:.2e}); losses {[round(x, 6) for x in losses]}; epochs (s) "
+                f"{[round(t, 4) for t in tr.epoch_times]}; host table build "
+                f"{tr.build_model_s:.1f} s (trainer {t_build:.1f} s); peak device memory "
+                f"{peak:.2f} GiB; launches {launches}; gauges {got} = the accounting; "
+                f"wire.bytes_fwd {live}")
+            if name == "ring_blocked":
+                os.environ.pop("NTS_OVERLAP_PROBE")
+                probe = {k: gauges.get(k) for k in (
+                    "ring.probe_overlap_s", "ring.probe_compute_s", "ring.probe_exchange_s",
+                    "ring.probe_simulated", "ring.overlap_efficiency")}
+                check("(c) overlap probe gauges",
+                      all(probe[k] is not None for k in list(probe)[:4])
+                      and probe["ring.probe_simulated"] is True, probe)
+                log(f"(c) NTS_OVERLAP_PROBE=1 on the ring_blocked run: {probe} (the twin's "
+                    "hop is a slice of x: this measures the schedule's overhead, not wire "
+                    "time)")
+            del tr
+            torch.cuda.empty_cache()
+
+        # ---- (b) the wire dtype ---------------------------------------------------
+        wire = {}
+        for wd in ("f32", "bf16"):
+            tr = trainer("GCNDIST", epochs=2, precision="float32", dist_path="ring_blocked",
+                         wire_dtype=wd)
+            first = tr.eval_logits()
+            tr.run()
+            torch.cuda.synchronize()
+            wire[wd] = (first, tr.metrics._gauges["wire.bytes_per_epoch_fwd"],
+                        list(tr.epoch_times), list(tr.loss_history))
+            del tr
+        f32, bf16 = wire["f32"][0], wire["bf16"][0]
+        gap, bound = float((bf16 - f32).abs().max()), 0.02 * float(f32.abs().max())
+        check("(b) bf16 wire logits", gap <= bound, f"max |d| {gap} > {bound}")
+        check("(b) bf16 wire is real", not torch.equal(bf16, f32), "bitwise the f32 wire")
+        check("(b) wire bytes halve", 2 * wire["bf16"][1] == wire["f32"][1],
+              f"{wire['bf16'][1]} vs {wire['f32'][1]}")
+        log(f"(b) GCNDIST ring_blocked f32, WIRE_DTYPE:bf16 vs f32: first logits max |d| "
+            f"{gap:.3e} (bound 0.02 max|f32| = {bound:.3e}); wire bytes per epoch "
+            f"{wire['bf16'][1]} vs {wire['f32'][1]}; epochs (s) bf16 "
+            f"{[round(t, 4) for t in wire['bf16'][2]]}, f32 "
+            f"{[round(t, 4) for t in wire['f32'][2]]}; losses bf16 "
+            f"{[round(x, 6) for x in wire['bf16'][3]]}, f32 "
+            f"{[round(x, 6) for x in wire['f32'][3]]}")
+        del wire, f32, bf16
+        torch.cuda.empty_cache()
+
+        # ---- (d) the smoke cfgs through the CLI -------------------------------------
+        for cfg_name in ("gcn_dist_ring_smoke.cfg", "gcn_dist_mesh_smoke.cfg"):
+            seen = {}
+            original = run.supervised_run
+
+            def spy(toolkit, *a, **k):
+                seen["tr"] = toolkit
+                return original(toolkit, *a, **k)
+
+            run.supervised_run = spy
+            zero_launches()
+            t0 = time.perf_counter()
+            try:
+                rc = run.main([os.path.join(REPO, "configs", cfg_name)])
+            finally:
+                run.supervised_run = original
+            wall = time.perf_counter() - t0
+            tr = seen.get("tr")
+            losses = tr.loss_history if tr is not None else []
+            check(f"(d) {cfg_name}", rc == 0 and losses and all(map(math.isfinite, losses)),
+                  f"rc {rc}, losses {losses}")
+            check(f"(d) {cfg_name} kernels", not any(kernel_launches().values()),
+                  kernel_launches())
+            log(f"(d) configs/{cfg_name} through the CLI on the card, NTS_DIST_SIMULATE=1: "
+                f"rc {rc}, losses {[round(x, 4) for x in losses]}, device "
+                f"{tr.device if tr is not None else None}, CLI wall {wall:.1f} s")
+            del tr, seen
+    finally:
+        for k, val in saved_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+    log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1, help="fraction of Reddit's V and E")
@@ -3038,6 +3272,7 @@ def main(argv=None) -> int:
     phase_obs(dev, g, args.seed, results)
     phase_serving(dev, g, args.seed, results)
     rows += phase_dist(dev, g, args.seed, results)
+    phase_ring(dev, g, args.seed, results)
     if results["failures"]:
         for msg in results["failures"]:
             log(f"FAILED {msg}")

@@ -347,6 +347,7 @@ class ToolkitBase:
             "epoch", dur_s=seconds, end=end, cat="epoch", parent=self._run_span,
             epoch=int(epoch),
         )
+        self._last_epoch_span = span
         if stages:
             t = end - seconds
             for name, dur in stages.items():

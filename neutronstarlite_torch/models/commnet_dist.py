@@ -17,7 +17,8 @@ from neutronstarlite_torch.utils.config import COMMNET_DIST_ALGORITHMS
 
 def commnet_layer_nn(i, n_layers, layer, agg, x_in, ctx: LayerCtx):
     agg, x_in = ctx.cast(agg), ctx.cast(x_in)
-    h = torch.relu(agg @ ctx.cast(layer["C"]) + x_in @ ctx.cast(layer["H"]))
+    h = torch.relu(ctx.contract(agg, ctx.cast(layer["C"]))
+                   + ctx.contract(x_in, ctx.cast(layer["H"])))
     return ctx.drop(h) if i < n_layers - 1 else h
 
 
@@ -26,6 +27,7 @@ class DistCommNetTrainer(DistGCNTrainer):
     """Vertex-sharded full-batch CommNet."""
 
     layer_nn = staticmethod(commnet_layer_nn)
+    mesh_pad_keys = ("C", "H")  # both matmuls contract the feature axis
 
     def init_params(self, generator: torch.Generator):
         return init_commnet_params(self.cfg.layer_sizes(), generator)

@@ -137,6 +137,7 @@ class BlockedEll:
         levels: str = "",
         device="cpu",
         src_num: int = 0,  # 0 = square; else rectangular (adj < src_num)
+        log_stats: bool = True,
     ) -> "BlockedEll":
         levels = resolve_levels(levels)
         n_src = _ell.source_rows(v_num, src_num)
@@ -199,12 +200,13 @@ class BlockedEll:
                 n_rows.append(counts)
                 pad_slots += n_tiles * n_l * K - int(d.sum())
                 real_slots += int(d.sum())
-            log.info(
-                "blocked ELL: %d tiles of %d, %d levels, padding waste %.2fx "
-                "(%d real / %d padded slots)",
-                n_tiles, vt, len(nbrs), (real_slots + pad_slots) / real_slots,
-                real_slots, pad_slots,
-            )
+            if log_stats:
+                log.info(
+                    "blocked ELL: %d tiles of %d, %d levels, padding waste %.2fx "
+                    "(%d real / %d padded slots)",
+                    n_tiles, vt, len(nbrs), (real_slots + pad_slots) / real_slots,
+                    real_slots, pad_slots,
+                )
         return BlockedEll(
             nbr=[torch.from_numpy(n).to(device) for n in nbrs],
             wgt=[torch.from_numpy(w).to(device) for w in wgts],

@@ -20,10 +20,12 @@ array and runs every shard's part in turn, in the order the ranks would.
   (``gather_simulated``) runs each shard's tables over the full x and
   concatenates the outputs.
 - **The ring** (``RingExchange``, ``COMM_LAYER:ring``): at ring step s
-  rank p holds the shard of partition (p + s) % P, adds block
-  (p, (p + s) % P) into an f32 accumulator (products in x's dtype, the
-  port's scatter policy), then sends its shard to rank p - 1 and receives
-  rank p + 1's: P - 1 send/recv rounds. The backward is the reverse ring:
+  rank p holds the shard of partition (p + s) % P, starts sending it to
+  rank p - 1 (and receiving rank p + 1's), adds block (p, (p + s) % P)
+  into an f32 accumulator while the hop flies (products in x's dtype, the
+  port's scatter policy), then waits: P - 1 send/recv rounds, the hop of
+  ``mesh.ProcessGroup.shift_start`` / ``shift_wait`` that the pipelined
+  ring (``dist_ring_blocked.py``) uses too. The backward is the reverse ring:
   rank q holds the gradient shard of (q - s) % P at step s and adds the
   transposed block ((q - s) % P, q). ``ring_aggregate_simulated`` is its
   twin, with the same per-rank order of additions.
@@ -58,8 +60,11 @@ class DistExchange(torch.autograd.Function):
 
 def dist_gather_dst_from_src(ex, x: torch.Tensor) -> torch.Tensor:
     """Differentiable exchange of this rank's (or, in the twin, every
-    rank's) rows: [vp or P*vp, f] -> the same shape."""
-    return DistExchange.apply(x, ex)
+    rank's) rows: [vp or P*vp, f] -> the same shape. An exchange with an
+    ``apply`` of its own (the split mirror, ``dist_edge_ops.py``) takes
+    its backward there."""
+    apply = getattr(ex, "apply", None)
+    return apply(x) if apply is not None else DistExchange.apply(x, ex)
 
 
 @dataclasses.dataclass
@@ -193,9 +198,11 @@ class RingExchange:
         acc = torch.zeros((vp, f), dtype=torch.float32, device=x.device)
         cur = x
         for s, (src, dst, w) in enumerate(steps[self.group.rank]):
+            # start the hop, add this step's block while it flies, then wait
+            hop = self.group.shift_start(cur, sign) if s != P - 1 else None
             _scatter_add(acc, src, dst, w, cur)
-            if s != P - 1:
-                cur = self.group.shift(cur, sign)
+            if hop is not None:
+                cur = self.group.shift_wait(hop)
         return acc.to(x.dtype)
 
 

@@ -19,12 +19,20 @@ A multi-process run is launched by ``torch.distributed.run``, which sets
 
 ``maybe_init_process_group`` (called by the CLI) joins that world; a
 caller may equally call ``torch.distributed.init_process_group`` itself.
+
+The 2D mesh (``MESH:Pv,Pf``, ``parallel/partitioner.py``) lays the world
+out as a ``(Pv, Pf)`` grid, rank = ``v * Pf + f`` (``Grid2D``): one vertex
+group per feature slab f (ranks ``{v' * Pf + f}``, where the ring runs)
+and one feature group per vertex shard v (ranks ``{v * Pf + f'}``, where
+the contraction's all-reduce runs). JAX keeps the feature axis within a
+host; here the ranks of one host are consecutive, so a feature group is
+consecutive ranks too.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -67,57 +75,109 @@ def maybe_init_process_group(device: Optional[str]) -> Optional[str]:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks; its gradient is the sum of the ranks' gradients
-    (each rank's loss reads its own copy of the result)."""
+    """Sum over the ranks of ``pg``; its gradient is the sum of the ranks'
+    gradients (each rank's loss reads its own copy of the result)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, pg):
+        ctx.pg = pg
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=pg)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.pg)
+        return g, None
+
+
+class Hop:
+    """One ring hop in flight: the buffer being received, the requests,
+    and the tensor being sent, kept alive until ``ProcessGroup.shift_wait``
+    (on NCCL the send runs on NCCL's stream after the caller moves on)."""
+
+    def __init__(self, out: torch.Tensor, reqs, sent: torch.Tensor):
+        self.out, self.reqs, self.sent = out, reqs, sent
 
 
 class ProcessGroup:
-    """The default process group seen by one partition: its rank, the world
-    size, and the collectives the distributed trainers use."""
+    """A process group seen by one of its ranks: ``rank`` is the index in
+    ``ranks`` (the global ranks of the group, in order), ``world`` their
+    count. ``pg`` is the torch group (None: the default world)."""
 
-    def __init__(self):
-        self.rank = dist.get_rank()
-        self.world = dist.get_world_size()
+    def __init__(self, pg=None, ranks: Optional[List[int]] = None):
+        self.pg = pg
+        self.ranks = list(ranks) if ranks is not None else list(range(dist.get_world_size()))
+        self.rank = self.ranks.index(dist.get_rank())
+        self.world = len(self.ranks)
         self.backend = dist.get_backend()
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """[vp, ...] per rank -> [P*vp, ...], rank-major."""
         parts = [torch.empty_like(x) for _ in range(self.world)]
-        dist.all_gather(parts, x.contiguous())
+        dist.all_gather(parts, x.contiguous(), group=self.pg)
         return torch.cat(parts)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """Differentiable sum over the ranks."""
-        return _AllReduceSum.apply(t)
+        return _AllReduceSum.apply(t, self.pg)
 
     def sum_(self, t: torch.Tensor) -> torch.Tensor:
         """In-place sum over the ranks (no gradient)."""
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=self.pg)
         return t
 
-    def shift(self, t: torch.Tensor, step: int) -> torch.Tensor:
-        """One ring hop: send ``t`` to rank ``rank - step`` and return what
-        rank ``rank + step`` sent (step = +1 or -1)."""
-        out = torch.empty_like(t)
-        ops = [
-            dist.P2POp(dist.isend, t.contiguous(), (self.rank - step) % self.world),
-            dist.P2POp(dist.irecv, out, (self.rank + step) % self.world),
-        ]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """[P*m, ...] per rank, chunk q for rank q -> [P*m, ...] whose chunk
+        q came from rank q."""
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=self.pg)
         return out
+
+    def shift_start(self, t: torch.Tensor, step: int) -> Hop:
+        """Start one ring hop: send ``t`` to rank ``rank - step`` and receive
+        what rank ``rank + step`` sends (step = +1 or -1). The caller may
+        launch work before ``shift_wait``."""
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        to = self.ranks[(self.rank - step) % self.world]
+        frm = self.ranks[(self.rank + step) % self.world]
+        ops = [dist.P2POp(dist.isend, t, to, group=self.pg),
+               dist.P2POp(dist.irecv, out, frm, group=self.pg)]
+        return Hop(out, dist.batch_isend_irecv(ops), t)
+
+    @staticmethod
+    def shift_wait(hop: Hop) -> torch.Tensor:
+        """Finish a hop and return what arrived. On NCCL the wait orders the
+        caller's stream after the transfer; it does not block the host."""
+        for req in hop.reqs:
+            req.wait()
+        hop.sent = None
+        return hop.out
+
+
+class Grid2D:
+    """The ``(pv, pf)`` grid of the world for the 2D mesh: this rank's
+    coordinates ``(v, f)``, the world, its vertex group (the ring) and its
+    feature group (the contraction's all-reduce). Every rank creates every
+    group, in the same order (all vertex groups, then all feature groups),
+    as ``torch.distributed.new_group`` requires."""
+
+    def __init__(self, pv: int, pf: int):
+        self.pv, self.pf = pv, pf
+        self.world = ProcessGroup()
+        if self.world.world != pv * pf:
+            raise ValueError(
+                f"MESH:{pv},{pf} needs {pv * pf} ranks but this run has {self.world.world}"
+            )
+        self.v, self.f = divmod(self.world.rank, pf)
+        vertex = [[v * pf + f for v in range(pv)] for f in range(pf)]
+        feature = [[v * pf + f for f in range(pf)] for v in range(pv)]
+        vgroups = [dist.new_group(r) for r in vertex]
+        fgroups = [dist.new_group(r) for r in feature]
+        self.vertex = ProcessGroup(vgroups[self.f], vertex[self.f])
+        self.feature = ProcessGroup(fgroups[self.v], feature[self.v])
 
 
 def resolve_group(partitions: int, simulate: bool) -> Tuple[Optional[ProcessGroup], int]:
@@ -138,3 +198,22 @@ def resolve_group(partitions: int, simulate: bool) -> Tuple[Optional[ProcessGrou
     if P == 1:
         return None, 1  # one partition: the twin is the collective-free path
     return ProcessGroup(), P
+
+
+def resolve_grid(pv: int, pf: int, simulate: bool) -> Optional[Grid2D]:
+    """The 2D grid of ``MESH:pv,pf``: None for the sim twin (and for a
+    one-rank mesh); else the joined world laid out as a grid, whose size
+    must be ``pv * pf``: a larger mesh is refused, never run as the twin."""
+    if simulate:
+        return None
+    world = world_size()
+    if pv * pf != world:
+        raise ValueError(
+            f"MESH:{pv},{pf} needs {pv * pf} ranks but this run has {world}: launch "
+            f"{pv * pf} processes under python -m torch.distributed.run, or set "
+            "NTS_DIST_SIMULATE=1 (or DIST_PATH:ring_blocked_sim) for the collective-free "
+            "twin in one process"
+        )
+    if world == 1:
+        return None
+    return Grid2D(pv, pf)

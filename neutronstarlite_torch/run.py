@@ -17,7 +17,10 @@ one card per rank)::
     python -m torch.distributed.run --nproc_per_node P \
         -m neutronstarlite_torch.run <cfg> --device cpu
 
-or all P in one process with ``NTS_DIST_SIMULATE=1`` (the sim twin).
+or all P in one process with ``NTS_DIST_SIMULATE=1`` (the sim twin). With
+``MESH:Pv,Pf`` the world is ``Pv * Pf`` ranks, which the trainer lays out
+as a grid of vertex and feature groups (``parallel/mesh.Grid2D``); a cfg
+with ``DIST_PATH:ring_blocked_sim`` runs the twin in every rank.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Run a distributed trainer as P ranks and hold it against its sim twin.
 
     python -m neutronstarlite_torch.tools.dist_parity --partitions 4 \\
-        [--device cpu] [--routes ell,bsp,ring] [--vertices V --edges E] \\
-        [--layers 602-128-41] [--precision bfloat16] [--epochs 3] [--drop 0] \
-        [--kernel-tile 512]
+        [--device cpu] [--routes ell,bsp,ring,blocked,ring_blocked,mirror,mesh2x2] \\
+        [--vertices V --edges E] [--layers 602-128-41] [--precision bfloat16] \\
+        [--epochs 3] [--drop 0] [--kernel-tile 512] [--exchange-check]
 
 Launched without ``RANK`` in the environment, it starts itself as P
 processes under ``torch.distributed.run`` (127.0.0.1, a free port; gloo on
@@ -11,9 +11,17 @@ the CPU, NCCL with one card per rank), each training ``GCNDIST`` on every
 route in turn on a seeded power-law graph (``graph/synthetic.py``); then it
 trains the collective-free twin (``NTS_DIST_SIMULATE=1``) in this process
 on the same graph, data and parameters, and compares every epoch's loss:
-within ``--atol`` (f32) or ``--rtol`` of the twin's. It prints one JSON
-line (each route's rank and twin curves, epoch times, accuracies, the
-largest gap, ``ok``) and exits 1 when a route disagrees.
+within ``--atol`` (f32) or ``--rtol`` of the twin's. The routes: ``ell``,
+``bsp``, ``blocked`` (the all_gather family), ``ring``, ``ring_blocked``
+(``DIST_PATH:ring_blocked``), ``mirror`` (``COMM_LAYER:mirror``) and
+``mesh2x2`` (``MESH:2,2`` on the ring, P = 4); ``route:ALGORITHM`` (e.g.
+``mesh2x2:GINDIST``) trains another distributed family on the route.
+``--exchange-check`` also
+runs the pipelined ring's exchange alone on the ranks, forward and
+backward, with the f32 and the bf16 wire, and reports whether every
+rank's output is bitwise the twin's. It prints one JSON line (each
+route's rank and twin curves, epoch times, accuracies, the largest gap,
+``ok``) and exits 1 when a route disagrees.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ def _args(argv=None):
     ap.add_argument("--kernel-tile", type=int, default=512,
                     help="the blocked and bsp routes' source tile (KERNEL_TILE)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--exchange-check", action="store_true",
+                    help="also hold the ranks' pipelined ring exchange against the twin")
     ap.add_argument("--atol", type=float, default=1e-5)
     ap.add_argument("--rtol", type=float, default=0.0)
     ap.add_argument("--timeout", type=float, default=600.0)
@@ -49,17 +59,36 @@ def _args(argv=None):
     return ap.parse_args(argv)
 
 
+ROUTES = {
+    # route -> the cfg fields that select it
+    "ell": dict(optim_kernel=True),
+    "bsp": dict(optim_kernel=True, pallas_kernel=True),
+    "blocked": dict(optim_kernel=True),
+    "ring": dict(comm_layer="ring"),
+    "ring_blocked": dict(dist_path="ring_blocked"),
+    "mirror": dict(comm_layer="mirror"),
+    "mesh2x2": dict(dist_path="ring_blocked", mesh="2,2"),
+}
+
+
+def _graph(a):
+    from neutronstarlite_torch.graph.synthetic import synthetic_power_law_graph
+
+    return synthetic_power_law_graph(a.vertices, a.edges, seed=a.seed)
+
+
 def _train(a, route: str, device):
-    """GCNDIST on ``route``; returns its curve, epoch times and accuracies."""
+    """``route`` (``name[:ALGORITHM]``, GCNDIST by default); returns its
+    curve, epoch times and accuracies."""
     import torch
 
     from neutronstarlite_torch.graph.dataset import GNNDatum
-    from neutronstarlite_torch.graph.synthetic import synthetic_power_law_graph
-    from neutronstarlite_torch.models.gcn_dist import DistGCNTrainer
+    from neutronstarlite_torch.models import get_algorithm
     from neutronstarlite_torch.utils.config import InputInfo
 
+    route, _, algorithm = route.partition(":")
     v = a.vertices
-    src, dst = synthetic_power_law_graph(v, a.edges, seed=a.seed)
+    src, dst = _graph(a)
     sizes = [int(t) for t in a.layers.split("-")]
     rng = np.random.default_rng(a.seed)
     datum = GNNDatum(
@@ -68,22 +97,46 @@ def _train(a, route: str, device):
         mask=(np.arange(v) % 3).astype(np.int32),
     )
     cfg = InputInfo(
-        algorithm="GCNDIST", vertices=v, layer_string=a.layers, epochs=a.epochs,
+        algorithm=algorithm or "GCNDIST", vertices=v, layer_string=a.layers, epochs=a.epochs,
         drop_rate=a.drop, precision=a.precision, learn_rate=0.01, weight_decay=1e-4,
         decay_rate=0.97, decay_epoch=max(a.epochs // 2, 1), partitions=a.partitions,
-        optim_kernel=route != "ring", pallas_kernel=route == "bsp",
-        kernel_tile=a.kernel_tile if route in ("bsp", "blocked") else 0,
-        comm_layer="ring" if route == "ring" else "auto",
+        kernel_tile=a.kernel_tile if route in ("bsp", "blocked") else 0, **ROUTES[route],
     )
-    tr = DistGCNTrainer.from_arrays(cfg, src, dst, datum, seed=a.seed, device=device)
-    tables = tr.compute_graph.tables
-    kind = type(tables if route == "ring" else next(iter(tables.fwd.values()))).__name__
+    tr = get_algorithm(cfg.algorithm).from_arrays(cfg, src, dst, datum, seed=a.seed,
+                                                  device=device)
+    ex = tr.compute_graph
+    kind = type(ex).__name__
+    if route in ("ell", "bsp", "blocked"):
+        kind = type(next(iter(ex.tables.fwd.values()))).__name__
     res = tr.run()
     if tr.device.type == "cuda":
         torch.cuda.synchronize(tr.device)
     return {"losses": [float(x) for x in tr.loss_history],
             "epoch_s": [float(t) for t in tr.epoch_times], "acc": res["acc"],
             "rows": int(tr.feature.shape[0]), "vp": tr.dist.vp, "tables": kind}
+
+
+def _exchange(a, group, device):
+    """The pipelined ring's exchange alone on a seeded x: {"fwd", "bwd",
+    "fwd_bf16"} as lists of this rank's rows (all rows in the twin)."""
+    import torch
+
+    from neutronstarlite_torch.graph.storage import build_graph
+    from neutronstarlite_torch.parallel.dist_graph import DistGraph
+    from neutronstarlite_torch.parallel.dist_ring_blocked import RingBlockedPair, ring_apply
+
+    src, dst = _graph(a)
+    d = DistGraph.build(build_graph(src, dst, a.vertices), a.partitions)
+    ranks = range(a.partitions) if group is None else [group.rank]
+    pair = RingBlockedPair.build(d, min(d.vp, 128), ranks, device=device)
+    rng = np.random.default_rng(a.seed + 1)
+    x = torch.from_numpy(rng.standard_normal((a.partitions * d.vp, 13), dtype=np.float32))
+    if group is not None:
+        x = x[group.rank * d.vp:(group.rank + 1) * d.vp]
+    x = x.to(device)
+    out = {"fwd": ring_apply(pair.fwd, x, group), "bwd": ring_apply(pair.bwd, x, group),
+           "fwd_bf16": ring_apply(pair.fwd, x, group, torch.bfloat16)}
+    return {k: v.cpu().numpy().tolist() for k, v in out.items()}
 
 
 def _rank_main(a) -> int:
@@ -96,6 +149,8 @@ def _rank_main(a) -> int:
     device = mesh.maybe_init_process_group("cpu" if a.device == "cpu" else None)
     try:
         curves = {route: _train(a, route, device) for route in a.routes.split(",")}
+        if a.exchange_check:
+            curves["exchange"] = _exchange(a, mesh.ProcessGroup(), device)
         with open(f"{a.out}.{dist.get_rank()}", "w") as fh:
             json.dump(curves, fh)
     finally:
@@ -152,6 +207,18 @@ def main(argv=None) -> int:
             "ok": route_ok, "max_loss_gap": gap, "tol": tol,
             "rank0": ranks[0][route], "twin": twin,
         }
+    if a.exchange_check:
+        twin = _exchange(a, None, "cpu" if a.device == "cpu" else "cuda")
+        rows = len(twin["fwd"]) // a.partitions
+        check = {}
+        for k, full in twin.items():
+            want = np.asarray(full, dtype=np.float32)
+            got = np.concatenate([np.asarray(r["exchange"][k], dtype=np.float32)
+                                  for r in ranks])
+            check[k] = {"bitwise": bool(np.array_equal(got, want)),
+                        "max_abs_diff": float(np.abs(got - want).max()), "rows": rows}
+        report["exchange"] = check
+        ok = ok and all(c["bitwise"] for c in check.values())
     report["ok"] = ok
     print(json.dumps(report), flush=True)
     return 0 if ok else 1

@@ -23,13 +23,16 @@ reference compatibility flags that the single-device trainer has no use for
 ``--device``); ``PROC_OVERLAP``, ``PROC_LOCAL`` and ``PROC_REP`` select
 distributed features and are accepted only at their single-device values.
 The distributed trainers (``GCNDIST``, ``GCNEAGERDIST``, ``GINDIST``,
-``COMMNETDIST``, ``models/gcn_dist.py``) read ``PARTITIONS`` (any count; a
-single-device trainer refuses one above 1), ``COMM_LAYER`` (``ring``,
-``ell`` or ``auto``) and ``DIST_PATH`` (``all_gather`` or ``auto``);
-``DIST_PATH:ring_blocked(_sim)``, ``WIRE_DTYPE`` and ``MESH`` come with the
-pipelined ring, ``COMM_LAYER:mirror`` with the edge families, and both are
-refused naming their slice, as are the distributed GAT, GGCN and DepCache
-trainers. ``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY`` turn on
+``COMMNETDIST``, ``models/gcn_dist.py``) read ``PARTITIONS`` (any count),
+``COMM_LAYER`` (``ring``,
+``ell``, ``mirror`` or ``auto``), ``DIST_PATH`` (``all_gather``,
+``ring_blocked``, ``ring_blocked_sim`` or ``auto``), ``WIRE_DTYPE`` (``f32``
+or ``bf16``; ``NTS_WIRE_DTYPE`` wins) and ``MESH`` (``Pv,Pf`` or
+``PvxPf``; ``NTS_MESH`` wins, ``parallel/partitioner.py``); a single-device
+trainer refuses these keys at the parse (PARTITIONS above 1).
+``WIRE_DTYPE:auto`` and ``MESH:auto`` need the autotuner and are refused,
+as are the distributed GAT, GGCN and DepCache trainers, naming their
+slice. ``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY`` turn on
 checkpoints (``utils/checkpoint.py``); ``CKPT_BACKEND`` takes ``npz`` alone:
 ``orbax`` is a JAX library, and the sharded asynchronous saves it gives
 the reference come with the distributed slice. The serving keys
@@ -68,14 +71,11 @@ SUPPORTED_ALGORITHMS = (
     + COMMNET_ALGORITHMS + GGCN_ALGORITHMS + GCN_SAMPLE_ALGORITHMS + DIST_ALGORITHMS
 )
 # the slices that bring what this one refuses
-RING_SLICE = (
-    "the next distributed slice of the torch port (the pipelined ring: "
-    "ring_blocked, ring_schedule and the MESH partitioner)"
-)
 EDGE_SLICE = (
-    "the distributed edge-family slice of the torch port (the mirror "
+    "the distributed edge-family slice of the torch port (the uniform mirror "
     "exchange, GAT/GGCN dist)"
 )
+TUNE_SLICE = "the tune slice of the torch port (the autotuner, tune/)"
 PLANE_SLICE = (
     "the last distributed slice of the torch port (the DepCache trainer, "
     "skew, elastic replan, numerics and DEBUGINFO on the dist trainers)"
@@ -139,8 +139,9 @@ _SINGLE_DEVICE_FIELDS = {
     "PROC_LOCAL": ("process_local", lambda v: bool(int(v))),
     "PROC_REP": ("process_rep", lambda v: bool(int(v))),
 }
-COMM_LAYERS = ("", "auto", "ring", "ell")
-DIST_PATHS = ("", "auto", "all_gather")
+COMM_LAYERS = ("", "auto", "ring", "ell", "mirror")
+DIST_PATHS = ("", "auto", "all_gather", "ring_blocked", "ring_blocked_sim")
+WIRE_DTYPES = ("", "f32", "float32", "bf16", "bfloat16")
 
 # every field of the reference's InputInfo with its default, in its order:
 # the obs config fingerprint (obs/registry.config_fingerprint) is a digest
@@ -217,6 +218,8 @@ class InputInfo:
     partitions: int = 0
     comm_layer: str = "auto"
     dist_path: str = ""
+    mesh: str = ""  # MESH: "" (1D) or "Pv,Pf" (parallel/partitioner.py)
+    wire_dtype: str = ""  # WIRE_DTYPE: the pipelined ring's wire dtype
 
     @staticmethod
     def read_from_cfg_file(path: str) -> "InputInfo":
@@ -228,7 +231,7 @@ class InputInfo:
                     continue
                 key, _, value = line.partition(":")
                 cfg._apply(key.strip().upper(), value.strip())
-        check_partitions(cfg)
+        check_dist_keys(cfg)
         return cfg
 
     def _apply(self, key: str, value: str) -> None:
@@ -265,8 +268,11 @@ class InputInfo:
         elif key == "DIST_PATH":
             self.dist_path = value.strip().lower()
             check_dist_path(self.dist_path)
-        elif key in ("WIRE_DTYPE", "MESH"):
-            raise ValueError(f"{key}:{value} (the pipelined ring) comes with {RING_SLICE}")
+        elif key == "WIRE_DTYPE":
+            self.wire_dtype = value.strip().lower()
+            check_wire_dtype(self.wire_dtype)
+        elif key == "MESH":
+            self.mesh = check_mesh(value)
         elif key == "PRECISION":
             if value not in ("float32", "bfloat16"):
                 raise ValueError(
@@ -354,29 +360,61 @@ def check_algorithm(value: str) -> None:
         )
 
 
-def check_partitions(cfg: "InputInfo") -> None:
-    """Refuse PARTITIONS above 1 on a single-device trainer, which would
-    ignore it."""
-    if cfg.partitions > 1 and cfg.algorithm.upper() not in DIST_ALGORITHMS:
+def check_dist_keys(cfg: "InputInfo") -> None:
+    """Refuse the distributed trainers' keys (PARTITIONS above 1, COMM_LAYER,
+    DIST_PATH, MESH, WIRE_DTYPE) on a single-device trainer, which would
+    ignore them."""
+    if cfg.algorithm.upper() in DIST_ALGORITHMS:
+        return
+    given = [f"{key}:{value}" for key, value, unset in (
+        ("PARTITIONS", cfg.partitions, cfg.partitions <= 1),
+        ("COMM_LAYER", cfg.comm_layer, cfg.comm_layer in ("", "auto")),
+        ("DIST_PATH", cfg.dist_path, cfg.dist_path in ("", "auto")),
+        ("MESH", cfg.mesh, not cfg.mesh),
+        ("WIRE_DTYPE", cfg.wire_dtype, not cfg.wire_dtype)) if not unset]
+    if given:
         raise ValueError(
-            f"PARTITIONS:{cfg.partitions} is read only by the distributed trainers "
+            f"{', '.join(given)} is read only by the distributed trainers "
             f"({', '.join(DIST_ALGORITHMS)}); ALGORITHM {cfg.algorithm!r} runs on "
-            "one device: drop the key or set it to 1"
+            "one device: drop the key (or set PARTITIONS to 1)"
         )
 
 
 def check_comm_layer(value: str) -> None:
-    if value == "mirror":
-        raise ValueError(f"COMM_LAYER:mirror comes with {EDGE_SLICE}")
     if value not in COMM_LAYERS:
-        raise ValueError(f"COMM_LAYER must be ring, ell or auto, got {value!r}")
+        raise ValueError(f"COMM_LAYER must be ring, ell, mirror or auto, got {value!r}")
 
 
 def check_dist_path(value: str) -> None:
-    if value in ("ring_blocked", "ring_blocked_sim"):
-        raise ValueError(f"DIST_PATH:{value} comes with {RING_SLICE}")
     if value not in DIST_PATHS:
-        raise ValueError(f"DIST_PATH must be all_gather or auto, got {value!r}")
+        raise ValueError(
+            "DIST_PATH must be auto, all_gather, ring_blocked or ring_blocked_sim, "
+            f"got {value!r}"
+        )
+
+
+def check_wire_dtype(value: str) -> None:
+    if value == "auto":
+        raise ValueError(
+            f"WIRE_DTYPE:auto lets the autotuner choose the wire dtype, which comes "
+            f"with {TUNE_SLICE}: set f32 or bf16"
+        )
+    if value not in WIRE_DTYPES:
+        raise ValueError(
+            f"WIRE_DTYPE must be f32/float32 or bf16/bfloat16 (or empty), got {value!r}"
+        )
+
+
+def check_mesh(value: str) -> str:
+    """The canonical MESH value ('' or 'Pv,Pf'); ``auto`` is refused."""
+    from neutronstarlite_torch.parallel.partitioner import (
+        normalize_mesh_value,
+        refuse_mesh_auto,
+    )
+
+    v = normalize_mesh_value(value)
+    refuse_mesh_auto(v)
+    return v
 
 
 def _check_kernel(value: str) -> None:
@@ -442,7 +480,9 @@ def check_supported(cfg: InputInfo, resident: bool, supports_fused_edge: bool = 
     check_algorithm(cfg.algorithm)
     check_comm_layer(cfg.comm_layer)
     check_dist_path(cfg.dist_path)
-    check_partitions(cfg)
+    check_wire_dtype(cfg.wire_dtype)
+    check_mesh(cfg.mesh)
+    check_dist_keys(cfg)
     if cfg.precision not in ("float32", "bfloat16"):
         raise ValueError(
             f"PRECISION must be float32 or bfloat16, got {cfg.precision!r}"

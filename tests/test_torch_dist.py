@@ -91,7 +91,8 @@ def _env(monkeypatch):
     """The twin, and JAX's NumPy table fills."""
     monkeypatch.setenv("NTS_DIST_SIMULATE", "1")
     for name in ("NTS_PALLAS_RESIDENT", "NTS_DEBUGINFO", "NTS_NUMERICS", "NTS_ELASTIC",
-                 "NTS_WIRE_DTYPE", "NTS_MESH", "NTS_METRICS_DIR", "NTS_LEDGER_DIR"):
+                 "NTS_WIRE_DTYPE", "NTS_MESH", "NTS_METRICS_DIR", "NTS_LEDGER_DIR",
+                 "NTS_QUANT_PROBE", "NTS_OVERLAP_PROBE"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("NTS_NO_NATIVE", "1")
     monkeypatch.setattr(jax_native, "_lib", None)
@@ -520,9 +521,9 @@ def test_two_gloo_ranks_match_the_sim_twin():
 
 
 @pytest.mark.parametrize("line,match", [
-    ("DIST_PATH:ring_blocked", "pipelined ring"), ("DIST_PATH:ring_blocked_sim", "pipelined ring"),
-    ("WIRE_DTYPE:bf16", "pipelined ring"), ("MESH:2,2", "pipelined ring"),
-    ("COMM_LAYER:mirror", "edge-family slice"), ("ALGORITHM:GATDIST", "edge-family slice"),
+    ("MESH:auto", "tune slice"), ("WIRE_DTYPE:auto", "tune slice"),
+    ("WIRE_DTYPE:fp8", "WIRE_DTYPE must be"), ("MESH:2;2", "MESH must be"),
+    ("COMM_LAYER:mirrored", "COMM_LAYER must be"), ("ALGORITHM:GATDIST", "edge-family slice"),
     ("ALGORITHM:GGCNDIST", "edge-family slice"), ("ALGORITHM:GCNDISTCACHE", "DepCache"),
     ("ALGORITHM:GCNCPU", "read only by the distributed trainers"),
 ])
@@ -546,9 +547,11 @@ def test_cfg_parses_the_dist_keys(tmp_path):
     ({"NTS_DEBUGINFO": "1"}, {}, "distributed trainer"),
     ({"NTS_NUMERICS": "1"}, {}, "distributed trainer"),
     ({"NTS_ELASTIC": "1"}, {}, "distributed trainer"),
-    ({"NTS_WIRE_DTYPE": "bf16"}, {}, "pipelined ring"),
+    ({"NTS_MESH": "auto"}, {}, "tune slice"),
+    ({"NTS_WIRE_DTYPE": "auto"}, {}, "tune slice"),
     ({"NTS_DIST_SIMULATE": "0"}, {}, "NTS_DIST_SIMULATE=1"),
-    ({}, {"optim_kernel": False}, "mirror"),
+    ({"NTS_QUANT_PROBE": "1"}, {}, "distributed trainer"),
+    ({}, {"optim_kernel": False, "comm_layer": "mirror", "mesh": "2,2"}, "ring-only"),
     ({}, {"comm_layer": "ring"}, "all_gather family"),
     ({}, {"sublinear": True}, "SUBLINEAR"),
 ])

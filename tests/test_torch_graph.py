@@ -72,16 +72,16 @@ def test_cfg_parse_agrees_or_refuses(path):
         "DECAY_EPOCH", "DROP_RATE", "OPTIM_KERNEL", "PALLAS", "KERNEL_TILE",
         "PRECISION", "SUBLINEAR", "PROC_CUDA", "LOCK_FREE", "PROC_OVERLAP",
         "PROC_LOCAL", "PROC_REP", "PARTITIONS", "BATCH_SIZE", "FANOUT", "SAMPLE_PIPELINE",
-        "COMM_LAYER", "DIST_PATH",
+        "COMM_LAYER", "DIST_PATH", "MESH", "WIRE_DTYPE", "CHECKPOINT_DIR", "CHECKPOINT_EVERY",
     }
     sampled = ref.algorithm.upper() not in t_config.SUPPORTED_ALGORITHMS
-    ring = ref.dist_path in ("ring_blocked", "ring_blocked_sim")
-    if unsupported or sampled or ring:
+    if unsupported or sampled or "auto" in (ref.mesh, ref.wire_dtype):
         with pytest.raises(ValueError):
             t_config.InputInfo.read_from_cfg_file(path)
         return
     got = t_config.InputInfo.read_from_cfg_file(path)
-    for field in HONOURED + ("partitions", "comm_layer", "dist_path"):
+    for field in HONOURED + ("partitions", "comm_layer", "dist_path", "mesh", "wire_dtype",
+                             "checkpoint_dir", "checkpoint_every"):
         assert getattr(got, field) == getattr(ref, field), field
     assert got.layer_sizes() == ref.layer_sizes()
     assert got.fanouts() == ref.fanouts()
