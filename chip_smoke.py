@@ -174,7 +174,34 @@ Phases (each prints its lines; any failure exits non-zero):
    measures the schedule's overhead, not wire time); (d)
    configs/gcn_dist_ring_smoke.cfg and gcn_dist_mesh_smoke.cfg unchanged
    through run.main on the card with NTS_DIST_SIMULATE=1: exit 0, finite
-   losses.
+   losses;
+17. every trainer over the uniform mirror-slot exchange (plain PyTorch, no
+   hand-written kernel: each run starts with both kernels' counts at 0
+   and must leave them there) on the sim twin at P=8, 602-128-41 f32, drop
+   0; each run prints its steady epoch time, host table build, peak memory
+   and wire gauges, which must equal the accounting, as must the wire
+   counter: (a) TEST_GETDEP on phase 7's unit-weight graph: fwd_err and
+   bwd_err 0; (b) GATDIST on the mirror chain from phase 7's chain
+   parameters, MIRROR_EPOCHS: first logits (valid rows) and epoch-0 loss
+   against phase 7's single-device chain (GAT_LOGITS_TOL, GAT_LOSS_RTOL);
+   (c) GATDIST KERNEL:fused_edge on DIST_PATH:ring_blocked_sim,
+   FUSED_RING_EPOCHS, against (b) under phase 10's rule for fused against
+   chain, kernel.edge_hbm_bytes_per_epoch 0, and one training epoch under
+   torch.profiler (launches per epoch, idle share); (f) GATDIST
+   PRECISION:bfloat16 against (b) under JAX's bf16 bound (BF16_LOSS_TOL,
+   BF16_ACC_DROP) with half the wire bytes; (d) GGCNDIST's chain at 0.2 x
+   --scale from phase 9's parameters against phase 9's chain, the fused
+   ring at 0.2 x against that chain, then the fused ring alone at --scale;
+   (e) the chunked chain's per-rank body (GGCN, C = f = 128) at --scale
+   with the default NTS_EDGE_CHUNK against the whole body on the same
+   rank, forward and both gradients in f64 (in f32 a hub source's
+   gradient row, summed chunk by chunk or at once, rounds apart by more
+   than F32_TOL), for each of the 8 ranks, with the chunk count and both
+   bodies' f32 peaks; (g) GCNDISTCACHE: PROC_REP:0 against
+   GCNDIST COMM_LAYER:mirror f32 (first logits, epoch-0 loss), PROC_REP:1
+   REP_THRESHOLD:auto (its cached fraction, mc, mf and wire bytes) against
+   PROC_REP:0 (CACHE_REFRESH:1 is the fresh fetch), and CACHE_REFRESH:3
+   with finite losses.
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -782,6 +809,39 @@ def profile_step(step, top: int = 8) -> dict:
         "gemm_ms": gemm / 1e3, "kernels": len(kernels), "h2d": h2d, "own": own,
         "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top], "host": host,
     }
+
+
+def profile_launches(step) -> dict:
+    """One call of ``step`` under torch.profiler with device activity only,
+    read from the raw kineto events (parsing a million function events in
+    Python takes minutes): the host wall time around it, the kernels
+    launched, the device's busy time (the union of their intervals) and
+    idle share. Empty when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t_read = time.perf_counter()
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0)
+    if not spans:
+        return {}
+    busy, end = 0, float("-inf")
+    for a, b in spans:
+        busy += max(0, b - max(a, end))
+        end = max(end, b)
+    return {"wall_ms": wall_ms, "busy_ms": busy / 1e6, "kernels": len(spans),
+            "idle_share": max(0.0, 1.0 - busy / 1e6 / wall_ms),
+            "read_s": time.perf_counter() - t_read}
 
 
 def profile_text(p: dict) -> str:
@@ -3225,6 +3285,408 @@ def phase_ring(dev, g, seed: int, results) -> None:
     log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 17: every trainer over the uniform mirror-slot exchange (plain
+# PyTorch: each run must leave both kernels' launch counts at 0) on the sim
+# twin at P=8. MIRROR_EPOCHS per run; the fused ring runs fewer (it is
+# launch-bound: seconds per epoch)
+MIRROR_EPOCHS = 3
+FUSED_RING_EPOCHS = 2
+# (f): JAX's test_dist_gat_bf16_tracks_f32 bound on the last loss (rtol,
+# atol) and the train accuracy's allowed drop
+BF16_LOSS_TOL = (0.05, 0.02)
+BF16_ACC_DROP = 0.05
+
+
+def steady_s(times) -> float:
+    """The mean epoch time after the first (the first alone when there is
+    only one)."""
+    return float(sum(times[1:]) / len(times[1:])) if len(times) > 1 else float(times[0])
+
+
+def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> None:
+    """Phase 17 (see the module docstring): TEST_GETDEP, GATDIST on the
+    mirror chain, on the fused ring and in bf16, GGCNDIST's chain and fused
+    ring, the chunked chain's per-rank body, and the DepCache GCN."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch.graph.storage import build_graph
+    from neutronstarlite_torch.models import get_algorithm
+    from neutronstarlite_torch.models.gat_dist import edge_chunk
+    from neutronstarlite_torch.parallel import dist_edge_ops as deo
+    from neutronstarlite_torch.parallel.dist_fused_edge import fused_wire_cols
+    from neutronstarlite_torch.parallel.mirror import MirrorGraph, chunk_edge_list
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    log(f"phase 17 on {smi}")
+    t_phase = time.perf_counter()
+    failures = results["failures"]
+    rows_out = results.setdefault("phase17", [])
+
+    def check(name, ok, detail):
+        if not ok:
+            failures.append(f"phase 17 {name}: {detail}")
+            log(f"FAILED {failures[-1]}")
+
+    keys = ("NTS_DIST_SIMULATE", "NTS_EDGE_CHUNK", "NTS_WIRE_DTYPE", "NTS_PALLAS_RESIDENT")
+    saved_env = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    os.environ["NTS_DIST_SIMULATE"] = "1"
+    src, dst = results["edges"]
+    datum = results["datum"]
+    gat = results["gat"]
+
+    def cfg_of(algorithm, v, epochs=MIRROR_EPOCHS, precision="float32", **kw):
+        cfg = InputInfo(algorithm=algorithm, vertices=v, layer_string="602-128-41",
+                        epochs=epochs, drop_rate=0.0, precision=precision, learn_rate=0.01,
+                        weight_decay=1e-4, decay_rate=0.97, decay_epoch=100,
+                        partitions=DIST_P)
+        for k, val in kw.items():
+            setattr(cfg, k, val)
+        return cfg
+
+    def build(algorithm, edges, d, host_graph, params=None, **kw):
+        zero_launches()
+        t0 = time.perf_counter()
+        tr = get_algorithm(algorithm).from_arrays(
+            cfg_of(algorithm, d.feature.shape[0], **kw), *edges, d, seed=seed, device=dev,
+            host_graph=host_graph)
+        if params is not None:
+            tr.load_params(params)
+        return tr, time.perf_counter() - t0
+
+    def train(tr, name):
+        """Run with the kernels' counts at 0 and the peak reset; returns
+        the peak GiB."""
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        tr.run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = kernel_launches()
+        check(f"{name} kernels", not any(launches.values()), f"{launches} launched")
+        check(f"{name} finite", all(math.isfinite(x) for x in tr.loss_history),
+              tr.loss_history)
+        return peak
+
+    def wire_check(tr, name, want_gauges: dict, per_epoch: list):
+        got = {k: tr.metrics._gauges.get(k) for k in want_gauges}
+        check(f"{name} gauges", got == want_gauges, f"{got} vs the accounting's {want_gauges}")
+        live = tr.metrics._counters.get("wire.bytes_fwd")
+        check(f"{name} wire counter", live == sum(per_epoch), f"{live} vs {sum(per_epoch)}")
+        return got, live
+
+    def first_logits(tr, ref, name, graph):
+        valid = torch.from_numpy(np.nonzero(tr.dist.valid_mask())[0]).to(dev)
+        row = max(1.0, float(graph.in_degree.max()) / GAT_ROW)
+        try:
+            return check_close(f"phase 17 {name} first logits", tr.eval_logits()[valid], ref,
+                               (GAT_LOGITS_TOL[0] * row, GAT_LOGITS_TOL[1]))
+        except AssertionError as exc:
+            failures.append(str(exc))
+            log(f"FAILED {exc}")
+            return float("nan")
+
+    def loss_check(tr, ref, name, rtol=GAT_LOSS_RTOL):
+        rel = abs(tr.loss_history[0] - ref) / abs(ref)
+        check(f"{name} epoch-0 loss", rel <= rtol, f"{tr.loss_history[0]} vs {ref} "
+              f"(rel {rel:.2e})")
+        return rel
+
+    def record(name, tr, t_build, peak, extra=""):
+        ep = steady_s(tr.epoch_times)
+        rows_out.append({"run": name, "epoch_s": ep, "build_s": tr.build_model_s,
+                         "peak_gib": peak,
+                         "wire_bytes": tr.metrics._gauges.get("wire.bytes_per_epoch_fwd")})
+        log(f"({name}) losses {[round(x, 6) for x in tr.loss_history]}; epochs (s) "
+            f"{[round(t, 4) for t in tr.epoch_times]} (steady {ep:.4f}); host table build "
+            f"{tr.build_model_s:.1f} s (trainer {t_build:.1f} s); peak device memory "
+            f"{peak:.2f} GiB; ell_level and bsp_ell launches 0{extra}")
+
+    try:
+        P = DIST_P
+        # ---- (a) TEST_GETDEP -----------------------------------------------------------
+        tr, t_build = build("TEST_GETDEP", (src, dst), datum, gat["graph"])
+        zero_launches()
+        t0 = time.perf_counter()
+        out = tr.run()
+        torch.cuda.synchronize()
+        check("(a) TEST_GETDEP", out["pass"] and out["fwd_err"] == 0 and out["bwd_err"] == 0,
+              out)
+        check("(a) kernels", not any(kernel_launches().values()), kernel_launches())
+        log(f"(a) TEST_GETDEP P={P} mb={tr.mg.mb} vp={tr.mg.vp}: pass {out['pass']}, fwd_err "
+            f"{out['fwd_err']}, bwd_err {out['bwd_err']}; run {time.perf_counter() - t0:.2f} "
+            f"s, trainer {t_build:.1f} s; ell_level and bsp_ell launches 0")
+        del tr
+
+        # ---- (b) GATDIST f32 on the mirror chain ----------------------------------------
+        sizes = [602, 128, 41]
+        tr, t_build = build("GATDIST", (src, dst), datum, gat["graph"], gat["params"])
+        chain_first = tr.eval_logits()
+        err = first_logits(tr, gat["logits"], "(b) GATDIST chain", gat["graph"])
+        peak = train(tr, "(b) GATDIST chain")
+        rel = loss_check(tr, gat["loss"], "(b) GATDIST chain")
+        mg = tr.dist
+        rows = (P - 1) * mg.mb
+        want = {"wire.comm_layer": "mirror", "wire.rows_per_layer": rows,
+                "wire.bytes_per_epoch_fwd": rows * sum(f + 1 for f in sizes[1:]) * 4,
+                "kernel.path": "eager_edge"}
+        got, live = wire_check(tr, "(b)", want,
+                               [want["wire.bytes_per_epoch_fwd"]] * MIRROR_EPOCHS)
+        record("b", tr, t_build, peak,
+               f"; P={P} vp={mg.vp} mb={mg.mb} El={mg.el}; first logits max abs err "
+               f"{err:.3e} against phase 7's chain, epoch-0 loss rel {rel:.2e}; gauges {got} "
+               f"= the accounting; wire.bytes_fwd {live}")
+        chain_loss = tr.loss_history[0]
+        chain_acc = tr.test(tr.eval_logits().float().cpu().numpy(), 0)
+        chain_last = tr.loss_history[-1]
+        del tr
+        torch.cuda.empty_cache()
+
+        # ---- (c) GATDIST on the fused ring (ring_blocked_sim) ----------------------------
+        tr, t_build = build("GATDIST", (src, dst), datum, gat["graph"], gat["params"],
+                            epochs=FUSED_RING_EPOCHS, kernel="fused_edge",
+                            dist_path="ring_blocked_sim")
+        row = max(1.0, float(gat["graph"].in_degree.max()) / GAT_ROW)
+        try:
+            err = check_close("phase 17 (c) GATDIST fused first logits", tr.eval_logits(),
+                              chain_first, (GAT_LOGITS_TOL[0] * row, GAT_LOGITS_TOL[1]))
+        except AssertionError as exc:
+            failures.append(str(exc))
+            log(f"FAILED {exc}")
+            err = float("nan")
+        peak = train(tr, "(c) GATDIST fused")
+        rel = loss_check(tr, chain_loss, "(c) GATDIST fused")
+        vp = tr.dist.vp
+        want = {"wire.comm_layer": "ring_fused", "wire.rows_per_layer": (P - 1) * vp,
+                "wire.bytes_per_epoch_fwd": (P - 1) * vp * sum(
+                    fused_wire_cols(f, 1)["fwd"] for f in sizes[1:]) * 4,
+                "kernel.path": "fused_edge", "kernel.edge_hbm_bytes_per_epoch": 0}
+        got, live = wire_check(tr, "(c)", want,
+                               [want["wire.bytes_per_epoch_fwd"]] * FUSED_RING_EPOCHS)
+        zero_launches()
+        prof = profile_launches(tr.train_step)
+        check("(c) profile kernels", not any(kernel_launches().values()), kernel_launches())
+        record("c", tr, t_build, peak,
+               f"; vt {tr.metrics._gauges['kernel.fused_vt']}, "
+               f"{tr.metrics._gauges['kernel.fused_slots']} table slots; first logits max "
+               f"abs err {err:.3e} against (b)'s, epoch-0 loss rel {rel:.2e}; gauges {got} = "
+               f"the accounting; wire.bytes_fwd {live}; one training epoch under "
+               f"torch.profiler (device activity, raw events): "
+               + (f"host wall {prof['wall_ms']:.1f} ms, {prof['kernels']} kernels, device "
+                  f"busy {prof['busy_ms']:.1f} ms, idle share {prof['idle_share']:.3f} (trace "
+                  f"read in {prof['read_s']:.1f} s)" if prof else
+                  "device time not measured (the trace holds no device events)"))
+        rows_out[-1].update(launches=prof.get("kernels"), idle=prof.get("idle_share"))
+        del tr
+        torch.cuda.empty_cache()
+
+        # ---- (f) GATDIST PRECISION:bfloat16 against (b) ----------------------------------
+        tr, t_build = build("GATDIST", (src, dst), datum, gat["graph"], gat["params"],
+                            precision="bfloat16")
+        peak = train(tr, "(f) GATDIST bf16")
+        acc16 = tr.test(tr.eval_logits().float().cpu().numpy(), 0)
+        last16 = tr.loss_history[-1]
+        check("(f) bf16 loss", abs(last16 - chain_last) <= BF16_LOSS_TOL[1]
+              + BF16_LOSS_TOL[0] * abs(chain_last), f"{last16} vs f32 {chain_last}")
+        check("(f) bf16 train accuracy", acc16 >= chain_acc - BF16_ACC_DROP,
+              f"{acc16} vs f32 {chain_acc}")
+        got = tr.metrics._gauges["wire.bytes_per_epoch_fwd"]
+        check("(f) bf16 wire", 2 * got == (P - 1) * mg.mb * sum(f + 1 for f in sizes[1:]) * 4,
+              got)
+        record("f", tr, t_build, peak,
+               f"; last loss {last16:.6f} vs f32 {chain_last:.6f} (bound {BF16_LOSS_TOL[0]} "
+               f"rel + {BF16_LOSS_TOL[1]}), train acc {acc16:.4f} vs f32 {chain_acc:.4f}; wire "
+               f"bytes per epoch {got} (half the f32 chain's)")
+        del tr, chain_first
+        torch.cuda.empty_cache()
+
+        # ---- (d) GGCNDIST: the chain at 0.2 x scale, the fused ring -----------------------
+        gg = ggcn_chain
+        ge = gg["edges"]
+        tr, t_build = build("GGCNDIST", ge, gg["datum"], gg["graph"], gg["params"],
+                            epochs=2)
+        g_first = tr.eval_logits()
+        err = first_logits(tr, gg["logits"], "(d) GGCNDIST chain", gg["graph"])
+        peak = train(tr, "(d) GGCNDIST chain")
+        rel = loss_check(tr, gg["loss"], "(d) GGCNDIST chain")
+        m2 = tr.dist
+        rows = (P - 1) * m2.mb
+        want = {"wire.comm_layer": "mirror", "wire.rows_per_layer": rows,
+                "wire.bytes_per_epoch_fwd": rows * sum(2 * f for f in sizes[1:]) * 4}
+        got, live = wire_check(tr, "(d) chain", want, [want["wire.bytes_per_epoch_fwd"]] * 2)
+        record("d chain", tr, t_build, peak,
+               f"; V={m2.v_num} E={m2.e_num} vp={m2.vp} mb={m2.mb} El={m2.el}; first logits "
+               f"max abs err {err:.3e} against phase 9's chain, epoch-0 loss rel {rel:.2e}; "
+               f"gauges {got} = the accounting")
+        g_loss = tr.loss_history[0]
+        del tr
+        torch.cuda.empty_cache()
+        tr, t_build = build("GGCNDIST", ge, gg["datum"], gg["graph"], gg["params"],
+                            epochs=1, kernel="fused_edge", dist_path="ring_blocked_sim")
+        row = max(1.0, float(gg["graph"].in_degree.max()) / GAT_ROW)
+        try:
+            err = check_close("phase 17 (d) GGCNDIST fused first logits", tr.eval_logits(),
+                              g_first, (GAT_LOGITS_TOL[0] * row, GAT_LOGITS_TOL[1]))
+        except AssertionError as exc:
+            failures.append(str(exc))
+            log(f"FAILED {exc}")
+            err = float("nan")
+        peak = train(tr, "(d) GGCNDIST fused, 0.2 x scale")
+        rel = loss_check(tr, g_loss, "(d) GGCNDIST fused, 0.2 x scale")
+        record("d fused 0.2", tr, t_build, peak,
+               f"; first logits max abs err {err:.3e} against the chain's, epoch-0 loss rel "
+               f"{rel:.2e}")
+        del tr, g_first
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gsrc, gdst, gdatum = ggcn_graph(scale, seed)
+        g2 = build_graph(gsrc, gdst, gdatum.feature.shape[0], weight="ones")
+        t_graph = time.perf_counter() - t0
+        tr, t_build = build("GGCNDIST", (gsrc, gdst), gdatum, g2, epochs=FUSED_RING_EPOCHS,
+                            kernel="fused_edge", dist_path="ring_blocked_sim")
+        peak = train(tr, "(d) GGCNDIST fused at --scale")
+        logits = tr.eval_logits()
+        check("(d) fused at --scale logits", tuple(logits.shape) == (P * tr.dist.vp, 41)
+              and bool(torch.isfinite(logits).all()), tuple(logits.shape))
+        vp = tr.dist.vp
+        want = {"wire.rows_per_layer": (P - 1) * vp,
+                "wire.bytes_per_epoch_fwd": (P - 1) * vp * sum(
+                    fused_wire_cols(f, f)["fwd"] for f in sizes[1:]) * 4,
+                "kernel.edge_hbm_bytes_per_epoch": 0}
+        got, live = wire_check(tr, "(d) fused at --scale", want,
+                               [want["wire.bytes_per_epoch_fwd"]] * FUSED_RING_EPOCHS)
+        record("d fused", tr, t_build, peak,
+               f"; V={g2.v_num} E={g2.e_num} (graph {t_graph:.1f} s); gauges {got} = the "
+               "accounting")
+        del tr, logits
+        torch.cuda.empty_cache()
+
+        # ---- (e) the chunked chain's per-rank body at --scale -----------------------------
+        # held in f64 (the bodies sum wide: f64 inputs sum in f64), where a
+        # hub source's gradient row, summed chunk by chunk or at once, agrees
+        # to rounding; each body's peak is measured in f32, as the ranks run
+        t0 = time.perf_counter()
+        mg2 = MirrorGraph.build(g2, P)
+        ec = edge_chunk()
+        ch = chunk_edge_list(mg2, ec)
+        ex = deo.UniformMirror(mg2, None, dev, edges=False)
+        t_tables = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(seed + 17)
+        f = 128
+        payload = torch.randn((P * mg2.vp, 2 * f), generator=gen, device=dev) * 0.1
+        mirrors = deo.dist_get_dep_nbr(ex, payload).view(P, P * mg2.mb, 2 * f)
+        hd_all = torch.randn((P * mg2.vp, f), generator=gen, device=dev) * 0.1
+        errs, peaks = [], {"chunked": 0.0, "whole": 0.0}
+
+        def body(how, p, m, hd):
+            if how == "chunked":
+                return deo.gated_chain_chunked_body(deo.ChunkTables.of_rank(ch, p, dev),
+                                                    mg2.vp, m, hd, f, 0.2)
+            return deo.gated_chain_body(deo.EdgeLists.of_rank(mg2, p, dev), m, hd, f, 0.2)
+
+        zero_launches()
+        t0 = time.perf_counter()
+        for p in range(P):
+            cot = torch.randn((mg2.vp, f), generator=gen, device=dev)
+            outs = {}
+            for how in ("chunked", "whole"):
+                for dtype in (torch.float32, torch.float64):
+                    m = mirrors[p].to(dtype).requires_grad_(True)
+                    hd = hd_all[p * mg2.vp:(p + 1) * mg2.vp].to(dtype).requires_grad_(True)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    y = body(how, p, m, hd)
+                    y.backward(cot.to(y.dtype))
+                    torch.cuda.synchronize()
+                    if dtype == torch.float32:
+                        peaks[how] = max(peaks[how],
+                                         (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+                    else:
+                        outs[how] = (y.detach(), m.grad, hd.grad)
+                    del y, m, hd
+            errs.append([check_close(f"phase 17 (e) rank {p} {what} (f64)", a, b, F32_TOL)
+                         for what, a, b in zip(("forward", "grad mirrors", "grad dst half"),
+                                               outs["chunked"], outs["whole"])])
+            del outs
+        check("(e) kernels", not any(kernel_launches().values()), kernel_launches())
+        log(f"(e) chunked chain body, GGCN C=f=128 at --scale {scale} (El={mg2.el}/rank), "
+            f"NTS_EDGE_CHUNK {ec}: {ch.n_chunks} chunk(s) of up to {ch.slot.shape[2]} edges "
+            f"(dp={ch.dp}) per rank; in f64, max abs err against the whole body over the "
+            f"8 ranks (forward, grad mirrors, grad dst half) "
+            f"{[f'{max(e[i] for e in errs):.3e}' for i in range(3)]} (F32_TOL); f32 peak "
+            f"memory above the inputs, worst rank: chunked {peaks['chunked']:.2f} GiB, whole "
+            f"{peaks['whole']:.2f} GiB; tables {t_tables:.1f} s, the 8 ranks' checks "
+            f"{time.perf_counter() - t0:.1f} s")
+        rows_out.append({"run": "e", "chunks": ch.n_chunks, "peak_chunked": peaks["chunked"],
+                         "peak_whole": peaks["whole"]})
+        del mirrors, payload, hd_all, ex, mg2, ch, g2
+        torch.cuda.empty_cache()
+
+        # ---- (g) the DepCache GCN --------------------------------------------------------
+        ref, t_build = build("GCNDIST", (src, dst), datum, g, epochs=1, comm_layer="mirror")
+        ref_first = ref.eval_logits()
+        train(ref, "(g) GCNDIST mirror f32")
+        ref_loss = ref.loss_history[0]
+        log(f"(g) reference GCNDIST COMM_LAYER:mirror f32: epoch-0 loss {ref_loss:.6f}")
+        del ref
+        runs = {}
+        for name, kw in (("rep0", {}),
+                         ("auto", dict(process_rep=True, rep_threshold=-1)),
+                         ("refresh3", dict(process_rep=True, rep_threshold=-1,
+                                           cache_refresh=3))):
+            tr, t_build = build("GCNDISTCACHE", (src, dst), datum, g, **kw)
+            first = tr.eval_logits()
+            peak = train(tr, f"(g) {name}")
+            cmg = tr.dist
+            rf, rp = (P - 1) * cmg.mb, (P - 1) * cmg.mf
+            want = {"wire.comm_layer": "mirror+depcache", "wire.rows_per_layer_full": rf,
+                    "wire.rows_per_layer_partial": rp}
+            l0 = rp if cmg.mc else rf
+            hist = name == "refresh3" and cmg.mc > 0
+            per_epoch = []
+            for e in range(MIRROR_EPOCHS):
+                refresh = hist and e % 3 == 0
+                deep = rp if hist else rf
+                per_epoch.append(4 * (l0 * 602 + deep * 128) + (4 * rf * 730 if refresh else 0))
+            got, live = wire_check(tr, f"(g) {name}", want, per_epoch)
+            runs[name] = (first, list(tr.loss_history))
+            record(f"g {name}", tr, t_build, peak,
+                   f"; threshold {tr.threshold}, cached fraction {cmg.cached_fraction:.4f}, "
+                   f"mc={cmg.mc} mf={cmg.mf} mb={cmg.mb}; gauges {got} = the accounting; wire "
+                   f"bytes per epoch {per_epoch} (counter {live})")
+            del tr
+            torch.cuda.empty_cache()
+        # f32 sums of the hub rows in other orders (the split mirror adds its
+        # remote and resident edges apart): the chains' tolerance
+        err = check_close("phase 17 (g) rep0 first logits vs GCNDIST mirror", runs["rep0"][0],
+                          ref_first, GAT_LOGITS_TOL)
+        rel = abs(runs["rep0"][1][0] - ref_loss) / abs(ref_loss)
+        check("(g) rep0 epoch-0 loss", rel <= GAT_LOSS_RTOL, f"rel {rel:.2e}")
+        err2 = check_close("phase 17 (g) auto first logits vs rep0", runs["auto"][0],
+                           runs["rep0"][0], GAT_LOGITS_TOL)
+        gap = max(abs(a - b) for a, b in zip(runs["auto"][1], runs["rep0"][1]))
+        check("(g) auto vs rep0 losses", gap <= GAT_LOSS_RTOL * abs(runs["rep0"][1][0]),
+              f"max gap {gap:.3e}")
+        log(f"(g) PROC_REP:0 vs GCNDIST mirror: first logits max abs err {err:.3e}, epoch-0 "
+            f"loss rel {rel:.2e}; PROC_REP:1 auto (CACHE_REFRESH:1) vs PROC_REP:0: first "
+            f"logits {err2:.3e}, losses max gap {gap:.3e}; CACHE_REFRESH:3 losses "
+            f"{[round(x, 6) for x in runs['refresh3'][1]]}")
+        del runs, ref_first
+    finally:
+        for k, val in saved_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+    log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1, help="fraction of Reddit's V and E")
@@ -3273,6 +3735,7 @@ def main(argv=None) -> int:
     phase_serving(dev, g, args.seed, results)
     rows += phase_dist(dev, g, args.seed, results)
     phase_ring(dev, g, args.seed, results)
+    phase_mirror(dev, g, args.seed, results, ggcn_chain, args.scale)
     if results["failures"]:
         for msg in results["failures"]:
             log(f"FAILED {msg}")

@@ -387,6 +387,7 @@ class FullBatchTrainer(ToolkitBase):
         start_epoch = self.ckpt_begin()
         loss = None
         if start_epoch < cfg.epochs:
+            self.current_epoch = start_epoch
             self.drop_gen.manual_seed(epoch_seed(self.seed + 1, start_epoch))
             self.count_program_cost(
                 f"{type(self).cost_label}/{type(self).__name__}",
@@ -398,6 +399,7 @@ class FullBatchTrainer(ToolkitBase):
                 if epoch == start_epoch + 1:
                     # the steady epochs, from the second one (NTS_PROFILE_DIR)
                     trace.enter_context(maybe_trace(type(self).__name__, self.device))
+                self.current_epoch = epoch  # read by steps that depend on it (DepCache)
                 self.drop_gen.manual_seed(epoch_seed(self.seed + 1, epoch))
                 t0 = get_time()
                 with self.tracer.annotate("epoch"):

@@ -150,9 +150,9 @@ def resolve_comm_layer(cfg, host_graph, P: int) -> str:
     return choice
 
 
-def check_dist_supported(cfg) -> None:
+def check_dist_supported(cfg, supports_fused_edge: bool = False) -> None:
     """The lifecycle funnel's refusals for the distributed trainers."""
-    check_supported(cfg, resident=False)
+    check_supported(cfg, resident=False, supports_fused_edge=supports_fused_edge)
     for env in ("NTS_DEBUGINFO", "NTS_NUMERICS", "NTS_ELASTIC", "NTS_QUANT_PROBE"):
         if os.environ.get(env, "0") == "1":
             raise ValueError(f"{env}=1 on a distributed trainer comes with {PLANE_SLICE}")
@@ -167,6 +167,46 @@ def check_dist_supported(cfg) -> None:
         )
     if cfg.sublinear:
         raise ValueError("SUBLINEAR:1 is not implemented on the distributed trainers")
+
+
+def check_mirror_knobs(cfg, what: str, ring: bool = False) -> None:
+    """The uniform mirror family's selectors. It runs one exchange, so the
+    dense family's selectors, which it would ignore, are refused: MESH, a
+    COMM_LAYER other than mirror, a DIST_PATH (but the ring family when
+    ``ring``: ``KERNEL:fused_edge`` runs on the ring) and KERNEL_TILE (but
+    the ring's source tile). ``OPTIM_KERNEL``/``PALLAS``, which the
+    reference's own GAT dist cfgs set and JAX ignores, and ``WIRE_DTYPE``
+    warn instead."""
+    if cfg.mesh:
+        raise ValueError(
+            f"MESH:{cfg.mesh} is not available for ALGORITHM {cfg.algorithm!r}: the 2D "
+            "(vertex x feature) mesh serves the fuse-op dist family (GCNDIST / GINDIST / "
+            "COMMNETDIST and their eager variants)")
+    if cfg.comm_layer not in ("", "auto", "mirror"):
+        raise ValueError(
+            f"COMM_LAYER:{cfg.comm_layer} is not available for ALGORITHM "
+            f"{cfg.algorithm!r}: {what} runs the uniform mirror exchange")
+    if ring:
+        if cfg.dist_path not in ("", "auto", "ring_blocked", "ring_blocked_sim"):
+            raise ValueError(
+                f"DIST_PATH:{cfg.dist_path} is not available with KERNEL:fused_edge: the "
+                "fused edge kernel runs the ring schedule (ring_blocked / ring_blocked_sim)")
+    elif cfg.dist_path not in ("", "auto"):
+        raise ValueError(
+            f"DIST_PATH:{cfg.dist_path} is not available for ALGORITHM {cfg.algorithm!r}: "
+            "DIST_PATH selects the dense-feature dist aggregation path and serves the "
+            "fuse-op dist family (GCNDIST / GINDIST / COMMNETDIST and their eager "
+            "variants)")
+    elif cfg.kernel_tile:
+        raise ValueError(
+            f"KERNEL_TILE sets the fused ring's source tile; {what} of ALGORITHM "
+            f"{cfg.algorithm!r} has none: drop it")
+    if cfg.optim_kernel or cfg.pallas_kernel:
+        log.warning("OPTIM_KERNEL/PALLAS select the all_gather family's tables; ALGORITHM "
+                    "%s (%s) ignores them, as JAX does", cfg.algorithm, what)
+    if cfg.wire_dtype or os.environ.get("NTS_WIRE_DTYPE"):
+        log.warning("WIRE_DTYPE/NTS_WIRE_DTYPE is ignored by %s: the payload ships the "
+                    "compute dtype (PRECISION:bfloat16 halves it)", what)
 
 
 @dataclasses.dataclass
@@ -320,8 +360,14 @@ class DistGCNTrainer(FullBatchTrainer):
             else:
                 self._build_gather(d, P, shards, stats["real_edges"])
         self._set_wire_gauges(layer_kind, P)
+        self._place_rows()
 
-        # this rank's rows of the padded vertex space (all of them in the twin)
+    def _place_rows(self) -> None:
+        """This rank's rows of the padded vertex space (all of them in the
+        twin): features, labels, masks, the valid rows and the training
+        rows' count over every rank; then the model. ``self.dist`` is the
+        layout (any ``PaddedVertexSpace``)."""
+        dev = self.device
         vp = self.dist.vp
         self._rows = (slice(None) if self.group is None
                       else slice(self.group.rank * vp, (self.group.rank + 1) * vp))
@@ -455,7 +501,7 @@ class DistGCNTrainer(FullBatchTrainer):
 
     # ---- the step --------------------------------------------------------------
     def _layer_ctx(self, train: bool) -> LayerCtx:
-        bf16 = self.cfg.precision == "bfloat16"
+        bf16 = self.cfg.precision == "bfloat16" and type(self).supports_precision
 
         def cast(a):
             return a.to(torch.bfloat16) if bf16 else a

@@ -128,6 +128,11 @@ class ProcessGroup:
         dist.all_reduce(t, group=self.pg)
         return t
 
+    def max_(self, t: torch.Tensor) -> torch.Tensor:
+        """In-place elementwise max over the ranks (no gradient)."""
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.pg)
+        return t
+
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """[P*m, ...] per rank, chunk q for rank q -> [P*m, ...] whose chunk
         q came from rank q."""

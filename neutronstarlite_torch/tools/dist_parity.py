@@ -3,7 +3,8 @@
     python -m neutronstarlite_torch.tools.dist_parity --partitions 4 \\
         [--device cpu] [--routes ell,bsp,ring,blocked,ring_blocked,mirror,mesh2x2] \\
         [--vertices V --edges E] [--layers 602-128-41] [--precision bfloat16] \\
-        [--epochs 3] [--drop 0] [--kernel-tile 512] [--exchange-check]
+        [--epochs 3] [--drop 0] [--kernel-tile 512] [--exchange-check] \\
+        [--edge-chunk N] [--rep-threshold D]
 
 Launched without ``RANK`` in the environment, it starts itself as P
 processes under ``torch.distributed.run`` (127.0.0.1, a free port; gloo on
@@ -15,7 +16,14 @@ within ``--atol`` (f32) or ``--rtol`` of the twin's. The routes: ``ell``,
 ``bsp``, ``blocked`` (the all_gather family), ``ring``, ``ring_blocked``
 (``DIST_PATH:ring_blocked``), ``mirror`` (``COMM_LAYER:mirror``) and
 ``mesh2x2`` (``MESH:2,2`` on the ring, P = 4); ``route:ALGORITHM`` (e.g.
-``mesh2x2:GINDIST``) trains another distributed family on the route.
+``mesh2x2:GINDIST``) trains another distributed family on the route. The
+uniform mirror family: ``mirror:GATDIST`` / ``mirror:GGCNDIST`` (the ranks
+run the chunked chain, ``--edge-chunk`` setting ``NTS_EDGE_CHUNK``; the
+twin the whole chain), ``fused_ring:GATDIST`` (``KERNEL:fused_edge`` on
+``DIST_PATH:ring_blocked``), ``depcache`` (``GCNDISTCACHE`` with
+``PROC_REP:1``, ``REP_THRESHOLD:--rep-threshold`` and ``CACHE_REFRESH:2``)
+and ``getdep`` (``TEST_GETDEP``: every rank must pass, and its mirror rows
+must be bitwise the twin's).
 ``--exchange-check`` also
 runs the pipelined ring's exchange alone on the ranks, forward and
 backward, with the f32 and the bf16 wire, and reports whether every
@@ -55,6 +63,10 @@ def _args(argv=None):
     ap.add_argument("--atol", type=float, default=1e-5)
     ap.add_argument("--rtol", type=float, default=0.0)
     ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--edge-chunk", type=int, default=0,
+                    help="NTS_EDGE_CHUNK for the chunked edge chain (0: its default)")
+    ap.add_argument("--rep-threshold", type=int, default=8,
+                    help="the depcache route's REP_THRESHOLD")
     ap.add_argument("--out", default="", help="rank curves' file prefix (internal)")
     return ap.parse_args(argv)
 
@@ -68,7 +80,11 @@ ROUTES = {
     "ring_blocked": dict(dist_path="ring_blocked"),
     "mirror": dict(comm_layer="mirror"),
     "mesh2x2": dict(dist_path="ring_blocked", mesh="2,2"),
+    "fused_ring": dict(kernel="fused_edge", dist_path="ring_blocked"),
+    "depcache": dict(process_rep=True, cache_refresh=2),
+    "getdep": {},
 }
+DEFAULT_ALGORITHM = {"depcache": "GCNDISTCACHE", "getdep": "TEST_GETDEP"}
 
 
 def _graph(a):
@@ -97,23 +113,34 @@ def _train(a, route: str, device):
         mask=(np.arange(v) % 3).astype(np.int32),
     )
     cfg = InputInfo(
-        algorithm=algorithm or "GCNDIST", vertices=v, layer_string=a.layers, epochs=a.epochs,
+        algorithm=algorithm or DEFAULT_ALGORITHM.get(route, "GCNDIST"), vertices=v,
+        layer_string=a.layers, epochs=a.epochs,
         drop_rate=a.drop, precision=a.precision, learn_rate=0.01, weight_decay=1e-4,
         decay_rate=0.97, decay_epoch=max(a.epochs // 2, 1), partitions=a.partitions,
         kernel_tile=a.kernel_tile if route in ("bsp", "blocked") else 0, **ROUTES[route],
     )
+    if route == "depcache":
+        cfg.rep_threshold = a.rep_threshold
     tr = get_algorithm(cfg.algorithm).from_arrays(cfg, src, dst, datum, seed=a.seed,
                                                   device=device)
+    if route == "getdep":
+        res = tr.run()
+        return {"losses": [], "pass": bool(res["pass"]), "fwd_err": res["fwd_err"],
+                "bwd_err": res["bwd_err"], "mirrors": tr.mirrors[:, 0].cpu().tolist(),
+                "rows": int(tr.mg.vp if tr.group is not None else tr.mg.padded_v),
+                "vp": tr.mg.vp, "tables": "UniformMirror"}
     ex = tr.compute_graph
     kind = type(ex).__name__
     if route in ("ell", "bsp", "blocked"):
         kind = type(next(iter(ex.tables.fwd.values()))).__name__
+    chunks = getattr(getattr(ex, "chunk_list", None), "n_chunks", None)
     res = tr.run()
     if tr.device.type == "cuda":
         torch.cuda.synchronize(tr.device)
     return {"losses": [float(x) for x in tr.loss_history],
             "epoch_s": [float(t) for t in tr.epoch_times], "acc": res["acc"],
-            "rows": int(tr.feature.shape[0]), "vp": tr.dist.vp, "tables": kind}
+            "rows": int(tr.feature.shape[0]), "vp": tr.dist.vp, "tables": kind,
+            "chunks": chunks}
 
 
 def _exchange(a, group, device):
@@ -146,6 +173,8 @@ def _rank_main(a) -> int:
     torch.set_num_threads(1)
     from neutronstarlite_torch.parallel import mesh
 
+    if a.edge_chunk > 0:
+        os.environ["NTS_EDGE_CHUNK"] = str(a.edge_chunk)
     device = mesh.maybe_init_process_group("cpu" if a.device == "cpu" else None)
     try:
         curves = {route: _train(a, route, device) for route in a.routes.split(",")}
@@ -196,6 +225,20 @@ def main(argv=None) -> int:
     report, ok = {"partitions": a.partitions, "device": a.device, "routes": {}}, True
     for route in a.routes.split(","):
         twin = _train(a, route, "cpu" if a.device == "cpu" else None)
+        if route.partition(":")[0] == "getdep":
+            want = np.asarray(twin["mirrors"], dtype=np.float32).reshape(a.partitions, -1)
+            bitwise = all(np.array_equal(np.asarray(r[route]["mirrors"], dtype=np.float32),
+                                         want[i]) for i, r in enumerate(ranks))
+            route_ok = twin["pass"] and bitwise and all(r[route]["pass"] for r in ranks)
+            ok = ok and route_ok
+            report["routes"][route] = {
+                "ok": route_ok, "exchange_bitwise": bitwise, "max_loss_gap": 0.0,
+                "rank0": {k: v for k, v in ranks[0][route].items() if k != "mirrors"},
+                "twin": {k: v for k, v in twin.items() if k != "mirrors"},
+                "fwd_err": max(r[route]["fwd_err"] for r in ranks),
+                "bwd_err": max(r[route]["bwd_err"] for r in ranks),
+            }
+            continue
         ref = np.asarray(twin["losses"])
         gap = max(float(np.abs(np.asarray(r[route]["losses"]) - ref).max()) for r in ranks)
         tol = a.atol + a.rtol * float(np.abs(ref).max())

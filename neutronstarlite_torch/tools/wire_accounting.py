@@ -1,9 +1,11 @@
 """Wire accounting of the distributed exchanges — the part of
 ``neutronstarlite_tpu/tools/wire_accounting.py`` the distributed trainers
 use: ``exchange_rows_per_device`` and ``peak_resident_rows`` (the formulas
-behind their ``wire.*`` gauges and counters) and ``predict_mesh`` (the 2D
-mesh's). The offline report and its policy checks come with a later
-slice.
+behind their ``wire.*`` gauges and counters: ``mirror`` prices the split
+mirror of the GCN family and the uniform mirror of GATDIST, GGCNDIST and
+the DepCache GCN, whose partial fetch is priced at its cold slots ``mf``;
+``ring`` the fused edge ring) and ``predict_mesh`` (the 2D mesh's). The
+offline report and its policy checks come with a later slice.
 """
 
 from __future__ import annotations

@@ -20,19 +20,21 @@ kernel (``PALLAS:1``), of the blocked ELL route (``OPTIM_KERNEL:1``
 without ``PALLAS``) and of the fused tables. ``PROC_CUDA`` and ``LOCK_FREE`` are
 reference compatibility flags that the single-device trainer has no use for
 (the JAX trainer ignores them too; the port's device comes from
-``--device``); ``PROC_OVERLAP``, ``PROC_LOCAL`` and ``PROC_REP`` select
-distributed features and are accepted only at their single-device values.
+``--device``); ``PROC_OVERLAP`` and ``PROC_LOCAL`` select distributed
+features and are accepted only at their single-device values.
 The distributed trainers (``GCNDIST``, ``GCNEAGERDIST``, ``GINDIST``,
-``COMMNETDIST``, ``models/gcn_dist.py``) read ``PARTITIONS`` (any count),
-``COMM_LAYER`` (``ring``,
+``COMMNETDIST``, ``models/gcn_dist.py``; ``GATDIST``, ``GGCNDIST``,
+``TEST_GETDEP`` and the DepCache ``GCNDISTCACHE`` over the uniform mirror)
+read ``PARTITIONS`` (any count), ``COMM_LAYER`` (``ring``,
 ``ell``, ``mirror`` or ``auto``), ``DIST_PATH`` (``all_gather``,
 ``ring_blocked``, ``ring_blocked_sim`` or ``auto``), ``WIRE_DTYPE`` (``f32``
 or ``bf16``; ``NTS_WIRE_DTYPE`` wins) and ``MESH`` (``Pv,Pf`` or
 ``PvxPf``; ``NTS_MESH`` wins, ``parallel/partitioner.py``); a single-device
-trainer refuses these keys at the parse (PARTITIONS above 1).
-``WIRE_DTYPE:auto`` and ``MESH:auto`` need the autotuner and are refused,
-as are the distributed GAT, GGCN and DepCache trainers, naming their
-slice. ``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY`` turn on
+trainer refuses these keys at the parse (PARTITIONS above 1). The DepCache
+keys ``PROC_REP``, ``REP_THRESHOLD`` (an out-degree, or ``auto``: -1),
+``CACHE_BUDGET_MIB`` and ``CACHE_REFRESH`` are read by ``GCNDISTCACHE``
+alone; any other trainer refuses them away from their defaults.
+``WIRE_DTYPE:auto`` and ``MESH:auto`` need the autotuner and are refused. ``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY`` turn on
 checkpoints (``utils/checkpoint.py``); ``CKPT_BACKEND`` takes ``npz`` alone:
 ``orbax`` is a JAX library, and the sharded asynchronous saves it gives
 the reference come with the distributed slice. The serving keys
@@ -62,29 +64,27 @@ GCN_DIST_ALGORITHMS = ("GCNDIST", "GCNTPUDIST")
 GCN_EAGER_DIST_ALGORITHMS = ("GCNEAGERDIST", "GCNDISTEAGER", "GCNEAGERTPUDIST")
 GIN_DIST_ALGORITHMS = ("GINDIST", "GINTPUDIST", "GINCPUDIST")
 COMMNET_DIST_ALGORITHMS = ("COMMNETDIST", "COMMNETTPUDIST", "COMMNETGPUDIST")
+# over the uniform mirror exchange (models/gat_dist.py, ggcn_dist.py,
+# test_getdep.py, gcn_dist_cache.py)
+GAT_DIST_ALGORITHMS = ("GATCPUDIST", "GATGPUDIST", "GATDIST", "GATCPUDISTOPTM")
+GGCN_DIST_ALGORITHMS = ("GGCNDIST", "GGCNCPUDIST", "GGNNDIST")
+TEST_GETDEP_ALGORITHMS = ("TEST_GETDEP1", "TEST_GETDEP", "TESTGETDEP")
+GCN_CACHE_DIST_ALGORITHMS = ("GCNDISTMIRROR", "GCNDISTCACHE", "GCNDISTREP")
 DIST_ALGORITHMS = (
     GCN_DIST_ALGORITHMS + GCN_EAGER_DIST_ALGORITHMS + GIN_DIST_ALGORITHMS
-    + COMMNET_DIST_ALGORITHMS
+    + COMMNET_DIST_ALGORITHMS + GAT_DIST_ALGORITHMS + GGCN_DIST_ALGORITHMS
+    + TEST_GETDEP_ALGORITHMS + GCN_CACHE_DIST_ALGORITHMS
 )
 SUPPORTED_ALGORITHMS = (
     GCN_ALGORITHMS + GCN_EAGER_ALGORITHMS + GAT_ALGORITHMS + GIN_ALGORITHMS
     + COMMNET_ALGORITHMS + GGCN_ALGORITHMS + GCN_SAMPLE_ALGORITHMS + DIST_ALGORITHMS
 )
 # the slices that bring what this one refuses
-EDGE_SLICE = (
-    "the distributed edge-family slice of the torch port (the uniform mirror "
-    "exchange, GAT/GGCN dist)"
-)
 TUNE_SLICE = "the tune slice of the torch port (the autotuner, tune/)"
 PLANE_SLICE = (
-    "the last distributed slice of the torch port (the DepCache trainer, "
-    "skew, elastic replan, numerics and DEBUGINFO on the dist trainers)"
+    "the last distributed slice of the torch port (skew, elastic replan, "
+    "numerics, DEBUGINFO and the quantisation probe on the dist trainers)"
 )
-UNPORTED_ALGORITHMS = {
-    **{a: EDGE_SLICE for a in ("GATCPUDIST", "GATGPUDIST", "GATDIST", "GATCPUDISTOPTM",
-                               "GGCNDIST", "GGCNCPUDIST", "GGNNDIST")},
-    **{a: PLANE_SLICE for a in ("GCNDISTMIRROR", "GCNDISTCACHE", "GCNDISTREP")},
-}
 SAMPLE_PIPELINE_MODES = ("sync", "pipelined", "device", "fused")
 
 _INT_KEYS = {
@@ -94,6 +94,8 @@ _INT_KEYS = {
     "KERNEL_TILE": "kernel_tile",
     "CHECKPOINT_EVERY": "checkpoint_every",
     "BATCH_SIZE": "batch_size",
+    "CACHE_BUDGET_MIB": "cache_budget_mib",
+    "CACHE_REFRESH": "cache_refresh",
     "SERVE_MAX_BATCH": "serve_max_batch",
     "SERVE_MAX_QUEUE": "serve_max_queue",
     "SERVE_CACHE_CAP": "serve_cache_cap",
@@ -132,12 +134,10 @@ _STR_KEYS = {
 _SINGLE_DEVICE_KEYS = {
     "PROC_OVERLAP": ("0",),
     "PROC_LOCAL": ("0",),
-    "PROC_REP": ("0",),
 }
 _SINGLE_DEVICE_FIELDS = {
     "PROC_OVERLAP": ("process_overlap", lambda v: bool(int(v))),
     "PROC_LOCAL": ("process_local", lambda v: bool(int(v))),
-    "PROC_REP": ("process_rep", lambda v: bool(int(v))),
 }
 COMM_LAYERS = ("", "auto", "ring", "ell", "mirror")
 DIST_PATHS = ("", "auto", "all_gather", "ring_blocked", "ring_blocked_sim")
@@ -212,7 +212,13 @@ class InputInfo:
     # distributed switches at their single-device values
     process_overlap: bool = False
     process_local: bool = False
+    # the DepCache GCN (models/gcn_dist_cache.py): replicate / cache the hot
+    # mirror rows; REP_THRESHOLD is an out-degree (-1: auto, the smallest
+    # that fits CACHE_BUDGET_MIB); CACHE_REFRESH epochs between refreshes
     process_rep: bool = False
+    rep_threshold: int = 0
+    cache_budget_mib: int = 256
+    cache_refresh: int = 1
     # the distributed trainers: partition count (0: the world size),
     # exchange layer and path
     partitions: int = 0
@@ -273,6 +279,10 @@ class InputInfo:
             check_wire_dtype(self.wire_dtype)
         elif key == "MESH":
             self.mesh = check_mesh(value)
+        elif key == "PROC_REP":
+            self.process_rep = bool(int(value))
+        elif key == "REP_THRESHOLD":
+            self.rep_threshold = -1 if value.lower() == "auto" else int(value)
         elif key == "PRECISION":
             if value not in ("float32", "bfloat16"):
                 raise ValueError(
@@ -348,11 +358,8 @@ class InputInfo:
 
 
 def check_algorithm(value: str) -> None:
-    """Refuse an ALGORITHM the port does not implement, naming the slice
-    that brings it where one is planned."""
+    """Refuse an ALGORITHM the port does not implement."""
     name = value.upper()
-    if name in UNPORTED_ALGORITHMS:
-        raise ValueError(f"ALGORITHM {value!r} comes with {UNPORTED_ALGORITHMS[name]}")
     if name not in SUPPORTED_ALGORITHMS:
         raise ValueError(
             f"ALGORITHM {value!r} is not ported yet; the torch port "
@@ -362,9 +369,23 @@ def check_algorithm(value: str) -> None:
 
 def check_dist_keys(cfg: "InputInfo") -> None:
     """Refuse the distributed trainers' keys (PARTITIONS above 1, COMM_LAYER,
-    DIST_PATH, MESH, WIRE_DTYPE) on a single-device trainer, which would
-    ignore them."""
-    if cfg.algorithm.upper() in DIST_ALGORITHMS:
+    DIST_PATH, MESH, WIRE_DTYPE) on a single-device trainer, and the
+    DepCache keys on any trainer but the DepCache GCN, which would ignore
+    them."""
+    name = cfg.algorithm.upper()
+    if name not in GCN_CACHE_DIST_ALGORITHMS:
+        given = [f"{key}:{value}" for key, value, unset in (
+            ("PROC_REP", int(cfg.process_rep), not cfg.process_rep),
+            ("REP_THRESHOLD", cfg.rep_threshold, cfg.rep_threshold == 0),
+            ("CACHE_BUDGET_MIB", cfg.cache_budget_mib, cfg.cache_budget_mib == 256),
+            ("CACHE_REFRESH", cfg.cache_refresh, cfg.cache_refresh == 1)) if not unset]
+        if given:
+            raise ValueError(
+                f"{', '.join(given)} is read only by the DepCache GCN "
+                f"({', '.join(GCN_CACHE_DIST_ALGORITHMS)}); ALGORITHM {cfg.algorithm!r} "
+                "would ignore it: drop the key"
+            )
+    if name in DIST_ALGORITHMS:
         return
     given = [f"{key}:{value}" for key, value, unset in (
         ("PARTITIONS", cfg.partitions, cfg.partitions <= 1),

@@ -6,6 +6,8 @@ trainer.params)``): a list of per-layer dicts whose names are those of
 every family (GCN ``W`` + ``bn``; GAT ``W``, ``a``; GIN ``W1``, ``W2``,
 ``bn``; CommNet ``C``, ``H``; GGCN ``W``, ``Ws``, ``Wd``), bn being
 ``{"gamma", "beta"}``; the sampled GCN trainer's is a list of ``{"W"}``.
+The distributed trainers keep their family's names (GATDIST GAT's,
+GGCNDIST GGCN's, the DepCache GCN GCN's).
 It returns the port's parameters, converted by name with no transpose: the
 port computes ``h @ W`` in the JAX layout too. Given a trainer, it also
 writes them into it (``ToolkitBase.load_params``). The parity tests start both packages

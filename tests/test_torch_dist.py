@@ -523,8 +523,7 @@ def test_two_gloo_ranks_match_the_sim_twin():
 @pytest.mark.parametrize("line,match", [
     ("MESH:auto", "tune slice"), ("WIRE_DTYPE:auto", "tune slice"),
     ("WIRE_DTYPE:fp8", "WIRE_DTYPE must be"), ("MESH:2;2", "MESH must be"),
-    ("COMM_LAYER:mirrored", "COMM_LAYER must be"), ("ALGORITHM:GATDIST", "edge-family slice"),
-    ("ALGORITHM:GGCNDIST", "edge-family slice"), ("ALGORITHM:GCNDISTCACHE", "DepCache"),
+    ("COMM_LAYER:mirrored", "COMM_LAYER must be"), ("PROC_REP:1", "DepCache GCN"),
     ("ALGORITHM:GCNCPU", "read only by the distributed trainers"),
 ])
 def test_cfg_refuses_what_later_slices_bring(tmp_path, line, match):
@@ -532,6 +531,20 @@ def test_cfg_refuses_what_later_slices_bring(tmp_path, line, match):
     p.write_text("ALGORITHM:GCNDIST\nVERTICES:10\nLAYERS:4-2\nPARTITIONS:4\n" + line + "\n")
     with pytest.raises(ValueError, match=match):
         t_config.InputInfo.read_from_cfg_file(str(p))
+
+
+@pytest.mark.parametrize("line,cls_name", [
+    ("ALGORITHM:GATDIST", "DistGATTrainer"), ("ALGORITHM:GGCNDIST", "DistGGCNTrainer"),
+    ("ALGORITHM:GCNDISTCACHE", "DistGCNCacheTrainer"),
+])
+def test_cfg_parses_the_mirror_family(tmp_path, line, cls_name):
+    """The ALGORITHM lines earlier slices refused parse, with PARTITIONS,
+    and name their trainer."""
+    p = tmp_path / "x.cfg"
+    p.write_text("ALGORITHM:GCNDIST\nVERTICES:10\nLAYERS:4-2\nPARTITIONS:4\n" + line + "\n")
+    cfg = t_config.InputInfo.read_from_cfg_file(str(p))
+    assert cfg.algorithm == line.partition(":")[2] and cfg.partitions == 4
+    assert get_algorithm(cfg.algorithm).__name__ == cls_name
 
 
 def test_cfg_parses_the_dist_keys(tmp_path):

@@ -311,7 +311,10 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
 def test_algorithm_registry():
     assert get_algorithm("gcncpu") is GCNTrainer
     assert get_algorithm("GCN_CPU_EAGER") is GCNEagerTrainer
+    from neutronstarlite_torch.models.gat_dist import DistGATTrainer
+    from neutronstarlite_torch.models.test_getdep import GetDepNbrCheck
+
+    assert get_algorithm("test_getdep") is GetDepNbrCheck
+    assert get_algorithm("GATDIST") is DistGATTrainer
     with pytest.raises(ValueError, match="not ported"):
-        get_algorithm("TEST_GETDEP")
-    with pytest.raises(ValueError, match="edge-family slice"):
-        get_algorithm("GATDIST")
+        get_algorithm("NO_SUCH_ALGORITHM")

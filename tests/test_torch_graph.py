@@ -91,7 +91,7 @@ def test_cfg_parse_agrees_or_refuses(path):
 
 @pytest.mark.parametrize("line", [
     "PARTITIONS:4", "KERNEL:auto", "ELL_LEVELS:auto", "SAMPLE_PIPELINE:auto",
-    "CKPT_BACKEND:orbax", "ALGORITHM:GATDIST", "PROC_REP:1", "DIST_PATH:ring",
+    "CKPT_BACKEND:orbax", "PROC_REP:1", "DIST_PATH:ring",
     "DIST_PATH:ring_blocked", "COMM_LAYER:mirror", "WIRE_DTYPE:bf16", "MESH:2,2",
     "PRECISION:bf16", "NO_SUCH_KEY:1",
 ])
@@ -109,6 +109,19 @@ def test_cfg_refuses_unported_keys(tmp_path, line):
 ])
 def test_cfg_parses_the_sampled_keys(tmp_path, line, field, value):
     """The three lines earlier slices refused, now that sampling is ported."""
+    p = tmp_path / "x.cfg"
+    p.write_text("ALGORITHM:GCNCPU\nVERTICES:10\nLAYERS:4-2\n" + line + "\n")
+    got = t_config.InputInfo.read_from_cfg_file(str(p))
+    ref = jax_config.InputInfo.read_from_cfg_file(str(p))
+    assert getattr(got, field) == getattr(ref, field) == value
+
+
+@pytest.mark.parametrize("line,field,value", [
+    ("ALGORITHM:GATDIST", "algorithm", "GATDIST"),
+])
+def test_cfg_parses_the_mirror_family(tmp_path, line, field, value):
+    """The line earlier slices refused, now that the distributed edge
+    family is ported."""
     p = tmp_path / "x.cfg"
     p.write_text("ALGORITHM:GCNCPU\nVERTICES:10\nLAYERS:4-2\n" + line + "\n")
     got = t_config.InputInfo.read_from_cfg_file(str(p))

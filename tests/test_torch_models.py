@@ -270,8 +270,9 @@ FAMILY_CFGS = ("gat_cora.cfg", "gat_cora_optim.cfg", "gat_cora_fused_smoke.cfg",
 @pytest.mark.parametrize("name", FAMILY_CFGS)
 def test_family_cfgs_parse_as_jax_or_refuse(name):
     """The repo's cfgs of the four families: the port reads what JAX reads
-    (KERNEL:fused_edge included), or refuses (the dist GAT algorithm,
-    KERNEL:auto) with a ValueError."""
+    (KERNEL:fused_edge and, since the uniform mirror family is ported, the
+    dist GAT algorithm included), or refuses (KERNEL:auto) with a
+    ValueError."""
     path = os.path.join(REPO, "configs", name)
     ref = JInfo.read_from_cfg_file(path)
     if (ref.algorithm.upper() not in t_config.SUPPORTED_ALGORITHMS
@@ -285,9 +286,12 @@ def test_family_cfgs_parse_as_jax_or_refuse(name):
                   "optim_kernel", "pallas_kernel", "edge_file", "label_file",
                   "kernel", "kernel_tile", "ell_levels"):
         assert getattr(got, field) == getattr(ref, field), field
-    assert get_algorithm(got.algorithm) is FAMILIES[{
-        "GATCPU": "GAT", "GINGPU": "GIN", "COMMNETGPU": "COMMNET", "GGCNCPU": "GGCN",
-    }[got.algorithm.upper()]][1]
+    from neutronstarlite_torch.models.gat_dist import DistGATTrainer
+
+    assert get_algorithm(got.algorithm) is {
+        "GATCPU": GATTrainer, "GINGPU": GINTrainer, "COMMNETGPU": CommNetTrainer,
+        "GGCNCPU": GGCNTrainer, "GATGPUDIST": DistGATTrainer,
+    }[got.algorithm.upper()]
 
 
 def test_algorithm_names_register_every_family():
