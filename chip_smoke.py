@@ -201,7 +201,30 @@ Phases (each prints its lines; any failure exits non-zero):
    GCNDIST COMM_LAYER:mirror f32 (first logits, epoch-0 loss), PROC_REP:1
    REP_THRESHOLD:auto (its cached fraction, mc, mf and wire bytes) against
    PROC_REP:0 (CACHE_REFRESH:1 is the fresh fetch), and CACHE_REFRESH:3
-   with finite losses.
+   with finite losses;
+18. the autotuner (tune/) and the exchange benchmark
+   (parallel/comm_bench.py), each tuned run's stream schema-valid with one
+   tune_decision and a tune_trial per candidate, the pick no slower than
+   any trialled candidate, each candidate's prior bytes, trial ms and
+   source printed with the trial phase's peak memory: (a) comm_bench's
+   ring, ell, mirror and ring_blocked layers on the twin at phase 4's V,
+   mean degree 492, f 602, P=8 (wire rows, peak rows and MiB, ms per
+   forward+backward step), the ell leg launching ell_level (and never
+   bsp_ell) and its per-shard sums held against the plain version; (b)
+   GCNDIST bf16 602-128-41 at P=8 with DIST_PATH, WIRE_DTYPE and MESH auto
+   (1 x 2 x 4 = 8 candidates, 4 trialled) under NTS_TUNE=measure, with each
+   trial's program_cost, 3 epochs under the decision, then NTS_TUNE=cached
+   (the same decision, no trial), then the decided tuple pinned: first
+   logits and losses bitwise; (c) GAT f32 on phase 7's graph with KERNEL
+   and ELL_LEVELS auto (the chain, fused binned and fused pow2), one epoch
+   under the decision; (d) GATDIST f32 with KERNEL auto (the mirror chain
+   against the fused ring) at 0.2 x --scale on phase 9's graph, one
+   epoch; (e) GCNSAMPLE bf16 at phase 12's shape with SAMPLE_PIPELINE auto
+   (four modes), one epoch; (f) configs/gcn_dist_tune_smoke.cfg (with
+   NTS_DIST_SIMULATE=1) and configs/gcn_dist_mesh_smoke.cfg (with
+   NTS_MESH=auto) unchanged through run.main, measure then cached: the
+   same decision, no trial on the replay. (b) to (f) leave both kernels'
+   counts at 0.
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -230,6 +253,7 @@ before printing either.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import logging
 import math
@@ -774,41 +798,66 @@ def profile_step(step, top: int = 8) -> dict:
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # a kernel of its own opens the trace: without it the step's first
-        # kernel was at times missing from the trace
-        torch.ones(1, device="cuda").add_(1)
+        # kernels of its own open the trace, a spin kernel closes them and a
+        # pause follows: the trace at times misses the first kernels after
+        # it starts (one, then in the whole script up to nine of the step's
+        # first ones); what precedes the spin kernel's end is left out below
+        for _ in range(32):
+            torch.ones(1, device="cuda").add_(1)
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+        time.sleep(0.05)
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the device events as kineto recorded them: the function events
+    # (prof.events()) keep only those correlated with a host op, and in the
+    # whole script they dropped a few library kernels (118 vs 128 traced in
+    # a step that launches the same kernels)
+    kernels = [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    lead_end = max((b for name, _, b in kernels if "spin_kernel" in name), default=None)
+    if lead_end is not None:
+        kernels = [k for k in kernels if k[1] >= lead_end]
     if not kernels:
         return {}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    spans = sorted((a, b) for _, a, b in kernels)
     busy, end = 0.0, float("-inf")
     for a, b in spans:  # the union of the kernels' intervals, in us
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    for name, a, b in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
     total = sum(by_name.values())
     host = sorted(((a.key, a.self_cpu_time_total) for a in prof.key_averages()),
                   key=lambda kv: -kv[1])[:top]
-    h2d = sum(1 for e in kernels if "HtoD" in e.name)
+    h2d = sum(1 for name, _, _ in kernels if "HtoD" in name)
     # the hand-written kernels (launched through ctypes) the trace caught:
     # CUPTI at times misses some of them, so a kernel count that must hold
     # between two runs leaves them out (their wrappers count every launch)
-    own = sum(1 for e in kernels if any(k in e.name for k in OWN_KERNELS))
+    own = sum(1 for name, _, _ in kernels if any(k in name for k in OWN_KERNELS))
     ell = sum(t for n, t in by_name.items() if "ell_work_kernel" in n or "ell_split_reduce" in n)
     gemm = sum(t for n, t in by_name.items() if "gemm" in n.lower() or "cutlass" in n.lower())
+    counts = {}
+    for name, _, _ in kernels:
+        counts[name] = counts.get(name, 0) + 1
     return {
         "wall_ms": wall_ms, "busy_ms": busy / 1e3, "kernel_ms": total / 1e3,
         "idle_share": max(0.0, 1.0 - busy / 1e3 / wall_ms), "ell_ms": ell / 1e3,
         "gemm_ms": gemm / 1e3, "kernels": len(kernels), "h2d": h2d, "own": own,
         "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top], "host": host,
+        "counts": counts,
     }
+
+
+def kernel_name_diff(a: dict, b: dict) -> dict:
+    """{kernel name: (count in a, count in b)} where two profiles differ."""
+    ca, cb = a.get("counts") or {}, b.get("counts") or {}
+    return {n[:60]: (ca.get(n, 0), cb.get(n, 0)) for n in sorted(set(ca) | set(cb))
+            if ca.get(n, 0) != cb.get(n, 0)}
 
 
 def profile_launches(step) -> dict:
@@ -2199,7 +2248,8 @@ def phase_obs(dev, g, seed: int, results) -> None:
         library = {n: (p.get("kernels") or 0) - (p.get("own") or 0) for n, p in profs.items()}
         check("(a) no extra kernels without numerics", library["no sink"] == library["defaults"]
               and launches["no sink"] == launches["defaults"] == launches["numerics"],
-              f"library kernels {library} (traced {kernels}), ELL launches {launches}")
+              f"library kernels {library} (traced {kernels}), ELL launches {launches}; "
+              f"names counted apart: {kernel_name_diff(profs['no sink'], profs['defaults'])}")
         check("(a) numerics adds its reductions", library["numerics"] > library["defaults"],
               library)
         p4 = steady_ms(results["ell"]["epoch_times"])
@@ -3287,10 +3337,11 @@ def phase_ring(dev, g, seed: int, results) -> None:
 
 # phase 17: every trainer over the uniform mirror-slot exchange (plain
 # PyTorch: each run must leave both kernels' launch counts at 0) on the sim
-# twin at P=8. MIRROR_EPOCHS per run; the fused ring runs fewer (it is
-# launch-bound: seconds per epoch)
+# twin at P=8. MIRROR_EPOCHS per run; the fused ring runs one (it is
+# launch-bound: ~20 s per epoch at 0.1, and the script must stay well
+# inside its time limit)
 MIRROR_EPOCHS = 3
-FUSED_RING_EPOCHS = 2
+FUSED_RING_EPOCHS = 1
 # (f): JAX's test_dist_gat_bf16_tracks_f32 bound on the last loss (rtol,
 # atol) and the train accuracy's allowed drop
 BF16_LOSS_TOL = (0.05, 0.02)
@@ -3687,6 +3738,305 @@ def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> 
     log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
+TUNE_P = 8  # the twin's partitions in phase 18 (phase 15's)
+TUNE_AVG_DEGREE = 492  # comm_bench's mean degree: the main path's
+
+
+def tune_rows_text(rows) -> str:
+    """Each candidate's prior bytes, trial ms and source, one per line."""
+    return "\n".join(
+        f"    {r['candidate']:32s} prior {r['predicted_bytes']:>14,d} B  "
+        + (f"trial {r['seconds'] * 1e3:9.3f} ms" if r["seconds"] is not None
+           else "trial       n/a   ") + f"  {r['source']}" for r in rows)
+
+
+def phase_tune(dev, g, seed: int, results, scale: float) -> None:
+    """Phase 18 (see the module docstring): comm_bench's four layers, then
+    the autotuner on every family: GCNDIST bf16 (DIST_PATH, WIRE_DTYPE and
+    MESH auto) measured, replayed from the cache and held bitwise against
+    its pinned tuple; GAT (KERNEL and ELL_LEVELS auto); GATDIST (KERNEL
+    auto) at 0.2 x --scale; GCNSAMPLE (SAMPLE_PIPELINE auto); and the two
+    shipped tune cfgs through the CLI."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch import run
+    from neutronstarlite_torch.graph.dataset import GNNDatum
+    from neutronstarlite_torch.graph.storage import build_graph
+    from neutronstarlite_torch.graph.synthetic import planted_partition_graph
+    from neutronstarlite_torch.models import get_algorithm
+    from neutronstarlite_torch.obs.schema import validate_stream
+    from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
+    from neutronstarlite_torch.parallel import comm_bench
+    from neutronstarlite_torch.tune.space import Candidate
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    log(f"phase 18 on {smi}")
+    t_phase = time.perf_counter()
+    failures = results["failures"]
+
+    def check(name, ok, detail):
+        if not ok:
+            failures.append(f"phase 18 {name}: {detail}")
+            log(f"FAILED {failures[-1]}")
+
+    keys = ("NTS_TUNE", "NTS_TUNE_DIR", "NTS_TUNE_STEPS", "NTS_TUNE_MAX_TRIALS",
+            "NTS_DIST_SIMULATE", "NTS_MESH", "NTS_METRICS_DIR", "NTS_PALLAS_RESIDENT",
+            "NTS_WIRE_DTYPE", "NTS_SAMPLE_PIPELINE", "NTS_SAMPLE_WORKERS", "NTS_FINAL_EVAL",
+            "NTS_EDGE_CHUNK")
+    saved_env = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    src, dst = results["edges"]
+    datum = results["datum"]
+
+    def records(d):
+        recs = []
+        for path in sorted(glob.glob(os.path.join(d, "*.jsonl"))):
+            with open(path) as fh:
+                recs += [json.loads(line) for line in fh if line.strip()]
+        validate_stream(recs)
+        return recs
+
+    def of(recs, kind):
+        return [r for r in recs if r["event"] == kind]
+
+    def tuned(name, algorithm, cls_cfg, s, d, dat, graph, mode, epochs=0):
+        """One trainer under NTS_TUNE=mode with its stream in tmp/name:
+        (trainer, its records, build seconds)."""
+        mdir = os.path.join(tmp, name)
+        os.environ["NTS_TUNE"] = mode
+        os.environ["NTS_METRICS_DIR"] = mdir
+        t0 = time.perf_counter()
+        try:
+            tr = get_algorithm(algorithm).from_arrays(cls_cfg, s, d, dat, seed=seed,
+                                                      device=dev, host_graph=graph)
+        finally:
+            os.environ.pop("NTS_TUNE", None)
+        build_s = time.perf_counter() - t0
+        tr.metrics.close()
+        return tr, records(mdir), build_s
+
+    def report(name, tr, recs, build_s, n_trials=None):
+        decisions = of(recs, "tune_decision")
+        trials = of(recs, "tune_trial")
+        check(f"{name} one decision", len(decisions) == 1, f"{len(decisions)} decisions")
+        if not decisions:
+            return None
+        dec = decisions[0]
+        gauges = tr.metrics.snapshot()["gauges"]
+        rows = getattr(tr, "tune_rows", None) or []
+        if n_trials is not None:
+            check(f"{name} trials", len(trials) == n_trials,
+                  f"{len(trials)} tune_trial records, want {n_trials}")
+        measured = [r for r in rows if r["seconds"] is not None]
+        if dec["source"] == "measured" and measured:
+            check(f"{name} pick", dec["seconds"] <= min(r["seconds"] for r in measured),
+                  f"{dec['seconds']} vs {[r['seconds'] for r in measured]}")
+        peak = gauges.get("tune.trial_peak_bytes")
+        log(f"{name}: {dec['source']} decision {dec['candidate']} over {len(rows)} "
+            f"candidates ({len(measured)} trialled), trial phase peak "
+            f"{peak / 2 ** 30 if peak else float('nan'):.2f} GiB, build incl. tuning "
+            f"{build_s:.1f} s\n" + tune_rows_text(rows))
+        return dec
+
+    try:
+        # ---- (a) comm_bench's four layers ------------------------------------------
+        t0 = time.perf_counter()
+        zero_launches()
+        keep = {}
+        bench = comm_bench.bench_layers(g.v_num, TUNE_AVG_DEGREE, 602, TUNE_P, 2, device=dev,
+                                        keep=keep)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        check("(a) ell leg launches ell_level", launches["ell_level"] > 0 and
+              not launches["bsp_ell"], f"launches {launches}")
+        x, ell = keep.pop("x"), keep.pop("ell")
+        err = 0.0
+        for direction in ("fwd", "bwd"):
+            for p, t in getattr(ell, direction).items():
+                try:
+                    err = max(err, check_close(
+                        f"(a) ell leg {direction} shard {p}", ell_level_aggregate(t, x),
+                        t.plain(x), F32_TOL, t.plain(x.abs())))
+                except AssertionError as exc:
+                    check(f"(a) ell leg {direction} shard {p}", False, str(exc))
+        del x, ell, keep
+        torch.cuda.empty_cache()
+        meta = bench["meta"]
+        log(f"(a) comm_bench V={meta['v_num']} E={meta['e_num']} f={meta['feature']} "
+            f"P={meta['P']} vp={meta['vp']} mb={meta['mb']} ({time.perf_counter() - t0:.1f} s "
+            f"incl. host build); ell leg's per-shard sums vs the plain version max abs err "
+            f"{err:.3e}; launches {launches}")
+        for name in ("ring", "ell", "mirror", "ring_blocked"):
+            r = bench[name]
+            check(f"(a) {name} finite", math.isfinite(r["check"]), r)
+            log(f"(a) {name:12s} wire {r['wire_rows_per_dev_layer']:>8,d} rows "
+                f"({r['wire_mb_per_dev_layer_f32']:8.2f} MiB f32) / partition / layer, peak "
+                f"{r['peak_live_rows']:>8,d} rows ({r['peak_live_mb_f32']:8.2f} MiB), "
+                f"{r['step_s'] * 1e3:9.3f} ms per fwd+bwd step")
+        log(f"(a) ring_blocked per-step table work (s): "
+            f"{bench['ring_blocked']['per_step_compute_s']}")
+
+        # ---- (b) GCNDIST bf16, DIST_PATH / WIRE_DTYPE / MESH auto --------------------
+        os.environ["NTS_DIST_SIMULATE"] = "1"
+        os.environ["NTS_TUNE_DIR"] = os.path.join(tmp, "cache")
+
+        def gcn_cfg(**kw):
+            cfg = InputInfo(algorithm="GCNDIST", vertices=g.v_num, layer_string="602-128-41",
+                            epochs=3, drop_rate=0.0, precision="bfloat16", learn_rate=0.01,
+                            weight_decay=1e-4, decay_rate=0.97, decay_epoch=100,
+                            partitions=TUNE_P)
+            for k, v in kw.items():
+                setattr(cfg, k, v)
+            return cfg
+
+        autos = dict(dist_path="auto", wire_dtype="auto", mesh="auto")
+        zero_launches()
+        tr, recs, build_s = tuned("b_measure", "GCNDIST", gcn_cfg(**autos), src, dst, datum,
+                                  g, "measure")
+        dec = report("(b) GCNDIST measure", tr, recs, build_s, n_trials=8)
+        check("(b) candidates", len(getattr(tr, "tune_rows", [])) == 8,
+              f"{len(getattr(tr, 'tune_rows', []))} candidates, want 1 x 2 x 4")
+        costs = {r["label"] for r in of(recs, "program_cost")}
+        check("(b) trial costs", all(f"tune.trial/{r['candidate']}" in costs
+                                     for r in tr.tune_rows if r["seconds"] is not None),
+              f"program_cost labels {sorted(costs)}")
+        if dec is not None:
+            first = tr.eval_logits()
+            t0 = time.perf_counter()
+            tr.run()
+            torch.cuda.synchronize()
+            tuned_losses, tuned_epochs = list(tr.loss_history), list(tr.epoch_times)
+            log(f"(b) {dec['candidate']}: 3 epochs {[round(t, 4) for t in tuned_epochs]} s, "
+                f"losses {[round(v, 6) for v in tuned_losses]} ({time.perf_counter() - t0:.1f}"
+                f" s)")
+            del tr
+            tr, recs, _ = tuned("b_cached", "GCNDIST", gcn_cfg(**autos), src, dst, datum, g,
+                                "cached")
+            dc = of(recs, "tune_decision")
+            check("(b) cached replay", len(dc) == 1 and dc[0]["source"] == "cached"
+                  and dc[0]["candidate"] == dec["candidate"] and not of(recs, "tune_trial"),
+                  f"decisions {dc}, {len(of(recs, 'tune_trial'))} trials")
+            del tr
+            pin = {k: v for k, v in Candidate.from_label(dec["candidate"]).as_dict().items()
+                   if k in autos}
+            tp = get_algorithm("GCNDIST").from_arrays(gcn_cfg(**pin), src, dst, datum,
+                                                      seed=seed, device=dev, host_graph=g)
+            pfirst = tp.eval_logits()
+            tp.run()
+            torch.cuda.synchronize()
+            check("(b) pinned first logits bitwise", torch.equal(first, pfirst),
+                  f"max |d| {float((first - pfirst).abs().max())}")
+            check("(b) pinned losses bitwise", tuned_losses == list(tp.loss_history),
+                  f"{tuned_losses} vs {tp.loss_history}")
+            log(f"(b) pinned {pin}: epochs {[round(t, 4) for t in tp.epoch_times]} s; first "
+                f"logits and losses bitwise: {torch.equal(first, pfirst)} / "
+                f"{tuned_losses == list(tp.loss_history)}")
+            del tp, first, pfirst
+        check_no_kernel("phase 18 (b)")
+        torch.cuda.empty_cache()
+        os.environ.pop("NTS_DIST_SIMULATE", None)
+
+        # ---- (c) GAT f32, KERNEL / ELL_LEVELS auto on phase 7's graph ----------------
+        gat_cfg = InputInfo(algorithm="GAT", vertices=g.v_num, layer_string="602-128-41",
+                            epochs=1, drop_rate=0.0, learn_rate=0.01, weight_decay=1e-4,
+                            decay_rate=0.97, decay_epoch=100, kernel="auto",
+                            ell_levels="auto")
+        zero_launches()
+        tr, recs, build_s = tuned("c", "GAT", gat_cfg, src, dst, datum,
+                                  results["gat"]["graph"], "measure")
+        report("(c) GAT measure", tr, recs, build_s, n_trials=3)
+        tr.run()
+        torch.cuda.synchronize()
+        check("(c) finite", all(math.isfinite(v) for v in tr.loss_history), tr.loss_history)
+        check_no_kernel("phase 18 (c)")
+        log(f"(c) {gat_cfg.kernel or 'chain'} {gat_cfg.ell_levels}: epoch "
+            f"{tr.epoch_times[0]:.3f} s, loss {tr.loss_history[0]:.6f}")
+        del tr
+        torch.cuda.empty_cache()
+
+        # ---- (d) GATDIST f32, KERNEL auto, at 0.2 x scale (phase 9's graph) ----------
+        os.environ["NTS_DIST_SIMULATE"] = "1"
+        s9, d9, dat9 = ggcn_graph(0.2 * scale, seed)
+        v9 = dat9.feature.shape[0]
+        g9 = build_graph(s9, d9, v9, weight="ones")
+        gd_cfg = InputInfo(algorithm="GATDIST", vertices=v9, layer_string="602-128-41",
+                           epochs=1, drop_rate=0.0, learn_rate=0.01, weight_decay=1e-4,
+                           decay_rate=0.97, decay_epoch=100, partitions=TUNE_P,
+                           kernel="auto")
+        zero_launches()
+        tr, recs, build_s = tuned("d", "GATDIST", gd_cfg, s9, d9, dat9, g9, "measure")
+        report(f"(d) GATDIST measure (V={v9} E={g9.e_num})", tr, recs, build_s, n_trials=2)
+        tr.run()
+        torch.cuda.synchronize()
+        check("(d) finite", all(math.isfinite(v) for v in tr.loss_history), tr.loss_history)
+        check_no_kernel("phase 18 (d)")
+        log(f"(d) {gd_cfg.kernel or 'mirror chain'}: epoch {tr.epoch_times[0]:.3f} s")
+        del tr, g9
+        torch.cuda.empty_cache()
+        os.environ.pop("NTS_DIST_SIMULATE", None)
+
+        # ---- (e) GCNSAMPLE bf16, SAMPLE_PIPELINE auto at phase 12's shape ------------
+        s12, d12, feat, label = planted_partition_graph(
+            g.v_num, 41, avg_degree=SAMPLED_DEGREE, feature_size=602, seed=seed)
+        dat12 = GNNDatum(feature=feat, label=label,
+                         mask=(np.arange(g.v_num) % 3).astype(np.int32))
+        g12 = build_graph(s12, d12, g.v_num)
+        os.environ.update(NTS_SAMPLE_WORKERS="0", NTS_FINAL_EVAL="0")
+        sp_cfg = InputInfo(algorithm="GCNSAMPLE", vertices=g.v_num,
+                           layer_string="602-128-41", precision="bfloat16", batch_size=512,
+                           fanout_string="25-10", epochs=1, drop_rate=0.0, learn_rate=0.01,
+                           weight_decay=1e-4, decay_rate=0.97, decay_epoch=100,
+                           sample_pipeline="auto")
+        zero_launches()
+        tr, recs, build_s = tuned("e", "GCNSAMPLE", sp_cfg, s12, d12, dat12, g12, "measure")
+        report("(e) GCNSAMPLE measure", tr, recs, build_s, n_trials=4)
+        tr.run()
+        torch.cuda.synchronize()
+        check("(e) finite", all(math.isfinite(v) for v in tr.loss_history), tr.loss_history)
+        check_no_kernel("phase 18 (e)")
+        log(f"(e) {sp_cfg.sample_pipeline or 'sync'}: epoch {tr.epoch_times[0]:.3f} s")
+        if hasattr(tr, "close"):
+            tr.close()
+        del tr, g12
+
+        # ---- (f) the two shipped cfgs through the CLI ----------------------------------
+        for name, extra in (("tune", {"NTS_DIST_SIMULATE": "1"}), ("mesh", {"NTS_MESH": "auto"})):
+            cfg_path = os.path.join(REPO, "configs", f"gcn_dist_{name}_smoke.cfg")
+            os.environ.update(extra, NTS_TUNE_DIR=os.path.join(tmp, f"f_{name}"))
+            decided = []
+            for mode in ("measure", "cached"):
+                mdir = os.path.join(tmp, f"f_{name}_{mode}")
+                os.environ.update(NTS_TUNE=mode, NTS_METRICS_DIR=mdir)
+                rc = run.main([cfg_path])
+                recs = records(mdir)
+                dec = of(recs, "tune_decision")
+                check(f"(f) {name} {mode}", rc == 0 and len(dec) == 1
+                      and dec[0]["source"] == ("measured" if mode == "measure" else "cached")
+                      and (mode == "measure" or not of(recs, "tune_trial")),
+                      f"rc {rc}, decisions {dec}")
+                decided.append(dec[0]["candidate"] if dec else None)
+            check(f"(f) {name} same decision", decided[0] == decided[1], decided)
+            log(f"(f) configs/gcn_dist_{name}_smoke.cfg: measured {decided[0]}, cached "
+                f"{decided[1]}")
+            for k in extra:
+                os.environ.pop(k, None)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1, help="fraction of Reddit's V and E")
@@ -3736,6 +4086,7 @@ def main(argv=None) -> int:
     rows += phase_dist(dev, g, args.seed, results)
     phase_ring(dev, g, args.seed, results)
     phase_mirror(dev, g, args.seed, results, ggcn_chain, args.scale)
+    phase_tune(dev, g, args.seed, results, args.scale)
     if results["failures"]:
         for msg in results["failures"]:
             log(f"FAILED {msg}")

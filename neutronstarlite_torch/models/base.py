@@ -25,6 +25,17 @@ stage spans, then runs the guards; ``maybe_emit_numerics`` writes the
 the ``NTS_LEDGER_DIR`` row. ``NTS_METRICS_PORT`` starts the live scrape
 endpoint (``obs/exporter.py``) over the trainer's registry.
 
+Auto axes (``tune/``): ``_resolve_tune_autos`` runs right after
+``host_graph`` exists (``init_graph``, ``from_arrays``) and again, as a
+no-op, at the head of ``_finalize_datum``, before any table for a route is
+built; it turns each ``auto`` axis into a concrete value
+(``tune.select.resolve_auto_knobs``, ``NTS_TUNE``). Each trainer class has
+one check entry point, ``check_cfg``, which its construction runs and the
+tuner's candidate probe (``tune.space.candidate_valid``) calls, and the
+flags that place it in a tune-space family (``supports_dist_path``,
+``supports_fused_edge``, ``supports_sample_pipeline``,
+``needs_device_graph``).
+
 Device rule: every entry point takes an explicit ``device``. ``None`` means
 the CUDA card, and raises when there is none: the port never carries on
 quietly on the CPU. Tests pass ``device="cpu"``.
@@ -51,7 +62,12 @@ from neutronstarlite_torch.obs.slo import SloEngine
 from neutronstarlite_torch.resilience import events, guards
 from neutronstarlite_torch.utils import checkpoint as ckpt
 from neutronstarlite_torch.utils import tree as tree_util
-from neutronstarlite_torch.utils.config import SUPPORTED_ALGORITHMS, InputInfo, check_algorithm
+from neutronstarlite_torch.utils.config import (
+    SUPPORTED_ALGORITHMS,
+    InputInfo,
+    check_algorithm,
+    check_supported,
+)
 from neutronstarlite_torch.utils.logging import get_logger
 from neutronstarlite_torch.utils.timing import PhaseTimers, get_time
 
@@ -103,6 +119,19 @@ class ToolkitBase:
     """Shared lifecycle: graph + datum loading, accuracy reporting, timing."""
 
     weight_mode = "gcn_norm"
+    # the tune-space family flags (tune/space.family_of), JAX's names: a
+    # single-device trainer holds the whole graph on the device, the
+    # distributed and the sampled ones do not
+    needs_device_graph = True
+    supports_fused_edge = False  # KERNEL:fused_edge (GAT, GGCN and their dist twins)
+    supports_sample_pipeline = False  # SAMPLE_PIPELINE (the sampled trainer)
+    supports_dist_path = False  # DIST_PATH, WIRE_DTYPE, MESH (the GCN dist family)
+
+    @classmethod
+    def check_cfg(cls, cfg: InputInfo) -> None:
+        """The funnel's refusals for this class: the one check that its
+        construction runs and the tuner's candidate probe calls."""
+        check_supported(cfg, resident=False, supports_fused_edge=cls.supports_fused_edge)
 
     def __init__(
         self, cfg: InputInfo, base_dir: Optional[str] = None, seed: int = 0, device=None
@@ -148,6 +177,7 @@ class ToolkitBase:
         with self.timers.phase("graph_load"):
             src, dst = load_edges(cfg.resolve_path(cfg.edge_file, self.base_dir))
             self.host_graph = build_graph(src, dst, cfg.vertices, weight=self.weight_mode)
+            self._resolve_tune_autos()
         self._log_graph()
 
     # ---- init_nn ---------------------------------------------------------
@@ -164,7 +194,16 @@ class ToolkitBase:
             )
         self._finalize_datum()
 
+    def _resolve_tune_autos(self) -> None:
+        """Every ``auto`` axis -> a concrete cfg value (``tune/select``);
+        a no-op once resolved. The funnel's checks run after it, on the
+        concrete values."""
+        from neutronstarlite_torch.tune import select as tune_select
+
+        tune_select.resolve_auto_knobs(self)
+
     def _finalize_datum(self) -> None:
+        self._resolve_tune_autos()
         dev = self.device
         self.feature = torch.from_numpy(self.datum.feature).to(dev)
         self.label = torch.from_numpy(self.datum.label.astype(np.int64)).to(dev)
@@ -193,6 +232,7 @@ class ToolkitBase:
             if host_graph is not None
             else build_graph(src, dst, cfg.vertices, weight=cls.weight_mode)
         )
+        t._resolve_tune_autos()
         t._log_graph()
         t.datum = datum
         t._finalize_datum()

@@ -148,10 +148,15 @@ class FullBatchTrainer(ToolkitBase):
         own (GAT adds its attention slot maps)."""
         return compute_graph
 
+    @classmethod
+    def check_cfg(cls, cfg) -> None:
+        resident = os.environ.get("NTS_PALLAS_RESIDENT", "0") == "1"
+        check_supported(cfg, resident, cls.supports_fused_edge)
+
     def build_compute_graph(self):
         cfg, g, dev = self.cfg, self.host_graph, self.device
         resident = os.environ.get("NTS_PALLAS_RESIDENT", "0") == "1"
-        check_supported(cfg, resident, type(self).supports_fused_edge)
+        type(self).check_cfg(cfg)
         if cfg.kernel == "fused_edge":
             pair = FusedEdgePair.from_host(g, vt=cfg.kernel_tile, levels=cfg.ell_levels,
                                            device=dev)

@@ -92,6 +92,7 @@ class DistGATTrainer(DistGCNTrainer):
     weight_mode = "ones"  # the softmax supplies the edge weights
     supports_optim_kernel = False
     supports_fused_edge = True
+    supports_dist_path = False  # one exchange: the mirror, or the ring when fused
     slope = LEAKY_SLOPE
 
     def init_params(self, generator: torch.Generator):
@@ -112,12 +113,17 @@ class DistGATTrainer(DistGCNTrainer):
         f = h.shape[1]
         return h @ cast(layer["a"][:f]), h @ cast(layer["a"][f:])
 
+    @classmethod
+    def check_cfg(cls, cfg) -> None:
+        fused = cfg.kernel == "fused_edge"
+        check_dist_supported(cfg, supports_fused_edge=True)
+        check_mirror_knobs(cfg, "the fused edge ring" if fused else "the edge chain", fused)
+
     # ---- build ---------------------------------------------------------------
     def build_model(self) -> None:
         cfg, dev = self.cfg, self.device
         fused = cfg.kernel == "fused_edge"
-        check_dist_supported(cfg, supports_fused_edge=True)
-        check_mirror_knobs(cfg, "the fused edge ring" if fused else "the edge chain", fused)
+        type(self).check_cfg(cfg)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.mesh_spec = self.partitioner = None

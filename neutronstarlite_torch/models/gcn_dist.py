@@ -63,10 +63,14 @@ failure is logged, as in JAX). Only world rank 0 writes checkpoints,
 which hold the unpadded parameters, so a 2D checkpoint restores into any
 layout.
 
+``DIST_PATH:auto``, ``WIRE_DTYPE:auto``, ``MESH:auto`` (and ``NTS_MESH=auto``)
+are the autotuner's (``tune/``): resolved at the head of the funnel under
+``NTS_TUNE``; with the tuner off ``DIST_PATH:auto`` keeps its legacy
+meaning (the ``COMM_LAYER`` rule below) and the other two are refused.
+
 Refused in one line, naming the slice that brings them:
 ``NTS_DEBUGINFO=1``, ``NTS_NUMERICS=1``, ``NTS_ELASTIC=1`` and
-``NTS_QUANT_PROBE=1`` on a distributed trainer, ``WIRE_DTYPE:auto`` and
-``MESH:auto`` (the autotuner). ``NTS_PALLAS_RESIDENT=1`` (JAX's
+``NTS_QUANT_PROBE=1`` on a distributed trainer. ``NTS_PALLAS_RESIDENT=1`` (JAX's
 interpret-only resident executor), ``SUBLINEAR:1`` and the all_gather
 knobs on the ring and the mirror are refused too.
 """
@@ -156,7 +160,12 @@ def check_dist_supported(cfg, supports_fused_edge: bool = False) -> None:
     for env in ("NTS_DEBUGINFO", "NTS_NUMERICS", "NTS_ELASTIC", "NTS_QUANT_PROBE"):
         if os.environ.get(env, "0") == "1":
             raise ValueError(f"{env}=1 on a distributed trainer comes with {PLANE_SLICE}")
-    check_wire_dtype(os.environ.get("NTS_WIRE_DTYPE", "").strip().lower())
+    env_wire = os.environ.get("NTS_WIRE_DTYPE", "").strip().lower()
+    if env_wire == "auto":
+        raise ValueError(
+            "NTS_WIRE_DTYPE must be f32/float32 or bf16/bfloat16 (or empty): the "
+            "autotuner resolves WIRE_DTYPE:auto from the cfg, not from the env")
+    check_wire_dtype(env_wire)
     pmod.fold_mesh_env(cfg)
     pmod.check_mesh_cfg(cfg)
     if os.environ.get("NTS_PALLAS_RESIDENT", "0") == "1":
@@ -266,6 +275,8 @@ class DistGCNTrainer(FullBatchTrainer):
 
     supports_optim_kernel = True
     supports_precision = True
+    needs_device_graph = False
+    supports_dist_path = True  # DIST_PATH, WIRE_DTYPE and MESH
     cost_label = "dist.train_step"
     layer_nn = staticmethod(gcn_layer_nn)
     eager = False
@@ -276,10 +287,14 @@ class DistGCNTrainer(FullBatchTrainer):
     def init_params(self, generator: torch.Generator):
         return init_gcn_params(self.cfg.layer_sizes(), generator)
 
+    @classmethod
+    def check_cfg(cls, cfg) -> None:
+        check_dist_supported(cfg)
+
     # ---- build ---------------------------------------------------------------
     def build_model(self) -> None:
         cfg, dev = self.cfg, self.device
-        check_dist_supported(cfg)
+        type(self).check_cfg(cfg)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         spec = pmod.mesh_spec_of(cfg)

@@ -69,11 +69,16 @@ class DistGCNCacheTrainer(DistGCNTrainer):
 
     supports_optim_kernel = False
     supports_precision = False  # warns and runs f32
+    supports_dist_path = False  # the DepCache exchange is the only one
+
+    @classmethod
+    def check_cfg(cls, cfg) -> None:
+        check_dist_supported(cfg)
+        check_mirror_knobs(cfg, "the DepCache GCN")
 
     def build_model(self) -> None:
         cfg, dev = self.cfg, self.device
-        check_dist_supported(cfg)
-        check_mirror_knobs(cfg, "the DepCache GCN")
+        type(self).check_cfg(cfg)
         if cfg.precision == "bfloat16":
             log.warning("PRECISION:bfloat16 is not implemented for the DepCache trainer "
                         "(%s); running f32", cfg.algorithm)

@@ -112,11 +112,11 @@ def batch_forward(weights, feature: torch.Tensor, nodes, hops, node_caps, comput
 @register_algorithm(*GCN_SAMPLE_ALGORITHMS)
 class GCNSampleTrainer(ToolkitBase):
     weight_mode = "gcn_norm"
+    needs_device_graph = False
+    supports_sample_pipeline = True
 
-    def _finalize_datum(self) -> None:
-        # the training batch stream's worker pool forks here, before the
-        # first tensor reaches the card (sample/parallel.py)
-        cfg = self.cfg
+    @classmethod
+    def check_cfg(cls, cfg) -> None:
         check_supported(cfg, resident=False)
         used = [k for k in _FULL_BATCH_ONLY if getattr(cfg, k)]
         if used:
@@ -124,10 +124,17 @@ class GCNSampleTrainer(ToolkitBase):
                 f"{', '.join(used)} select full-batch aggregation routes; the sampled "
                 f"trainer ({cfg.algorithm}) aggregates through minibatch_gather: drop them"
             )
+        if not cfg.fanouts():
+            raise ValueError("GCNSAMPLE requires FANOUT in the cfg")
+
+    def _finalize_datum(self) -> None:
+        # the training batch stream's worker pool forks here, before the
+        # first tensor reaches the card (sample/parallel.py)
+        self._resolve_tune_autos()
+        cfg = self.cfg
+        type(self).check_cfg(cfg)
         sizes = cfg.layer_sizes()
         fanouts = cfg.fanouts()
-        if not fanouts:
-            raise ValueError("GCNSAMPLE requires FANOUT in the cfg")
         # the cfg may list more fanouts than layers; use the last n_layers
         self.fanouts = fanouts[-(len(sizes) - 1):]
         self.sample_mode = resolve_sample_pipeline(cfg)

@@ -38,11 +38,16 @@ class GetDepNbrCheck(ToolkitBase):
     """Checks the uniform mirror exchange forward and backward."""
 
     weight_mode = "ones"
+    needs_device_graph = False
+
+    @classmethod
+    def check_cfg(cls, cfg) -> None:
+        check_dist_supported(cfg)
+        check_mirror_knobs(cfg, "TEST_GETDEP")
 
     def build_model(self) -> None:
         cfg = self.cfg
-        check_dist_supported(cfg)
-        check_mirror_knobs(cfg, "TEST_GETDEP")
+        type(self).check_cfg(cfg)
         self.group, P = mesh.resolve_group(cfg.partitions, mesh.simulate_requested())
         self.mg = MirrorGraph.build(self.host_graph, P)
         self.exchange = UniformMirror(self.mg, self.group, self.device, edges=False)

@@ -38,9 +38,11 @@ batch norm on a slab) adds disjoint rows, one read whole by replicated
 code adds Pf copies that each hold 1/Pf of it. Batch-norm statistics and
 the loss's denominator are summed over the vertex group only.
 
-``MESH:auto`` and ``NTS_MESH=auto`` (JAX's autotuner picks the shape) are
-refused, naming the tune slice; ``factor_shapes`` / ``choose_mesh_shape``
-come with it.
+``MESH:auto`` and ``NTS_MESH=auto`` leave the shape to the autotuner
+(``tune/``), which picks among ``factor_shapes`` of the device budget at
+the head of the trainer's funnel; an ``auto`` that reaches ``mesh_spec_of``
+unresolved is refused. ``choose_mesh_shape`` is the analytic choice
+(``tools/wire_accounting.predict_mesh``).
 """
 
 from __future__ import annotations
@@ -48,14 +50,13 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from neutronstarlite_torch.parallel import mesh
-from neutronstarlite_torch.utils.config import TUNE_SLICE
 
 
 def slab_width(width: int, pf: int) -> int:
@@ -96,24 +97,16 @@ def normalize_mesh_value(value: str) -> str:
     return f"{pv},{pf}"
 
 
-def refuse_mesh_auto(value: str, where: str = "MESH") -> None:
-    if value == "auto":
-        raise ValueError(
-            f"{where}:auto lets the autotuner choose the mesh shape, which comes "
-            f"with {TUNE_SLICE}: set MESH:Pv,Pf"
-        )
-
-
 def fold_mesh_env(cfg) -> None:
-    """``NTS_MESH`` overrides ``cfg.mesh`` (once per cfg), through the same
-    parse and checks as the cfg key."""
+    """``NTS_MESH`` overrides ``cfg.mesh``, folded at the head of the
+    funnel so that the env spelling goes through the same auto-resolution
+    and checks as the cfg key. Once per cfg: a second fold of
+    ``NTS_MESH=auto`` would undo the shape the tuner resolved."""
     if getattr(cfg, "_nts_mesh_folded", False):
         return
     raw = os.environ.get("NTS_MESH", "")
     if raw.strip():
-        v = normalize_mesh_value(raw)
-        refuse_mesh_auto(v, "NTS_MESH")
-        cfg.mesh = v
+        cfg.mesh = normalize_mesh_value(raw)
     cfg._nts_mesh_folded = True
 
 
@@ -149,11 +142,17 @@ class MeshSpec:
 
 
 def mesh_spec_of(cfg) -> Optional[MeshSpec]:
-    """The MeshSpec a cfg asks for, or None (the 1D layout)."""
+    """The MeshSpec a cfg asks for, or None (the 1D layout). An ``auto``
+    here was never resolved by the tuner: refused."""
     v = normalize_mesh_value(getattr(cfg, "mesh", "") or "")
     if not v:
         return None
-    refuse_mesh_auto(v)
+    if v == "auto":
+        raise ValueError(
+            "MESH:auto reached build_model unresolved: set NTS_TUNE="
+            "cached or NTS_TUNE=measure so the autotuner can choose the "
+            "shape, or pin MESH:Pv,Pf"
+        )
     return MeshSpec.parse(v)
 
 
@@ -351,3 +350,33 @@ class Partitioner:
             return p
         w = p.shape[0]
         return F.pad(p, (0, padded_width(w, self.pf) - w))[self.slab_cols(w)]
+
+
+# ---- mesh-shape choice ------------------------------------------------------
+
+
+def factor_shapes(total: int) -> List[MeshSpec]:
+    """Every ``(pv, pf)`` factorization of ``total`` devices, widest vertex
+    axis first."""
+    total = max(int(total), 1)
+    return [MeshSpec(pv=total // pf, pf=pf) for pf in range(1, total + 1)
+            if total % pf == 0]
+
+
+def choose_mesh_shape(host_graph, total: int, widths: Sequence[int], itemsize: int = 4,
+                      out_widths: Optional[Sequence[int]] = None) -> MeshSpec:
+    """The shape of least (ring exchange + feature all-reduce + peak
+    resident slab) bytes (``wire_accounting.predict_mesh``; ``widths`` the
+    exchange widths, ``out_widths`` the contractions' outputs); a tie goes
+    to the larger vertex axis."""
+    from neutronstarlite_torch.tools.wire_accounting import predict_mesh
+
+    best, best_score = None, None
+    for spec in factor_shapes(total):
+        pred = predict_mesh(host_graph, spec.pv, spec.pf, widths, itemsize=itemsize,
+                            out_widths=out_widths)
+        score = (pred["bytes_per_epoch"] + pred["allreduce_bytes_per_epoch"]
+                 + pred["peak_resident_feature_bytes"])
+        if best_score is None or score < best_score:
+            best, best_score = spec, score
+    return best

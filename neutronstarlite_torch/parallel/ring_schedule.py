@@ -47,7 +47,7 @@ def resolve_wire_dtype(cfg_value: str = "") -> Optional[torch.dtype]:
     """The dtype the ring's shards are sent in, or None (the compute dtype
     unchanged). ``NTS_WIRE_DTYPE`` overrides the cfg's ``WIRE_DTYPE``; bf16
     halves the bytes on the wire while the accumulator stays f32.
-    ``auto`` is the autotuner's and is refused at the cfg's parse."""
+    ``auto`` is the autotuner's, resolved before the exchange is built."""
     value = os.environ.get("NTS_WIRE_DTYPE", "") or (cfg_value or "")
     value = value.strip().lower()
     if value not in _WIRE_DTYPES:

@@ -77,10 +77,13 @@ def resolve_sample_pipeline(cfg: Any = None) -> str:
     if v in SAMPLE_PIPELINE_MODES:
         return v
     if v == "auto":
+        # the tuner (tune/select.py) resolves SAMPLE_PIPELINE:auto before
+        # the trainer's funnel reads it
         raise ValueError(
-            "SAMPLE_PIPELINE:auto lets the autotuner choose the sampling mode; "
-            "the torch port does not implement the autotuner yet: set sync, "
-            "pipelined, device or fused"
+            "SAMPLE_PIPELINE:auto is resolved by the tuner "
+            "(models/base._resolve_tune_autos); this entry point received "
+            "it unresolved — set an explicit mode (sync, pipelined, "
+            "device or fused)"
         )
     raise ValueError(
         f"SAMPLE_PIPELINE/NTS_SAMPLE_PIPELINE must be sync, pipelined, device or "

@@ -23,7 +23,11 @@ twin the whole chain), ``fused_ring:GATDIST`` (``KERNEL:fused_edge`` on
 ``DIST_PATH:ring_blocked``), ``depcache`` (``GCNDISTCACHE`` with
 ``PROC_REP:1``, ``REP_THRESHOLD:--rep-threshold`` and ``CACHE_REFRESH:2``)
 and ``getdep`` (``TEST_GETDEP``: every rank must pass, and its mirror rows
-must be bitwise the twin's).
+must be bitwise the twin's). ``tune``: ``DIST_PATH:auto`` under
+``NTS_TUNE=measure`` on the ranks (a fresh ``NTS_TUNE_DIR``), so the
+all_gather family is a candidate and its trial runs the rectangular
+``ell_level`` kernel; every rank must hold the same decision, and the
+twin trains that decision pinned.
 ``--exchange-check`` also
 runs the pipelined ring's exchange alone on the ranks, forward and
 backward, with the f32 and the bf16 wire, and reports whether every
@@ -83,6 +87,7 @@ ROUTES = {
     "fused_ring": dict(kernel="fused_edge", dist_path="ring_blocked"),
     "depcache": dict(process_rep=True, cache_refresh=2),
     "getdep": {},
+    "tune": dict(dist_path="auto"),
 }
 DEFAULT_ALGORITHM = {"depcache": "GCNDISTCACHE", "getdep": "TEST_GETDEP"}
 
@@ -121,6 +126,13 @@ def _train(a, route: str, device):
     )
     if route == "depcache":
         cfg.rep_threshold = a.rep_threshold
+    pin = getattr(a, "tune_pin", "")
+    if route == "tune" and pin:  # the twin: the ranks' decision, pinned
+        from neutronstarlite_torch.tune.space import Candidate
+
+        for axis, value in Candidate.from_label(pin).as_dict().items():
+            if value:
+                setattr(cfg, axis, value)
     tr = get_algorithm(cfg.algorithm).from_arrays(cfg, src, dst, datum, seed=a.seed,
                                                   device=device)
     if route == "getdep":
@@ -137,10 +149,25 @@ def _train(a, route: str, device):
     res = tr.run()
     if tr.device.type == "cuda":
         torch.cuda.synchronize(tr.device)
-    return {"losses": [float(x) for x in tr.loss_history],
-            "epoch_s": [float(t) for t in tr.epoch_times], "acc": res["acc"],
-            "rows": int(tr.feature.shape[0]), "vp": tr.dist.vp, "tables": kind,
-            "chunks": chunks}
+    out = {"losses": [float(x) for x in tr.loss_history],
+           "epoch_s": [float(t) for t in tr.epoch_times], "acc": res["acc"],
+           "rows": int(tr.feature.shape[0]), "vp": tr.dist.vp, "tables": kind,
+           "chunks": chunks}
+    rows = getattr(tr, "tune_rows", None)
+    if route == "tune" and rows is not None:
+        gauges = tr.metrics.snapshot()["gauges"]
+        out.update(decision=gauges["tune.decision"], source=gauges["tune.decision_source"],
+                   trials=rows, launches=_launches())
+    return out
+
+
+def _launches() -> dict:
+    """The hand-written kernels' launch counts in this process."""
+    from neutronstarlite_torch.ops.bsp_ell import bsp_aggregate
+    from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
+
+    return {"ell_level": int(ell_level_aggregate.launches),
+            "bsp_ell": int(bsp_aggregate.launches)}
 
 
 def _exchange(a, group, device):
@@ -203,6 +230,8 @@ def main(argv=None) -> int:
         out = os.path.join(tmp, "curves")
         env = dict(os.environ, OMP_NUM_THREADS="1")
         env.pop("NTS_DIST_SIMULATE", None)
+        if "tune" in [r.partition(":")[0] for r in a.routes.split(",")]:
+            env.update(NTS_TUNE="measure", NTS_TUNE_DIR=os.path.join(tmp, "tune"))
         argv = sys.argv[1:] if argv is None else list(argv)
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
@@ -224,6 +253,9 @@ def main(argv=None) -> int:
     os.environ["NTS_DIST_SIMULATE"] = "1"
     report, ok = {"partitions": a.partitions, "device": a.device, "routes": {}}, True
     for route in a.routes.split(","):
+        if route == "tune":
+            decisions = sorted({r[route]["decision"] for r in ranks})
+            a.tune_pin = decisions[0]
         twin = _train(a, route, "cpu" if a.device == "cpu" else None)
         if route.partition(":")[0] == "getdep":
             want = np.asarray(twin["mirrors"], dtype=np.float32).reshape(a.partitions, -1)
@@ -245,10 +277,21 @@ def main(argv=None) -> int:
         same_rows = all(r[route]["rows"] == twin["vp"] for r in ranks)
         route_ok = gap <= tol and same_rows and all(
             r[route]["tables"] == twin["tables"] for r in ranks)
+        entry = {}
+        if route == "tune":
+            # every rank decided the same tuple, over a space holding all_gather
+            agree = len(decisions) == 1
+            labels = [row["candidate"] for row in ranks[0][route]["trials"]]
+            entry = {"decisions": [r[route]["decision"] for r in ranks], "agree": agree,
+                     "all_gather_trialled": any(
+                         lab.startswith("all_gather|") and row["source"] == "measured"
+                         for lab, row in zip(labels, ranks[0][route]["trials"])),
+                     "rank_trials": [r[route]["trials"] for r in ranks]}
+            route_ok = route_ok and agree and entry["all_gather_trialled"]
         ok = ok and route_ok
         report["routes"][route] = {
             "ok": route_ok, "max_loss_gap": gap, "tol": tol,
-            "rank0": ranks[0][route], "twin": twin,
+            "rank0": ranks[0][route], "twin": twin, **entry,
         }
     if a.exchange_check:
         twin = _exchange(a, None, "cpu" if a.device == "cpu" else "cuda")

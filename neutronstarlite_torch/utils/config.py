@@ -10,11 +10,9 @@ a path that never runs.
 The port honours the single-device full-batch keys (GCN, GAT, GIN,
 CommNet, GGCN) and the sampled trainer's (``GCNSAMPLE*``: ``BATCH_SIZE``,
 dash-separated ``FANOUT``, ``SAMPLE_PIPELINE`` = sync, pipelined, device or
-fused; ``SAMPLE_PIPELINE:auto`` needs the autotuner and is refused, and a
-full-batch trainer given ``SAMPLE_PIPELINE`` refuses it). ``KERNEL`` is empty (the edge chain) or ``fused_edge``
-(``ops/fused_edge.py``, GAT and GGCN); ``KERNEL:auto`` and
-``ELL_LEVELS:auto`` need the autotuner, which is not ported, and are
-refused. ``ELL_LEVELS`` (``pow2`` or ``binned``) sets the fused tables'
+fused; a full-batch trainer given ``SAMPLE_PIPELINE`` refuses it).
+``KERNEL`` is empty (the edge chain) or ``fused_edge`` (``ops/fused_edge.py``,
+GAT and GGCN). ``ELL_LEVELS`` (``pow2`` or ``binned``) sets the fused tables'
 level ladder. ``KERNEL_TILE`` sets the source-tile height of the bsp
 kernel (``PALLAS:1``), of the blocked ELL route (``OPTIM_KERNEL:1``
 without ``PALLAS``) and of the fused tables. ``PROC_CUDA`` and ``LOCK_FREE`` are
@@ -34,7 +32,7 @@ trainer refuses these keys at the parse (PARTITIONS above 1). The DepCache
 keys ``PROC_REP``, ``REP_THRESHOLD`` (an out-degree, or ``auto``: -1),
 ``CACHE_BUDGET_MIB`` and ``CACHE_REFRESH`` are read by ``GCNDISTCACHE``
 alone; any other trainer refuses them away from their defaults.
-``WIRE_DTYPE:auto`` and ``MESH:auto`` need the autotuner and are refused. ``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY`` turn on
+``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY`` turn on
 checkpoints (``utils/checkpoint.py``); ``CKPT_BACKEND`` takes ``npz`` alone:
 ``orbax`` is a JAX library, and the sharded asynchronous saves it gives
 the reference come with the distributed slice. The serving keys
@@ -42,6 +40,13 @@ the reference come with the distributed slice. The serving keys
 ``SERVE_BUCKETS``, ``SERVE_CACHE_CAP``, ``SERVE_CACHE_MAX_AGE_S``,
 ``SERVE_HOT_THRESHOLD``, ``SERVE_REPLICAS``, ``SERVE_ROUTE``, ``SERVE_CB``)
 parse as in the reference; ``serve/`` reads them.
+
+``auto`` parses on the six axes the autotuner owns (``DIST_PATH``,
+``KERNEL``, ``ELL_LEVELS``, ``WIRE_DTYPE``, ``MESH``, ``SAMPLE_PIPELINE``;
+``tune/``): the trainer's funnel resolves it through ``NTS_TUNE`` before
+any table is built. With ``NTS_TUNE=off`` (the default) every one but
+``DIST_PATH:auto``, which keeps its legacy meaning, is refused there
+(``check_unresolved_autos`` is the funnel's backstop).
 """
 
 from __future__ import annotations
@@ -79,8 +84,7 @@ SUPPORTED_ALGORITHMS = (
     GCN_ALGORITHMS + GCN_EAGER_ALGORITHMS + GAT_ALGORITHMS + GIN_ALGORITHMS
     + COMMNET_ALGORITHMS + GGCN_ALGORITHMS + GCN_SAMPLE_ALGORITHMS + DIST_ALGORITHMS
 )
-# the slices that bring what this one refuses
-TUNE_SLICE = "the tune slice of the torch port (the autotuner, tune/)"
+# the slice that brings what this one refuses
 PLANE_SLICE = (
     "the last distributed slice of the torch port (skew, elastic replan, "
     "numerics, DEBUGINFO and the quantisation probe on the dist trainers)"
@@ -140,8 +144,10 @@ _SINGLE_DEVICE_FIELDS = {
     "PROC_LOCAL": ("process_local", lambda v: bool(int(v))),
 }
 COMM_LAYERS = ("", "auto", "ring", "ell", "mirror")
+# the axes the autotuner resolves besides DIST_PATH, whose auto predates it
+TUNER_ONLY_AXES = ("kernel", "ell_levels", "wire_dtype", "mesh", "sample_pipeline")
 DIST_PATHS = ("", "auto", "all_gather", "ring_blocked", "ring_blocked_sim")
-WIRE_DTYPES = ("", "f32", "float32", "bf16", "bfloat16")
+WIRE_DTYPES = ("", "auto", "f32", "float32", "bf16", "bfloat16")
 
 # every field of the reference's InputInfo with its default, in its order:
 # the obs config fingerprint (obs/registry.config_fingerprint) is a digest
@@ -369,7 +375,8 @@ def check_algorithm(value: str) -> None:
 
 def check_dist_keys(cfg: "InputInfo") -> None:
     """Refuse the distributed trainers' keys (PARTITIONS above 1, COMM_LAYER,
-    DIST_PATH, MESH, WIRE_DTYPE) on a single-device trainer, and the
+    DIST_PATH, MESH, WIRE_DTYPE; ``auto``, which the autotuner resolves to
+    the empty value there, passes) on a single-device trainer, and the
     DepCache keys on any trainer but the DepCache GCN, which would ignore
     them."""
     name = cfg.algorithm.upper()
@@ -391,8 +398,8 @@ def check_dist_keys(cfg: "InputInfo") -> None:
         ("PARTITIONS", cfg.partitions, cfg.partitions <= 1),
         ("COMM_LAYER", cfg.comm_layer, cfg.comm_layer in ("", "auto")),
         ("DIST_PATH", cfg.dist_path, cfg.dist_path in ("", "auto")),
-        ("MESH", cfg.mesh, not cfg.mesh),
-        ("WIRE_DTYPE", cfg.wire_dtype, not cfg.wire_dtype)) if not unset]
+        ("MESH", cfg.mesh, cfg.mesh in ("", "auto")),
+        ("WIRE_DTYPE", cfg.wire_dtype, cfg.wire_dtype in ("", "auto"))) if not unset]
     if given:
         raise ValueError(
             f"{', '.join(given)} is read only by the distributed trainers "
@@ -415,63 +422,58 @@ def check_dist_path(value: str) -> None:
 
 
 def check_wire_dtype(value: str) -> None:
-    if value == "auto":
-        raise ValueError(
-            f"WIRE_DTYPE:auto lets the autotuner choose the wire dtype, which comes "
-            f"with {TUNE_SLICE}: set f32 or bf16"
-        )
     if value not in WIRE_DTYPES:
         raise ValueError(
-            f"WIRE_DTYPE must be f32/float32 or bf16/bfloat16 (or empty), got {value!r}"
+            f"WIRE_DTYPE must be f32/float32 or bf16/bfloat16, auto (or empty), got {value!r}"
         )
 
 
 def check_mesh(value: str) -> str:
-    """The canonical MESH value ('' or 'Pv,Pf'); ``auto`` is refused."""
-    from neutronstarlite_torch.parallel.partitioner import (
-        normalize_mesh_value,
-        refuse_mesh_auto,
-    )
+    """The canonical MESH value ('', 'auto' or 'Pv,Pf')."""
+    from neutronstarlite_torch.parallel.partitioner import normalize_mesh_value
 
-    v = normalize_mesh_value(value)
-    refuse_mesh_auto(v)
-    return v
+    return normalize_mesh_value(value)
 
 
 def _check_kernel(value: str) -> None:
-    if value == "auto":
-        raise ValueError(
-            "KERNEL:auto lets the autotuner (tune/) choose the kernel; the "
-            "torch port does not implement the autotuner yet: set "
-            "KERNEL:fused_edge, or drop KERNEL to run the edge chain"
-        )
-    if value not in ("", "fused_edge"):
-        raise ValueError(f"KERNEL must be fused_edge (or empty), got {value!r}")
+    if value not in ("", "auto", "fused_edge"):
+        raise ValueError(f"KERNEL must be fused_edge or auto (or empty), got {value!r}")
 
 
 def _check_ell_levels(value: str) -> None:
-    if value == "auto":
+    if value not in ("", "auto", "pow2", "binned"):
         raise ValueError(
-            "ELL_LEVELS:auto lets the autotuner (tune/) choose the level "
-            "ladder; the torch port does not implement the autotuner yet: set "
-            "pow2 or binned"
-        )
-    if value not in ("", "pow2", "binned"):
-        raise ValueError(f"ELL_LEVELS must be pow2 or binned (or empty), got {value!r}")
+            f"ELL_LEVELS must be pow2, binned or auto (or empty), got {value!r}")
 
 
 def check_sample_pipeline(value: str) -> None:
-    """Refuse an unknown SAMPLE_PIPELINE and ``auto`` (the tuner's)."""
-    if value == "auto":
+    """Refuse an unknown SAMPLE_PIPELINE (``auto`` is the tuner's)."""
+    if value not in ("", "auto") + SAMPLE_PIPELINE_MODES:
         raise ValueError(
-            "SAMPLE_PIPELINE:auto lets the autotuner (tune/) choose the sampling "
-            "mode; the torch port does not implement the autotuner yet: set sync, "
-            "pipelined, device or fused"
+            f"SAMPLE_PIPELINE must be sync, pipelined, device, fused or auto, got {value!r}"
         )
-    if value not in ("",) + SAMPLE_PIPELINE_MODES:
-        raise ValueError(
-            f"SAMPLE_PIPELINE must be sync, pipelined, device or fused, got {value!r}"
-        )
+
+
+def tuner_off_refusal(axes) -> ValueError:
+    """The refusal of tuner-only ``auto`` axes while the autotuner is off
+    (JAX's ``tune/select.py`` wording)."""
+    return ValueError(
+        f"{', '.join(sorted(a.upper() for a in axes))}:auto "
+        "requested but the autotuner is off (NTS_TUNE=off): set "
+        "NTS_TUNE=cached or NTS_TUNE=measure (and NTS_TUNE_DIR "
+        "for persistence), or pin a concrete value — silently "
+        "running a default while the cfg says auto is the "
+        "mis-benchmark the lifecycle funnel exists to refuse"
+    )
+
+
+def check_unresolved_autos(cfg: InputInfo) -> None:
+    """The funnel's backstop: a tuner-only axis still ``auto`` here was not
+    resolved (``tune.select.resolve_auto_knobs`` runs first and refuses
+    these under ``NTS_TUNE=off``)."""
+    left = [a for a in TUNER_ONLY_AXES if getattr(cfg, a, "") == "auto"]
+    if left:
+        raise tuner_off_refusal(left)
 
 
 def check_ckpt_backend(value: str) -> str:
@@ -511,6 +513,7 @@ def check_supported(cfg: InputInfo, resident: bool, supports_fused_edge: bool = 
     _check_kernel(cfg.kernel)
     _check_ell_levels(cfg.ell_levels)
     check_sample_pipeline(cfg.sample_pipeline)
+    check_unresolved_autos(cfg)
     if cfg.sample_pipeline and cfg.algorithm.upper() not in GCN_SAMPLE_ALGORITHMS:
         raise ValueError(
             f"SAMPLE_PIPELINE:{cfg.sample_pipeline} is not available for ALGORITHM "

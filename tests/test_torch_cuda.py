@@ -782,3 +782,37 @@ def test_cuda_rectangular_kernel_matches_plain_on_every_shard(cuda_device, kerne
             tol = BF16_TOL if dtype == "bfloat16" else dict(
                 rtol=F32_TOL["rtol"], atol=4e-5 * float(np.sqrt(np.mean(np.square(want)))))
             np.testing.assert_allclose(_np(got), want, **tol)
+
+
+def test_cuda_tuner_measures_and_replays_on_the_card(cuda_device, monkeypatch, tmp_path):
+    """The autotuner once on the card: GCNDIST on the twin with DIST_PATH,
+    WIRE_DTYPE and MESH auto under NTS_TUNE=measure times its candidates
+    there, then NTS_TUNE=cached replays the same pick without a trial."""
+    from neutronstarlite_torch.models import get_algorithm
+
+    for var in ("NTS_MESH", "NTS_WIRE_DTYPE", "NTS_METRICS_DIR"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("NTS_DIST_SIMULATE", "1")
+    monkeypatch.setenv("NTS_TUNE_DIR", str(tmp_path))
+    monkeypatch.setenv("NTS_TUNE_STEPS", "1")
+    src, dst, g = _hub_graph()
+    rng = np.random.default_rng(4)
+    datum = GNNDatum(feature=rng.standard_normal((V, 16), dtype=np.float32),
+                     label=rng.integers(0, 4, size=V, dtype=np.int32),
+                     mask=(np.arange(V) % 3).astype(np.int32))
+    picks = []
+    for mode in ("measure", "cached"):
+        monkeypatch.setenv("NTS_TUNE", mode)
+        cfg = InputInfo(algorithm="GCNDIST", vertices=V, layer_string="16-8-4", epochs=1,
+                        drop_rate=0.0, partitions=4, dist_path="auto", wire_dtype="auto",
+                        mesh="auto")
+        tr = get_algorithm("GCNDIST").from_arrays(cfg, src, dst, datum, device=cuda_device,
+                                                  host_graph=g)
+        gauges = tr.metrics.snapshot()["gauges"]
+        picks.append((gauges["tune.decision"], gauges["tune.decision_source"]))
+        if mode == "measure":
+            rows = tr.tune_rows
+            assert len(rows) == 6 and sum(r["seconds"] is not None for r in rows) == 4
+            assert gauges["tune.trial_peak_bytes"] > 0
+        assert np.isfinite(tr.run()["loss"])
+    assert picks[0][1] == "measured" and picks[1] == (picks[0][0], "cached")

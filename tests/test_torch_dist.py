@@ -521,7 +521,9 @@ def test_two_gloo_ranks_match_the_sim_twin():
 
 
 @pytest.mark.parametrize("line,match", [
-    ("MESH:auto", "tune slice"), ("WIRE_DTYPE:auto", "tune slice"),
+    # auto parses; with the autotuner off the trainer's funnel refuses it
+    pytest.param("MESH:auto", "NTS_TUNE", id="MESH:auto-tune slice"),
+    pytest.param("WIRE_DTYPE:auto", "NTS_TUNE", id="WIRE_DTYPE:auto-tune slice"),
     ("WIRE_DTYPE:fp8", "WIRE_DTYPE must be"), ("MESH:2;2", "MESH must be"),
     ("COMM_LAYER:mirrored", "COMM_LAYER must be"), ("PROC_REP:1", "DepCache GCN"),
     ("ALGORITHM:GCNCPU", "read only by the distributed trainers"),
@@ -530,7 +532,8 @@ def test_cfg_refuses_what_later_slices_bring(tmp_path, line, match):
     p = tmp_path / "x.cfg"
     p.write_text("ALGORITHM:GCNDIST\nVERTICES:10\nLAYERS:4-2\nPARTITIONS:4\n" + line + "\n")
     with pytest.raises(ValueError, match=match):
-        t_config.InputInfo.read_from_cfg_file(str(p))
+        cfg = t_config.InputInfo.read_from_cfg_file(str(p))
+        get_algorithm(cfg.algorithm).check_cfg(cfg)
 
 
 @pytest.mark.parametrize("line,cls_name", [
@@ -560,8 +563,10 @@ def test_cfg_parses_the_dist_keys(tmp_path):
     ({"NTS_DEBUGINFO": "1"}, {}, "distributed trainer"),
     ({"NTS_NUMERICS": "1"}, {}, "distributed trainer"),
     ({"NTS_ELASTIC": "1"}, {}, "distributed trainer"),
-    ({"NTS_MESH": "auto"}, {}, "tune slice"),
-    ({"NTS_WIRE_DTYPE": "auto"}, {}, "tune slice"),
+    # NTS_MESH=auto with the autotuner off; NTS_WIRE_DTYPE takes no auto
+    pytest.param({"NTS_MESH": "auto"}, {}, "NTS_TUNE", id="env4-kw4-tune slice"),
+    pytest.param({"NTS_WIRE_DTYPE": "auto"}, {}, "not from the env",
+                 id="env5-kw5-tune slice"),
     ({"NTS_DIST_SIMULATE": "0"}, {}, "NTS_DIST_SIMULATE=1"),
     ({"NTS_QUANT_PROBE": "1"}, {}, "distributed trainer"),
     ({}, {"optim_kernel": False, "comm_layer": "mirror", "mesh": "2,2"}, "ring-only"),

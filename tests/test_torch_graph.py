@@ -73,15 +73,16 @@ def test_cfg_parse_agrees_or_refuses(path):
         "PRECISION", "SUBLINEAR", "PROC_CUDA", "LOCK_FREE", "PROC_OVERLAP",
         "PROC_LOCAL", "PROC_REP", "PARTITIONS", "BATCH_SIZE", "FANOUT", "SAMPLE_PIPELINE",
         "COMM_LAYER", "DIST_PATH", "MESH", "WIRE_DTYPE", "CHECKPOINT_DIR", "CHECKPOINT_EVERY",
+        "KERNEL", "ELL_LEVELS",
     }
     sampled = ref.algorithm.upper() not in t_config.SUPPORTED_ALGORITHMS
-    if unsupported or sampled or "auto" in (ref.mesh, ref.wire_dtype):
+    if unsupported or sampled:
         with pytest.raises(ValueError):
             t_config.InputInfo.read_from_cfg_file(path)
         return
     got = t_config.InputInfo.read_from_cfg_file(path)
     for field in HONOURED + ("partitions", "comm_layer", "dist_path", "mesh", "wire_dtype",
-                             "checkpoint_dir", "checkpoint_every"):
+                             "checkpoint_dir", "checkpoint_every", "kernel", "ell_levels"):
         assert getattr(got, field) == getattr(ref, field), field
     assert got.layer_sizes() == ref.layer_sizes()
     assert got.fanouts() == ref.fanouts()
@@ -96,10 +97,15 @@ def test_cfg_parse_agrees_or_refuses(path):
     "PRECISION:bf16", "NO_SUCH_KEY:1",
 ])
 def test_cfg_refuses_unported_keys(tmp_path, line):
+    """Refused at the parse, or (the autotuner's auto axes, while it is
+    off) at the trainer's funnel."""
+    from neutronstarlite_torch.models import get_algorithm
+
     p = tmp_path / "x.cfg"
     p.write_text("ALGORITHM:GCNCPU\nVERTICES:10\nLAYERS:4-2\n" + line + "\n")
     with pytest.raises(ValueError):
-        t_config.InputInfo.read_from_cfg_file(str(p))
+        cfg = t_config.InputInfo.read_from_cfg_file(str(p))
+        get_algorithm(cfg.algorithm).check_cfg(cfg)
 
 
 @pytest.mark.parametrize("line,field,value", [

@@ -235,12 +235,16 @@ def test_ggcn_runs_its_edge_chain_under_optim_kernel(host_graphs):
 
 
 def test_kernel_fused_edge_is_refused(tmp_path, host_graphs):
-    """KERNEL:auto (the autotuner's choice) is refused; KERNEL:fused_edge
-    is refused on a family without the fused op (GCN) and beside
-    OPTIM_KERNEL, as in JAX, and accepted on GAT and GGCN."""
+    """KERNEL:auto (the autotuner's choice) parses and is refused at the
+    funnel while the autotuner is off; KERNEL:fused_edge is refused on a
+    family without the fused op (GCN) and beside OPTIM_KERNEL, as in JAX,
+    and accepted on GAT and GGCN."""
     p = tmp_path / "gat.cfg"
     p.write_text("ALGORITHM:GATCPU\nVERTICES:10\nLAYERS:4-2\nKERNEL:auto\n")
     with pytest.raises(ValueError, match="autotuner"):
+        t_config.check_supported(InputInfo.read_from_cfg_file(str(p)), False, True)
+    p.write_text("ALGORITHM:GATCPU\nVERTICES:10\nLAYERS:4-2\nKERNEL:fast\n")
+    with pytest.raises(ValueError, match="KERNEL must be"):
         InputInfo.read_from_cfg_file(str(p))
     p.write_text("ALGORITHM:GATCPU\nVERTICES:10\nLAYERS:4-2\nKERNEL:\n")
     assert InputInfo.read_from_cfg_file(str(p)).kernel == ""

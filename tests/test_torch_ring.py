@@ -351,13 +351,16 @@ def test_check_mesh_cfg_refuses_as_jax(kw, match):
 
 
 def test_mesh_and_wire_auto_and_env_overrides(monkeypatch, tmp_path):
-    """MESH:auto and WIRE_DTYPE:auto (cfg and env) are refused naming the
-    tune slice; NTS_MESH and NTS_WIRE_DTYPE win over the cfg, as in JAX."""
-    for line in ("MESH:auto", "WIRE_DTYPE:auto"):
+    """MESH:auto and WIRE_DTYPE:auto (cfg and env) parse and are left to
+    the autotuner, which refuses them while it is off; NTS_MESH and
+    NTS_WIRE_DTYPE win over the cfg, as in JAX."""
+    for line, field in (("MESH:auto", "mesh"), ("WIRE_DTYPE:auto", "wire_dtype")):
         p = tmp_path / "x.cfg"
         p.write_text(f"ALGORITHM:GCNDIST\nPARTITIONS:4\n{line}\n")
-        with pytest.raises(ValueError, match="tune slice"):
-            InputInfo.read_from_cfg_file(str(p))
+        cfg = InputInfo.read_from_cfg_file(str(p))
+        assert getattr(cfg, field) == "auto"
+        with pytest.raises(ValueError, match="NTS_TUNE"):
+            get_algorithm("GCNDIST").check_cfg(cfg)
     p.write_text("ALGORITHM:GCNDIST\nPARTITIONS:4\nMESH:2x2\nWIRE_DTYPE:BF16\n"
                  "DIST_PATH:ring_blocked_sim\nCOMM_LAYER:mirror\n")
     cfg = InputInfo.read_from_cfg_file(str(p))
@@ -375,8 +378,11 @@ def test_mesh_and_wire_auto_and_env_overrides(monkeypatch, tmp_path):
     t_part.fold_mesh_env(cfg)
     assert cfg.mesh == "4,1"
     monkeypatch.setenv("NTS_MESH", "auto")
-    with pytest.raises(ValueError, match="tune slice"):
-        t_part.fold_mesh_env(InputInfo())
+    cfg = InputInfo()
+    t_part.fold_mesh_env(cfg)
+    assert cfg.mesh == "auto"
+    with pytest.raises(ValueError, match="unresolved"):
+        t_part.mesh_spec_of(cfg)
 
 
 def test_ring_schedule_and_wire_formulas_match_jax(cora):

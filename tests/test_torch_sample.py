@@ -396,10 +396,14 @@ def test_sampled_cfg_keys_and_refusals(tmp_path, monkeypatch):
     assert (cfg.batch_size, cfg.fanouts(), cfg.sample_pipeline) == (
         ref.batch_size, ref.fanouts(), ref.sample_pipeline)
     assert t_config.InputInfo().batch_size == JInfo().batch_size
-    for bad in ("SAMPLE_PIPELINE:auto", "SAMPLE_PIPELINE:tpipelined"):
-        p.write_text(bad + "\n")
-        with pytest.raises(ValueError, match="SAMPLE_PIPELINE"):
-            t_config.InputInfo.read_from_cfg_file(str(p))
+    p.write_text("SAMPLE_PIPELINE:tpipelined\n")
+    with pytest.raises(ValueError, match="SAMPLE_PIPELINE"):
+        t_config.InputInfo.read_from_cfg_file(str(p))
+    # auto parses; unresolved it is refused, in JAX's words
+    p.write_text("SAMPLE_PIPELINE:auto\n")
+    auto = t_config.InputInfo.read_from_cfg_file(str(p))
+    with pytest.raises(ValueError, match="resolved by the tuner"):
+        resolve_sample_pipeline(auto)
     monkeypatch.setenv("NTS_SAMPLE_PIPELINE", "device")
     assert resolve_sample_pipeline(cfg) == "device"
     monkeypatch.setenv("NTS_SAMPLE_PIPELINE", "")
