@@ -224,7 +224,34 @@ Phases (each prints its lines; any failure exits non-zero):
    NTS_DIST_SIMULATE=1) and configs/gcn_dist_mesh_smoke.cfg (with
    NTS_MESH=auto) unchanged through run.main, measure then cached: the
    same decision, no trial on the replay. (b) to (f) leave both kernels'
-   counts at 0.
+   counts at 0;
+19. the rest of the distributed plane on the P=8 twin, phase 4's graph,
+   GCNDIST 602-128-41 bf16, drop 0: (a) OPTIM_KERNEL:1 (the per-shard
+   rectangular ell_level tables) with NTS_ELASTIC=1,
+   NTS_HEARTBEAT_MISS_K=1, rank_loss@partition=3,epoch=2,
+   CHECKPOINT_EVERY:1, 6 epochs under supervised_run: the loss detected and
+   replanned 8 -> 7, a finite loss, the heartbeat / rank_loss / replan
+   (moved_vertices) / recovery(action=replan) records,
+   dist.active_partitions 8 -> 7, ell_level launched on every epoch after
+   the replan (its counts set to 0 before the run and read after it), and
+   each rebuilt shard's kernel output (602 and 128, both directions)
+   against its plain version (BF16_TOL); the replan and rebuild seconds,
+   the epoch time before and after and the peak memory are printed; (b)
+   the replan oracle: an 8-partition trainer replanned to 7 and resumed
+   from its step-3 checkpoint against a fresh P=7 run from a copy of it,
+   loss curves and final parameters bitwise; (c)
+   slow_rank@partition=5,ms=<5x the step>,times=3 with NTS_STRAGGLER=1:
+   exactly one straggler record, naming partition 5, and no rank_loss;
+   (e) the DEBUGINFO report of GCNDIST on the ELL route and of GATDIST's
+   chain (phase 7's unit-weight graph, f32): every bucket >= 0, the
+   buckets summing to the step within DEBUG_SUM_RTOL; (f) CKPT_BACKEND:orbax
+   (torch.distributed.checkpoint): 3 epochs, then a new trainer resumed to
+   6, bitwise the straight 6-epoch curve; (d) NTS_NUMERICS=1 on
+   DIST_PATH:ring_blocked_sim WIRE_DTYPE:bf16: the loss curve bitwise the
+   one with numerics off, tensor_stats for params, grads, activations,
+   logits and the wire payload, and with NTS_QUANT_PROBE=1 the
+   wire.quant_rel_err gauge within QUANT_ATOL of the host's value on the
+   same payload. Only (a), (b), (e) and (f) run a kernel (ell_level).
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -4037,6 +4064,334 @@ def phase_tune(dev, g, seed: int, results, scale: float) -> None:
     log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
 
 
+ELASTIC_EPOCHS = 6
+ELASTIC_LOST = 3  # the partition phase 19 (a) kills
+STRAGGLER_PART = 5
+DEBUG_SUM_RTOL = 0.10  # the DEBUGINFO buckets against the whole step
+QUANT_ATOL = 1e-6
+ELASTIC_ENV = ("NTS_DIST_SIMULATE", "NTS_ELASTIC", "NTS_HEARTBEAT_MISS_K", "NTS_FAULT_SPEC",
+               "NTS_BACKOFF_BASE_S", "NTS_METRICS_DIR", "NTS_STRAGGLER", "NTS_NUMERICS",
+               "NTS_QUANT_PROBE", "NTS_DEBUGINFO", "NTS_PALLAS_RESIDENT", "NTS_CKPT_BACKEND",
+               "NTS_WIRE_DTYPE", "NTS_TUNE", "NTS_MAX_RESTARTS")
+
+
+def debuginfo_buckets(report: str) -> dict:
+    """{key: ms} of a DEBUGINFO report's ``#key=value(ms)`` lines."""
+    out = {}
+    for line in report.splitlines():
+        if line.startswith("#") and line.endswith("(ms)"):
+            key, _, val = line[1:-4].partition("=")
+            out[key] = float(val)
+    return out
+
+
+def phase_elastic(dev, g, seed: int, results) -> None:
+    """Phase 19 (see the module docstring): the rest of the distributed
+    plane on the P=8 twin at phase 4's graph, GCNDIST 602-128-41 bf16,
+    drop 0: (a) a rank loss replanned 8 -> 7 under supervised_run on the
+    ELL route, the kernel on the rebuilt 7-shard tables; (b) the replan
+    oracle, bitwise; (c) a slow_rank straggler; (d) numerics and the
+    quantisation probe on the bf16 ring; (e) DEBUGINFO for GCNDIST (ELL)
+    and GATDIST (chain); (f) the sharded checkpoint backend's resume."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch.models.gat_dist import DistGATTrainer
+    from neutronstarlite_torch.models.gcn_dist import DistGCNTrainer
+    from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
+    from neutronstarlite_torch.resilience import elastic, faults
+    from neutronstarlite_torch.resilience.supervisor import supervised_run
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    log(f"phase 19 on {smi}")
+    t_phase = time.perf_counter()
+    failures = results["failures"]
+    src, dst = results["edges"]
+    datum = results["datum"]
+
+    def check(name, ok, detail):
+        if not ok:
+            failures.append(f"phase 19 {name}: {detail}")
+            log(f"FAILED {failures[-1]}")
+
+    def cfg_of(epochs, **kw):
+        cfg = InputInfo(algorithm="GCNDIST", vertices=g.v_num, layer_string="602-128-41",
+                        epochs=epochs, drop_rate=0.0, precision="bfloat16", learn_rate=0.01,
+                        weight_decay=1e-4, decay_rate=0.97, decay_epoch=100,
+                        partitions=DIST_P, optim_kernel=True)
+        for k, val in kw.items():
+            setattr(cfg, k, val)
+        return cfg
+
+    def build(cfg, cls=DistGCNTrainer, graph=g):
+        t0 = time.perf_counter()
+        tr = cls.from_arrays(cfg, src, dst, datum, seed=seed, device=dev, host_graph=graph)
+        return tr, time.perf_counter() - t0
+
+    def fresh(tr, **kw):
+        """The trainer's parameters and histories back to the seed's."""
+        for k, val in kw.items():
+            setattr(tr.cfg, k, val)
+        tr.init_model()
+        tr.epoch_times.clear()
+        tr.loss_history.clear()
+        tr._first_epoch_trained = None
+
+    def of(recs, kind):
+        return [r for r in recs if r["event"] == kind]
+
+    saved_env = {k: os.environ.get(k) for k in ELASTIC_ENV}
+    for k in ELASTIC_ENV:
+        os.environ.pop(k, None)
+    os.environ.update(NTS_DIST_SIMULATE="1", NTS_BACKOFF_BASE_S="0")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    faults.reset()
+    elastic.reset()
+    try:
+        # ---- (a) rank loss -> survivor replan 8 -> 7 through the ELL kernel -------------
+        os.environ.update(NTS_ELASTIC="1", NTS_HEARTBEAT_MISS_K="1",
+                          NTS_FAULT_SPEC=f"rank_loss@partition={ELASTIC_LOST},epoch=2",
+                          NTS_METRICS_DIR=os.path.join(tmp, "a_obs"))
+        faults.reset()
+        tr, t_build = build(cfg_of(ELASTIC_EPOCHS, checkpoint_dir=os.path.join(tmp, "a_ck"),
+                                   checkpoint_every=1))
+        p_before = tr.metrics.snapshot()["gauges"].get("dist.active_partitions")
+        marks = []  # (epoch, partitions, seconds, ell_level launches so far)
+        orig_end = tr.end_of_epoch
+
+        def spy(epoch, seconds, stages):
+            torch.cuda.synchronize()
+            marks.append((epoch, tr.dist.partitions, seconds, ell_level_aggregate.launches))
+            orig_end(epoch, seconds, stages)
+
+        tr.end_of_epoch = spy
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = supervised_run(tr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tr.metrics.close()
+        recs = read_stream(os.path.join(tmp, "a_obs"))
+        p_after = tr.metrics.snapshot()["gauges"].get("dist.active_partitions")
+        replans, losses_rec = of(recs, "replan"), of(recs, "rank_loss")
+        recov = [r for r in of(recs, "recovery") if r.get("action") == "replan"]
+        check("(a) replan 8 -> 7", tr.dist.partitions == DIST_P - 1 and len(replans) == 1
+              and replans[0]["from_partitions"] == DIST_P
+              and replans[0]["to_partitions"] == DIST_P - 1
+              and replans[0].get("moved_vertices", 0) > 0, replans)
+        check("(a) finite loss", math.isfinite(res["loss"]) and len(tr.loss_history)
+              == ELASTIC_EPOCHS, (res["loss"], tr.loss_history))
+        check("(a) records", bool(of(recs, "heartbeat")) and len(losses_rec) == 1
+              and losses_rec[0]["partition"] == ELASTIC_LOST and len(recov) == 1
+              and recov[0].get("partitions") == DIST_P - 1,
+              (losses_rec, recov, len(of(recs, "heartbeat"))))
+        check("(a) dist.active_partitions", (p_before, p_after) == (DIST_P, DIST_P - 1),
+              (p_before, p_after))
+        check("(a) ell_level only", launches["ell_level"] > 0 and not launches["bsp_ell"],
+              launches)
+        per_epoch, last = [], 0
+        for epoch, parts, secs, n in marks:
+            per_epoch.append((epoch, parts, n - last, secs))
+            last = n
+        after = [(e, n) for e, parts, n, _ in per_epoch if parts == DIST_P - 1]
+        check("(a) ell_level on every epoch after the replan",
+              len(after) == ELASTIC_EPOCHS - 2 and all(n > 0 for _, n in after), per_epoch)
+        ex = tr.compute_graph
+        n_src = tr.dist.partitions * tr.dist.vp
+        rng = np.random.default_rng(seed + 19)
+        err = 0.0
+        for f in (602, 128):
+            x = torch.from_numpy(rng.standard_normal((n_src, f), dtype=np.float32)).to(
+                dev, torch.bfloat16)
+            for direction in ("fwd", "bwd"):
+                shards = getattr(ex.tables, direction)
+                check(f"(a) {direction} shards", sorted(shards) == list(range(DIST_P - 1)),
+                      sorted(shards))
+                for p, t in shards.items():
+                    got = ell_level_aggregate(t, x)
+                    if got.shape != (tr.dist.vp, f):
+                        raise AssertionError(f"(a) shard {p}: shape {tuple(got.shape)}")
+                    err = max(err, check_close(f"phase 19 (a) rebuilt {direction} shard {p} "
+                                               f"f={f} bf16", got, t.plain(x), BF16_TOL))
+        before_s = [s for _, parts, _, s in per_epoch if parts == DIST_P][1:]
+        after_s = [s for _, parts, _, s in per_epoch if parts == DIST_P - 1][1:]
+        log(f"(a) GCNDIST ELL P={DIST_P} -> {tr.dist.partitions} (vp {tr.dist.vp}, n_src "
+            f"{n_src}): rank_loss of partition {losses_rec[0]['partition'] if losses_rec else '?'}"
+            f" at epoch {losses_rec[0]['epoch'] if losses_rec else '?'}; replan "
+            f"{replans[0]['seconds'] if replans else float('nan'):.2f} s (the host rebuild of "
+            f"the P=7 plan; the P=8 table build took {tr.build_model_s:.2f} s, the trainer "
+            f"{t_build:.2f} s), moved_vertices "
+            f"{replans[0].get('moved_vertices') if replans else '?'}; losses "
+            f"{[round(x, 6) for x in tr.loss_history]}; per epoch (epoch, P, ell_level "
+            f"launches, s) {[(e, p, n, round(s, 4)) for e, p, n, s in per_epoch]}; steady "
+            f"epoch before {np.median(before_s) if before_s else float('nan'):.4f} s, after "
+            f"{np.median(after_s) if after_s else float('nan'):.4f} s; rebuilt 7-shard "
+            f"kernel vs plain max abs err {err:.3e}; peak device memory {peak:.2f} GiB; "
+            f"supervised wall {wall:.1f} s; {len(of(recs, 'heartbeat'))} heartbeats")
+        results["elastic_per_epoch"] = per_epoch
+        del tr, ex
+        torch.cuda.empty_cache()
+        for k in ("NTS_ELASTIC", "NTS_HEARTBEAT_MISS_K", "NTS_FAULT_SPEC", "NTS_METRICS_DIR"):
+            os.environ.pop(k, None)
+        faults.reset()
+        elastic.reset()
+
+        # ---- (b) the replan oracle, bitwise ---------------------------------------------
+        ck_a, ck_b = os.path.join(tmp, "b_ck_a"), os.path.join(tmp, "b_ck_b")
+        ta, _ = build(cfg_of(3, checkpoint_dir=ck_a, checkpoint_every=1))
+        ta.run()
+        shutil.copytree(ck_a, ck_b)
+        ta.cfg.epochs = ELASTIC_EPOCHS
+        elastic.replan_survivors(ta, ELASTIC_LOST)
+        elastic.reset()
+        ta.run()
+        tb, _ = build(cfg_of(ELASTIC_EPOCHS, partitions=DIST_P - 1, checkpoint_dir=ck_b,
+                             checkpoint_every=1))
+        tb.run()
+        torch.cuda.synchronize()
+        post_a = ta.loss_history[3:]
+        same_params = all(torch.equal(a, b) for a, b in zip(ta.flat_params, tb.flat_params))
+        check("(b) oracle bitwise", post_a == tb.loss_history and same_params,
+              (post_a, tb.loss_history, same_params))
+        log(f"(b) replanned 8 -> 7 and resumed at 3 vs a fresh P=7 run from a copy of the "
+            f"checkpoint: losses {[round(x, 6) for x in post_a]} vs "
+            f"{[round(x, 6) for x in tb.loss_history]}, bitwise "
+            f"{post_a == tb.loss_history}; final parameters bitwise {same_params}")
+        del ta, tb
+        torch.cuda.empty_cache()
+
+        # ---- (c) the straggler chaos ---------------------------------------------------
+        os.environ.update(NTS_STRAGGLER="1", NTS_METRICS_DIR=os.path.join(tmp, "c_obs"))
+        tc, _ = build(cfg_of(5))
+        for _ in range(2):
+            tc.train_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tc.train_step()
+        torch.cuda.synchronize()
+        epoch_ms = (time.perf_counter() - t0) / 3 * 1e3
+        sleep_ms = max(5.0 * epoch_ms, 20.0)
+        os.environ["NTS_FAULT_SPEC"] = (f"slow_rank@partition={STRAGGLER_PART},"
+                                        f"ms={sleep_ms:.1f},times=3")
+        faults.reset()
+        fresh(tc)
+        tc.run()
+        tc.metrics.close()
+        recs = read_stream(os.path.join(tmp, "c_obs"))
+        strag = of(recs, "straggler")
+        check("(c) one straggler naming partition 5",
+              [r["partition"] for r in strag] == [STRAGGLER_PART], strag)
+        check("(c) no rank_loss", not of(recs, "rank_loss"), of(recs, "rank_loss"))
+        log(f"(c) slow_rank@partition={STRAGGLER_PART},ms={sleep_ms:.1f},times=3 (about 5x "
+            f"the {epoch_ms:.2f} ms step) with NTS_STRAGGLER=1: straggler records "
+            f"{[(r['partition'], r['epoch'], round(r['excess'], 2)) for r in strag]}, "
+            f"rank_loss records {len(of(recs, 'rank_loss'))}, slow_rank injections "
+            f"{sum(1 for r in of(recs, 'fault') if r.get('kind') == 'slow_rank')}")
+        for k in ("NTS_STRAGGLER", "NTS_FAULT_SPEC", "NTS_METRICS_DIR"):
+            os.environ.pop(k, None)
+        faults.reset()
+
+        # ---- (e) DEBUGINFO: GCNDIST on the ELL route, GATDIST's chain -------------------
+        reports = {"GCNDIST ELL": tc.debug_info()}
+        gat = results["gat"]
+        tg, _ = build(InputInfo(algorithm="GATDIST", vertices=g.v_num,
+                                layer_string="602-128-41", epochs=1, drop_rate=0.0,
+                                learn_rate=0.01, weight_decay=1e-4, decay_rate=0.97,
+                                decay_epoch=100, partitions=DIST_P),
+                      cls=DistGATTrainer, graph=gat["graph"])
+        reports["GATDIST chain"] = tg.debug_info()
+        del tg
+        torch.cuda.empty_cache()
+        for name, report in reports.items():
+            b = debuginfo_buckets(report)
+            parts = sum(b.get(k, -1.0) for k in ("nn_time", "graph_time", "backward_time",
+                                                  "update_time"))
+            step = b.get("all_train_step_time", 0.0)
+            check(f"(e) {name} buckets", len(b) == 6 and all(v >= 0 for v in b.values())
+                  and abs(parts - step) <= DEBUG_SUM_RTOL * step, b)
+            log(f"(e) DEBUGINFO {name} (CUDA events, median of 3): "
+                f"{' '.join(f'{k}={v:.3f}' for k, v in b.items())} ms; buckets sum "
+                f"{parts:.3f} ms vs step {step:.3f} ms")
+
+        # ---- (f) the sharded checkpoint backend: 3 + 3 against 6 ------------------------
+        fresh(tc, epochs=ELASTIC_EPOCHS)
+        tc.run()
+        straight = list(tc.loss_history)
+        ck_f = os.path.join(tmp, "f_ck")
+        fresh(tc, epochs=3, checkpoint_dir=ck_f, checkpoint_every=1, ckpt_backend="orbax")
+        t0 = time.perf_counter()
+        tc.run()
+        first = list(tc.loss_history)
+        t_first = time.perf_counter() - t0
+        del tc
+        td, _ = build(cfg_of(ELASTIC_EPOCHS, checkpoint_dir=ck_f, checkpoint_every=1,
+                             ckpt_backend="orbax"))
+        td.run()
+        torch.cuda.synchronize()
+        resumed = first + td.loss_history
+        steps = sorted(os.listdir(os.path.join(ck_f, "orbax")))
+        check("(f) sharded resume bitwise", resumed == straight and td._first_epoch_trained == 3,
+              (resumed, straight, td._first_epoch_trained))
+        log(f"(f) CKPT_BACKEND:orbax (torch.distributed.checkpoint, asynchronous): 3 epochs "
+            f"({t_first:.2f} s with a save per epoch), then a new trainer resumed at "
+            f"{td._first_epoch_trained}: losses {[round(x, 6) for x in resumed]} vs the "
+            f"straight 6 {[round(x, 6) for x in straight]}, bitwise {resumed == straight}; "
+            f"steps kept {steps}")
+        del td
+        torch.cuda.empty_cache()
+
+        # ---- (d) numerics and the quantisation probe on the bf16 ring -------------------
+        os.environ.update(NTS_QUANT_PROBE="1", NTS_METRICS_DIR=os.path.join(tmp, "d_obs"))
+        tn, _ = build(cfg_of(4, optim_kernel=False, dist_path="ring_blocked_sim",
+                             wire_dtype="bf16"))
+        zero_launches()
+        tn.run()
+        off, off_s = list(tn.loss_history), steady_s(tn.epoch_times)
+        fresh(tn)
+        os.environ["NTS_NUMERICS"] = "1"
+        tn.run()
+        on = list(tn.loss_history)
+        check("(d) no kernel", not any(kernel_launches().values()), kernel_launches())
+        gauge = tn.metrics.snapshot()["gauges"].get("wire.quant_rel_err")
+        x64 = tn.feature.detach().cpu().double()
+        q64 = tn.feature.detach().cpu().to(torch.bfloat16).double()
+        host = float((q64 - x64).square().mean().sqrt() / x64.square().mean().sqrt())
+        tn.metrics.close()
+        recs = read_stream(os.path.join(tmp, "d_obs"))
+        names = {r["name"] for r in of(recs, "tensor_stats")}
+        want = {"params/l0", "params/l1", "grads/l0", "grads/l1", "acts/l0", "acts/l1",
+                "logits", "wire/l0", "wire.payload/l0"}
+        check("(d) numerics bitwise", on == off, (on, off))
+        check("(d) tensor_stats groups", want <= names, sorted(names))
+        check("(d) quant_rel_err", gauge is not None and abs(gauge - host) <= QUANT_ATOL,
+              (gauge, host))
+        log(f"(d) GCNDIST bf16 ring_blocked_sim WIRE_DTYPE:bf16: losses off "
+            f"{[round(x, 6) for x in off]}, NTS_NUMERICS=1 bitwise {on == off}; "
+            f"tensor_stats groups {sorted(names)}; wire.quant_rel_err {gauge!r} vs host "
+            f"{host!r} (|d| {abs((gauge or 0) - host):.2e}); steady epoch off {off_s:.4f} s, "
+            f"on {steady_s(tn.epoch_times):.4f} s")
+        del tn
+        torch.cuda.empty_cache()
+    finally:
+        faults.reset()
+        elastic.reset()
+        for k, val in saved_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1, help="fraction of Reddit's V and E")
@@ -4087,6 +4442,7 @@ def main(argv=None) -> int:
     phase_ring(dev, g, args.seed, results)
     phase_mirror(dev, g, args.seed, results, ggcn_chain, args.scale)
     phase_tune(dev, g, args.seed, results, args.scale)
+    phase_elastic(dev, g, args.seed, results)
     if results["failures"]:
         for msg in results["failures"]:
             log(f"FAILED {msg}")

@@ -7,11 +7,23 @@
 loss, per-split accuracy and the report lines. Trainers are registered by
 their ALGORITHM strings, as in the JAX registry.
 
-Checkpoints (``CHECKPOINT_DIR``, ``CHECKPOINT_EVERY``): the run loop calls
-``ckpt_begin`` (resume, or the supervisor's rollback), ``emit_epoch`` (the
-health guards) and ``ckpt_epoch_end`` each epoch, and ``ckpt_final``. The
+Checkpoints (``CHECKPOINT_DIR``, ``CHECKPOINT_EVERY``, ``CKPT_BACKEND``):
+the run loop calls ``ckpt_begin`` (resume, or the supervisor's rollback),
+``emit_epoch`` (the health guards) and ``ckpt_epoch_end`` each epoch, and
+``ckpt_final`` (which drains the sharded backend's saves in flight). The
 saved state is the trainer's ``checkpoint_state()`` in the reference's
-structure and leaf order, so each package restores the other's files.
+structure and leaf order, so each package restores the other's npz files.
+On a joined world of more than one rank (the distributed trainers' ranks)
+only world rank 0 writes npz checkpoints, and CHECKPOINT_DIR need not be
+shared: world rank 0 reads its checkpoint, broadcasts the resume epoch and,
+unless it is 0, the flat parameter and Adam state, and every rank applies
+it (JAX's ``ckpt_begin`` rule). The sharded backend restores on every rank
+at once when every rank sees the same completed step, else through the
+same broadcast.
+
+``NTS_ELASTIC=1`` (resilience/elastic) is checked at the funnel
+(``_check_elastic``): it refuses on every class without
+``supports_elastic`` (all but the fuse-op distributed family), as JAX does.
 
 Run metrics (``obs/``), as in the reference: each trainer opens a metrics
 registry (``obs.open_run``; the JSONL stream under ``NTS_METRICS_DIR``), a
@@ -59,7 +71,7 @@ from neutronstarlite_torch.obs import exporter as obs_exporter
 from neutronstarlite_torch.obs import ledger as obs_ledger
 from neutronstarlite_torch.obs import numerics as obs_numerics
 from neutronstarlite_torch.obs.slo import SloEngine
-from neutronstarlite_torch.resilience import events, guards
+from neutronstarlite_torch.resilience import elastic, events, guards
 from neutronstarlite_torch.utils import checkpoint as ckpt
 from neutronstarlite_torch.utils import tree as tree_util
 from neutronstarlite_torch.utils.config import (
@@ -126,6 +138,8 @@ class ToolkitBase:
     supports_fused_edge = False  # KERNEL:fused_edge (GAT, GGCN and their dist twins)
     supports_sample_pipeline = False  # SAMPLE_PIPELINE (the sampled trainer)
     supports_dist_path = False  # DIST_PATH, WIRE_DTYPE, MESH (the GCN dist family)
+    # NTS_ELASTIC=1: liveness and the survivor replan (the fuse-op dist family)
+    supports_elastic = False
 
     @classmethod
     def check_cfg(cls, cfg: InputInfo) -> None:
@@ -202,8 +216,22 @@ class ToolkitBase:
 
         tune_select.resolve_auto_knobs(self)
 
+    def _check_elastic(self) -> None:
+        """``NTS_ELASTIC=1`` refuses where there is no partitioned plan to
+        rebuild, instead of letting the rank loss it was armed against end
+        the run."""
+        if elastic.elastic_enabled() and not type(self).supports_elastic:
+            raise ValueError(
+                f"NTS_ELASTIC=1 is not available for ALGORITHM {self.cfg.algorithm!r}: "
+                "elastic degraded-mode training (rank-loss detection + survivor replan) "
+                "serves the fuse-op dist family (GCNDIST / GINDIST / COMMNETDIST and "
+                "their eager variants); single-chip and mirror-family trainers have no "
+                "partitioned plan to rebuild"
+            )
+
     def _finalize_datum(self) -> None:
         self._resolve_tune_autos()
+        self._check_elastic()
         dev = self.device
         self.feature = torch.from_numpy(self.datum.feature).to(dev)
         self.label = torch.from_numpy(self.datum.label.astype(np.int64)).to(dev)
@@ -284,8 +312,12 @@ class ToolkitBase:
         self.opt_state = adam_init(self.flat_params)
 
 
+    def _ckpt_backend(self) -> str:
+        return ckpt.resolve_backend(self.cfg.ckpt_backend)
+
     def save(self, path: str, epoch: int) -> None:
-        ckpt.save_checkpoint(path, self.checkpoint_state(), epoch)
+        ckpt.save_checkpoint(path, self.checkpoint_state(), epoch,
+                             backend=self._ckpt_backend())
 
     def _validate_restored(self, state) -> None:
         """Refuse a checkpoint whose leaf shapes do not fit the model,
@@ -311,7 +343,8 @@ class ToolkitBase:
 
     def restore(self, path: str) -> int:
         """The epoch to resume from (0 when there is no checkpoint)."""
-        got = ckpt.restore_checkpoint(path, self.checkpoint_state())
+        got = ckpt.restore_checkpoint(path, self.checkpoint_state(),
+                                      backend=self._ckpt_backend())
         if got is None:
             return 0
         state, step = got
@@ -329,7 +362,7 @@ class ToolkitBase:
         no intact step, the model is re-initialised instead of training
         on with the poisoned state."""
         retry = self._supervised_retry
-        start = self.restore(self.cfg.checkpoint_dir) if self.cfg.checkpoint_dir else 0
+        start = self._ckpt_resume()
         if retry:
             if start == 0 and retry == "rollback":
                 log.warning(
@@ -349,6 +382,52 @@ class ToolkitBase:
         self._supervised_retry = False
         return start
 
+    def _ckpt_resume(self) -> int:
+        """The restored epoch (0 without CHECKPOINT_DIR). With a joined
+        world of more than one rank (``self.world``) world rank 0 reads its
+        checkpoint on the host and broadcasts the epoch, then, unless it is
+        0, the state; the sharded backend restores on every rank when every
+        rank sees the same completed step."""
+        path = self.cfg.checkpoint_dir
+        if not path:
+            return 0
+        world = getattr(self, "world", None)
+        if world is None or world.world <= 1:
+            return self.restore(path)
+        backend = self._ckpt_backend()
+        dev = self.device
+        if backend == "orbax":
+            step = ckpt.orbax_latest_step(path)
+            seen = torch.tensor([-1 if step is None else step] * 2, dtype=torch.int64,
+                                device=dev)
+            seen[1] = -seen[1]
+            lo_neg_hi = world.max_(seen)  # [max step, -min step]
+            if int(lo_neg_hi[0]) == -int(lo_neg_hi[1]) >= 0:
+                return self.restore(path)  # every rank reads the shared step
+        like = self.checkpoint_state()
+        got = (ckpt.restore_checkpoint(path, like, backend=backend, local=True)
+               if world.rank == 0 else None)
+        step_t = torch.tensor([got[1] if got else 0], dtype=torch.int64, device=dev)
+        step = int(world.broadcast_(step_t)[0])
+        if step == 0:  # no checkpoint: no model-sized broadcast
+            return 0
+        src = got[0] if got is not None else like
+        flat = torch.cat([torch.as_tensor(np.asarray(
+            leaf.detach().cpu() if torch.is_tensor(leaf) else leaf),
+            dtype=torch.float64).reshape(-1) for leaf in tree_util.leaves(src)]).to(dev)
+        flat = world.broadcast_(flat).cpu().numpy()
+        leaves, at = [], 0
+        for leaf in tree_util.leaves(like):
+            shape = tuple(np.shape(leaf.detach() if torch.is_tensor(leaf) else leaf))
+            n = int(np.prod(shape))
+            leaves.append(flat[at:at + n].reshape(shape).astype(ckpt._np_dtype(leaf)))
+            at += n
+        state = tree_util.unflatten_like(like, leaves)
+        self._validate_restored(state)
+        self._apply_restored(state)
+        log.info("restored checkpoint at epoch %d from %s (broadcast from rank 0)", step, path)
+        return step
+
     def ckpt_epoch_end(self, epoch: int) -> None:
         cfg = self.cfg
         if cfg.checkpoint_dir and cfg.checkpoint_every > 0 \
@@ -358,6 +437,7 @@ class ToolkitBase:
     def ckpt_final(self) -> None:
         if self.cfg.checkpoint_dir:
             self.save(self.cfg.checkpoint_dir, self.cfg.epochs)
+            ckpt.finalize_checkpoints()  # drain the sharded saves in flight
 
     # ---- run metrics -----------------------------------------------------
     def emit_epoch(self, epoch: int, seconds: float, loss=None,

@@ -9,6 +9,11 @@ forward alone, forward + backward, and the whole step, each timed warm
 over ``n`` runs (median). On a CUDA device each run is timed with CUDA
 events around it; on the CPU with the host clock. ``NTS_DEBUGINFO=1`` on
 the full-batch trainer prints the report after training.
+
+The distributed trainers' report (:func:`format_dist_report`) adds the
+forward with the graph exchange disabled (the same layer widths and
+matmuls, no exchange, no aggregation) and splits the forward into
+``nn_time`` and ``graph_time`` = forward - nn_time, as JAX's does.
 """
 
 from __future__ import annotations
@@ -49,6 +54,20 @@ def format_report(t_fwd: float, t_grad: float, t_step: float) -> str:
     """The reference-shaped ``#key=value(ms)`` lines."""
     return "\n".join([
         "DEBUGINFO:",
+        f"#forward_time={t_fwd * 1000:.3f}(ms)",
+        f"#backward_time={max(t_grad - t_fwd, 0.0) * 1000:.3f}(ms)",
+        f"#update_time={max(t_step - t_grad, 0.0) * 1000:.3f}(ms)",
+        f"#all_train_step_time={t_step * 1000:.3f}(ms)",
+    ])
+
+
+def format_dist_report(t_nn: float, t_fwd: float, t_grad: float, t_step: float) -> str:
+    """The distributed trainers' ``#key=value(ms)`` lines: nn, graph
+    (forward - nn), forward, backward, update and the whole step."""
+    return "\n".join([
+        "DEBUGINFO:",
+        f"#nn_time={t_nn * 1000:.3f}(ms)",
+        f"#graph_time={max(t_fwd - t_nn, 0.0) * 1000:.3f}(ms)",
         f"#forward_time={t_fwd * 1000:.3f}(ms)",
         f"#backward_time={max(t_grad - t_fwd, 0.0) * 1000:.3f}(ms)",
         f"#update_time={max(t_step - t_grad, 0.0) * 1000:.3f}(ms)",

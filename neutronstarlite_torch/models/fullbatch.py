@@ -56,7 +56,8 @@ Observability, as in the reference:
 - ``NTS_PROFILE_DIR`` records a ``torch.profiler`` trace of the epochs from
   the second one on;
 - ``NTS_DEBUGINFO=1`` prints the forward / backward / update report after
-  training (``models/debuginfo.py``);
+  training (``models/debuginfo.py``; a trainer with an nn-only forward,
+  ``nn_only_forward``, adds the nn / graph split: the distributed ones);
 - GAT and GGCN set the ``kernel.path`` and
   ``kernel.edge_hbm_bytes_per_epoch`` gauges (and the fused tables'
   ``kernel.fused_*`` gauges); the edge chain's estimate counts the graph's
@@ -137,6 +138,11 @@ class FullBatchTrainer(ToolkitBase):
     edge_family = False
     # the step's program_cost label (obs/cost)
     cost_label = "fullbatch.train_step"
+    # NTS_NUMERICS=1 runs the stats step (the distributed mirror family, as
+    # in JAX, trains on without it)
+    supports_numerics = True
+    # NTS_DEBUGINFO=1 prints the report after training
+    supports_debuginfo = True
 
     @staticmethod
     def edge_score_channels(f_out: int) -> int:
@@ -262,33 +268,37 @@ class FullBatchTrainer(ToolkitBase):
         reductions on the device; returns (loss, logits, stats). The taps
         only keep references to the layers' outputs, so the step's math is
         the default step's."""
-        for p in self.flat_params:
-            p.grad = None
         acts = []
 
         def tap(i, h):
             acts.append(h)
             return h
 
-        logits = self.forward_taped(self.params, self.compute_graph, self.feature, tap)
-        if logits is None:
-            logits = self.model_forward(self.params, self.compute_graph, self.feature, True)
-        loss = self.masked_nll_loss(logits, self.label, self.train01)
-        loss.backward()
+        loss, logits = self._forward_backward(tap)
         grads = [p.grad for p in self.flat_params]
         adam_update(self.flat_params, grads, self.opt_state, self.adam_cfg)
+        # a narrowed wire (the distributed ring's WIRE_DTYPE) adds its
+        # layer-0 payload at the wire dtype and its quantisation error
+        wire_dtype = getattr(self, "wire_dtype", None)
         stats = numerics.step_stats(params=self.params,
                                     grads=param_tree(self.params, grads),
-                                    acts=acts, logits=logits)
-        return loss.detach(), logits.detach(), stats
+                                    acts=acts, logits=logits,
+                                    wire=self.feature if wire_dtype is not None else None,
+                                    wire_dtype=wire_dtype)
+        return loss, logits, stats
 
-    def _forward_backward(self):
+    def _forward_backward(self, tap=None):
         """Forward, loss and backward of one epoch, the gradients left on
         the parameters; returns (loss, logits), detached. The step's first
-        half (``NTS_TRACE_STEP`` and DEBUGINFO time it alone)."""
+        half (``NTS_TRACE_STEP`` and DEBUGINFO time it alone). ``tap``
+        runs ``forward_taped`` (the stats step's activations)."""
         for p in self.flat_params:
             p.grad = None
-        logits = self.model_forward(self.params, self.compute_graph, self.feature, True)
+        logits = None
+        if tap is not None:
+            logits = self.forward_taped(self.params, self.compute_graph, self.feature, tap)
+        if logits is None:
+            logits = self.model_forward(self.params, self.compute_graph, self.feature, True)
         loss = self.masked_nll_loss(logits, self.label, self.train01)
         loss.backward()
         return loss.detach(), logits.detach()
@@ -325,20 +335,35 @@ class FullBatchTrainer(ToolkitBase):
         entries.append((None, "logits", "logits", logits))
         return entries
 
+    def nn_only_forward(self, train: bool = True):
+        """DEBUGINFO's nn-only logits: the model with its graph exchange
+        disabled, at the true layer widths. A trainer that does not
+        override it has no nn / graph split in its report."""
+        raise NotImplementedError
+
     def debug_info(self, n: int = 3) -> str:
-        """The DEBUGINFO report: the forward, forward+backward and the whole
+        """The DEBUGINFO report: the forward (and, with ``nn_only_forward``,
+        the forward without the exchange), forward+backward and the whole
         step, each timed warm (``models/debuginfo.py``). The parameters and
         the optimizer state are put back afterwards."""
         saved = [t.detach().clone() for t in self.flat_params]
         opt = self.opt_state
         saved_opt = AdamState([t.clone() for t in opt.m], [t.clone() for t in opt.v], opt.step)
 
+        def loss_of(logits):
+            return self.masked_nll_loss(logits, self.label, self.train01)
+
         def fwd():
             with torch.no_grad():
-                return self.masked_nll_loss(
-                    self.model_forward(self.params, self.compute_graph, self.feature, True),
-                    self.label, self.train01)
+                return loss_of(self.model_forward(self.params, self.compute_graph,
+                                                  self.feature, True))
 
+        def nn_only():
+            with torch.no_grad():
+                return loss_of(self.nn_only_forward(True))
+
+        dist_report = type(self).nn_only_forward is not FullBatchTrainer.nn_only_forward
+        t_nn = debuginfo.time_median(nn_only, self.device, n) if dist_report else None
         t_fwd = debuginfo.time_median(fwd, self.device, n)
         t_grad = debuginfo.time_median(self._forward_backward, self.device, n)
         t_step = debuginfo.time_median(self.train_step, self.device, n)
@@ -347,6 +372,8 @@ class FullBatchTrainer(ToolkitBase):
                 t.copy_(v)
                 t.grad = None
             self.opt_state = saved_opt
+        if dist_report:
+            return debuginfo.format_dist_report(t_nn, t_fwd, t_grad, t_step)
         return debuginfo.format_report(t_fwd, t_grad, t_step)
 
     def _epoch_step(self, split: bool):
@@ -375,13 +402,16 @@ class FullBatchTrainer(ToolkitBase):
         return loss, logits, stats, {"step_dispatch": t_disp - t0,
                                      "step_device": get_time() - t_disp}
 
+    def end_of_epoch(self, epoch: int, seconds: float, stages: dict) -> None:
+        """Hook after each epoch's records, before its checkpoint."""
+
     def run(self) -> Dict[str, Any]:
         cfg = self.cfg
         log.info(
             "GNNmini::Engine[torch.%s] running [%d] Epochs on %s",
             type(self).__name__, cfg.epochs, self.device,
         )
-        self._numerics_on = numerics.numerics_enabled()
+        self._numerics_on = numerics.numerics_enabled() and type(self).supports_numerics
         split = os.environ.get("NTS_TRACE_STEP", "0") == "1"
         if split and self._numerics_on:
             log.warning(
@@ -418,6 +448,10 @@ class FullBatchTrainer(ToolkitBase):
                 self.epoch_times.append(dt)
                 self.loss_history.append(float(loss))
                 self.emit_epoch(epoch, dt, loss, stages=stages)
+                # per-partition hooks (the distributed trainers' liveness and
+                # straggler plane): after the epoch's telemetry, before
+                # ckpt_epoch_end, so a detection epoch is never saved
+                self.end_of_epoch(epoch, dt, stages)
                 cadence = epoch % max(1, cfg.epochs // 20) == 0 or epoch == cfg.epochs - 1
                 if cadence and logits is not None:
                     h = logits.float().cpu().numpy()
@@ -427,7 +461,7 @@ class FullBatchTrainer(ToolkitBase):
                     log.info("Epoch %d loss %f", epoch, float(loss))
                 self.ckpt_epoch_end(epoch)
         self.ckpt_final()
-        if os.environ.get("NTS_DEBUGINFO", "0") == "1":
+        if os.environ.get("NTS_DEBUGINFO", "0") == "1" and type(self).supports_debuginfo:
             log.info("%s", self.debug_info())
         if self.skip_final_eval(loss):
             accs = {"train": None, "eval": None, "test": None}

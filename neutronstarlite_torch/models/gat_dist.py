@@ -24,6 +24,12 @@ of all P*vp rows drawn from the epoch's generator, this rank's rows kept)
 follow every layer but the last. ``GGCNDIST`` (``ggcn_dist.py``) swaps the
 layer only.
 
+The distributed plane as in JAX: ``NTS_DEBUGINFO=1`` prints the report
+with the nn / graph split (the nn-only forward replaces each layer's graph
+op by a zero aggregate of its shape; GGCNDIST's likewise); ``NTS_NUMERICS``
+and ``NTS_QUANT_PROBE`` are not read (the trainer runs its default step),
+and ``NTS_ELASTIC=1`` refuses at the funnel (``supports_elastic``).
+
 Refused as in JAX: ``MESH``, and ``DIST_PATH`` on the mirror chain (it is
 no dense-feature path); besides, ``COMM_LAYER`` other than mirror and
 ``KERNEL_TILE`` on the chain, which would be ignored. ``OPTIM_KERNEL`` and
@@ -48,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from neutronstarlite_torch.models.base import register_algorithm
+from neutronstarlite_torch.models.fullbatch import FullBatchTrainer
 from neutronstarlite_torch.models.gat import LEAKY_SLOPE, init_gat_params
 from neutronstarlite_torch.models.gcn_dist import (
     DistGCNTrainer,
@@ -93,6 +100,9 @@ class DistGATTrainer(DistGCNTrainer):
     supports_optim_kernel = False
     supports_fused_edge = True
     supports_dist_path = False  # one exchange: the mirror, or the ring when fused
+    supports_elastic = False  # no survivor replan on the mirror family (JAX's rule)
+    supports_numerics = False  # JAX's edge-family dist trainers run no stats step
+    forward_taped = FullBatchTrainer.forward_taped  # no layer taps, no replay
     slope = LEAKY_SLOPE
 
     def init_params(self, generator: torch.Generator):
@@ -198,13 +208,22 @@ class DistGATTrainer(DistGCNTrainer):
         payload = torch.cat([h, src_half.to(h.dtype)], dim=1)
         return dist_gated_chain(graph, payload, dst_half, h.shape[1], type(self).slope)
 
-    def model_forward(self, params, graph, x, train: bool):
+    def model_forward(self, params, graph, x, train: bool, nn_only: bool = False):
+        """``nn_only``: each layer's graph op replaced by a zero aggregate
+        of its shape (DEBUGINFO's nn-only forward)."""
         ctx = self._layer_ctx(train)
         n = len(params)
         for i, layer in enumerate(params):
             xc = ctx.cast(x)
             h = xc @ ctx.cast(layer["W"])
             src_half, dst_half = self.halves(layer, h, ctx.cast)
-            out = self.edge_layer(graph, h, src_half, dst_half).float()
+            if nn_only:
+                out = torch.zeros_like(h, dtype=torch.float32)
+            else:
+                out = self.edge_layer(graph, h, src_half, dst_half).float()
             x = out if i == n - 1 else ctx.drop(F.relu(out))
         return x
+
+    def nn_only_forward(self, train: bool = True):
+        return self.model_forward(self.params, self.compute_graph, self.feature, train,
+                                  nn_only=True)

@@ -68,11 +68,32 @@ are the autotuner's (``tune/``): resolved at the head of the funnel under
 ``NTS_TUNE``; with the tuner off ``DIST_PATH:auto`` keeps its legacy
 meaning (the ``COMM_LAYER`` rule below) and the other two are refused.
 
-Refused in one line, naming the slice that brings them:
-``NTS_DEBUGINFO=1``, ``NTS_NUMERICS=1``, ``NTS_ELASTIC=1`` and
-``NTS_QUANT_PROBE=1`` on a distributed trainer. ``NTS_PALLAS_RESIDENT=1`` (JAX's
-interpret-only resident executor), ``SUBLINEAR:1`` and the all_gather
-knobs on the ring and the mirror are refused too.
+The distributed plane around the step, in JAX's order per epoch (the
+``end_of_epoch`` hook, after the epoch's records, before its checkpoint):
+
+- ``NTS_ELASTIC=1`` (resilience/elastic): one ``LivenessMonitor`` per
+  attempt; for each live partition the ``partition_step`` fault point
+  runs, and that partition's seconds are the epoch's plus what its point
+  added; then the straggler detector (obs/skew; armed with elastic, or by
+  ``NTS_STRAGGLER=1``) observes the epoch, then the monitor takes the
+  heartbeats (dead sim partitions skipped) and may raise ``rank_loss``,
+  which the supervisor answers with the survivor replan. GCNDIST,
+  GCNEAGERDIST, GINDIST and COMMNETDIST carry it (``supports_elastic``);
+  the mirror family refuses it, as JAX does;
+- ``NTS_NUMERICS=1``: the stats step, through the per-layer ``tap`` of
+  ``dist_gcn_forward`` (activations), with the new parameters, the grads,
+  the logits and, on a narrowed wire, the layer-0 payload at the wire
+  dtype; ``numerics_replay`` walks the same tap for the non-finite
+  provenance;
+- ``NTS_QUANT_PROBE=1`` on a narrowed wire (``WIRE_DTYPE:bf16``): the
+  layer-0 payload measured once (``ring_schedule.payload_quant_probe``),
+  the cached verdict re-emitted each epoch;
+- ``NTS_DEBUGINFO=1``: the report with the nn / graph split, the nn-only
+  forward being ``dist_gcn_forward`` with the exchange disabled.
+
+``NTS_PALLAS_RESIDENT=1`` (JAX's interpret-only resident executor),
+``SUBLINEAR:1`` and the all_gather knobs on the ring and the mirror are
+refused.
 """
 
 from __future__ import annotations
@@ -85,6 +106,7 @@ import numpy as np
 import torch
 
 from neutronstarlite_torch.models.base import register_algorithm
+from neutronstarlite_torch.obs import numerics, skew
 from neutronstarlite_torch.models.fullbatch import FullBatchTrainer
 from neutronstarlite_torch.models.gcn import init_gcn_params
 from neutronstarlite_torch.nn.layers import batch_norm_apply, dropout, dropout_mask
@@ -113,16 +135,18 @@ from neutronstarlite_torch.parallel.dist_ring_blocked import (
     ring_wire_plan,
 )
 from neutronstarlite_torch.parallel.mirror import SplitMirror
-from neutronstarlite_torch.parallel.ring_schedule import resolve_wire_dtype
+from neutronstarlite_torch.parallel.ring_schedule import payload_quant_probe, resolve_wire_dtype
+from neutronstarlite_torch.resilience import elastic
+from neutronstarlite_torch.resilience.faults import fault_point
 from neutronstarlite_torch.tools.wire_accounting import exchange_rows_per_device
 from neutronstarlite_torch.utils.config import (
     GCN_DIST_ALGORITHMS,
     GCN_EAGER_DIST_ALGORITHMS,
-    PLANE_SLICE,
     check_supported,
     check_wire_dtype,
 )
 from neutronstarlite_torch.utils.logging import get_logger
+from neutronstarlite_torch.utils.timing import get_time
 
 log = get_logger("gcn_dist")
 
@@ -157,9 +181,6 @@ def resolve_comm_layer(cfg, host_graph, P: int) -> str:
 def check_dist_supported(cfg, supports_fused_edge: bool = False) -> None:
     """The lifecycle funnel's refusals for the distributed trainers."""
     check_supported(cfg, resident=False, supports_fused_edge=supports_fused_edge)
-    for env in ("NTS_DEBUGINFO", "NTS_NUMERICS", "NTS_ELASTIC", "NTS_QUANT_PROBE"):
-        if os.environ.get(env, "0") == "1":
-            raise ValueError(f"{env}=1 on a distributed trainer comes with {PLANE_SLICE}")
     env_wire = os.environ.get("NTS_WIRE_DTYPE", "").strip().lower()
     if env_wire == "auto":
         raise ValueError(
@@ -248,22 +269,30 @@ def gcn_layer_nn(i, n_layers, layer, agg, x_in, ctx: LayerCtx):
 
 
 def dist_gcn_forward(ex, params, x: torch.Tensor, layer_nn, eager: bool,
-                     ctx: LayerCtx) -> torch.Tensor:
+                     ctx: LayerCtx, tap=None, no_exchange: bool = False) -> torch.Tensor:
     """Logits (float32) of this rank's rows (all rows in the twin); ``ex``
     is the exchange. On the 2D mesh's ranks every exchange and every
     layer NN reads slabs (``ctx.scatter`` cuts the replicated outputs of
     the contractions) and the eager order's last exchange is put back
-    together (``ctx.gather``)."""
+    together (``ctx.gather``). ``tap(i, x) -> x`` sees each layer's output
+    (the numerics plane); ``no_exchange`` replaces the exchange by the
+    identity (DEBUGINFO's nn-only forward: the same widths and matmuls)."""
+
+    def exchange(v):
+        return v if no_exchange else dist_gather_dst_from_src(ex, v)
+
     x = ctx.cast(x)
     n_layers = len(params)
     for i, layer in enumerate(params):
         if eager:
             y = layer_nn(i, n_layers, layer, x, x, ctx)
-            x = dist_gather_dst_from_src(ex, ctx.scatter(y))
+            x = exchange(ctx.scatter(y))
         else:
             xs = x if i == 0 else ctx.scatter(x)
-            h = dist_gather_dst_from_src(ex, xs)
+            h = exchange(xs)
             x = layer_nn(i, n_layers, layer, h, xs, ctx)
+        if tap is not None:
+            x = tap(i, x)
     if eager:
         x = ctx.gather(x, ctx.out_width)
     return x.float()
@@ -277,7 +306,13 @@ class DistGCNTrainer(FullBatchTrainer):
     supports_precision = True
     needs_device_graph = False
     supports_dist_path = True  # DIST_PATH, WIRE_DTYPE and MESH
+    supports_elastic = True  # NTS_ELASTIC=1: liveness + survivor replan
     cost_label = "dist.train_step"
+    # the per-attempt liveness monitor and straggler detector (run) and the
+    # quantisation probe (build_model); None when not armed
+    _liveness = None
+    _straggler = None
+    _quant_probe = None
     layer_nn = staticmethod(gcn_layer_nn)
     eager = False
     # layer 0's parameters that carry the input-feature dim (the 2D mesh pads
@@ -376,6 +411,11 @@ class DistGCNTrainer(FullBatchTrainer):
                 self._build_gather(d, P, shards, stats["real_edges"])
         self._set_wire_gauges(layer_kind, P)
         self._place_rows()
+        # NTS_QUANT_PROBE=1 on a narrowed wire: measured once per plan
+        self._quant_probe = (payload_quant_probe(self.wire_dtype)
+                             if self.wire_dtype is not None and numerics.quant_probe_enabled()
+                             else None)
+        self._quant_probe_stats = None
 
     def _place_rows(self) -> None:
         """This rank's rows of the padded vertex space (all of them in the
@@ -546,6 +586,15 @@ class DistGCNTrainer(FullBatchTrainer):
         return dist_gcn_forward(graph, params, x, type(self).layer_nn, type(self).eager,
                                 self._layer_ctx(train))
 
+    def forward_taped(self, params, graph, x, tap, train: bool = True):
+        return dist_gcn_forward(graph, params, x, type(self).layer_nn, type(self).eager,
+                                self._layer_ctx(train), tap=tap)
+
+    def nn_only_forward(self, train: bool = True):
+        return dist_gcn_forward(self.compute_graph, self.params, self.feature,
+                                type(self).layer_nn, type(self).eager, self._layer_ctx(train),
+                                no_exchange=True)
+
     def masked_nll_loss(self, logits, label, mask01):
         """This rank's share of the loss: its training rows' NLL over the
         training rows of every vertex shard (and, on a 2D mesh's ranks,
@@ -557,8 +606,8 @@ class DistGCNTrainer(FullBatchTrainer):
             loss = loss / self.partitioner.pf
         return loss
 
-    def _forward_backward(self):
-        loss, logits = super()._forward_backward()
+    def _forward_backward(self, tap=None):
+        loss, logits = super()._forward_backward(tap)
         if self.world is not None:
             grads = [p.grad for p in self.flat_params]
             flat = self.world.sum_(torch.cat([g.reshape(-1) for g in grads]))
@@ -568,6 +617,16 @@ class DistGCNTrainer(FullBatchTrainer):
         return loss, logits
 
     def run(self):
+        elastic_on = elastic.elastic_enabled() and type(self).supports_elastic
+        P = self.dist.partitions
+        # one monitor per attempt: a retry, or a replan (which renumbers the
+        # survivors), starts with fresh miss counts for its plan
+        self._liveness = elastic.LivenessMonitor(P) if elastic_on else None
+        self._straggler = (
+            skew.StragglerDetector(P, registry=self.metrics,
+                                   on_straggler=elastic.note_straggler)
+            if type(self).supports_elastic and skew.straggler_enabled(default=elastic_on)
+            else None)
         if self._ring_plan is not None and os.environ.get("NTS_OVERLAP_PROBE", "0") == "1":
             try:
                 self._run_overlap_probe()
@@ -605,6 +664,44 @@ class DistGCNTrainer(FullBatchTrainer):
             "overhead, not wire time)" if probe["simulated"] else "",
         )
 
+    def end_of_epoch(self, epoch: int, seconds: float, stages: dict) -> None:
+        """The per-partition plane: each live partition's ``partition_step``
+        point (its seconds: the epoch's plus what the point added; the twin
+        runs every partition in one step), the straggler detector, then the
+        heartbeats, which may raise ``rank_loss``."""
+        if self._liveness is None and self._straggler is None:
+            return
+        P = self.dist.partitions
+        part_seconds = {}
+        for p in elastic.alive_partitions(P):
+            tp = get_time()
+            fault_point("partition_step", epoch=epoch, partition=p)
+            part_seconds[p] = seconds + (get_time() - tp)
+        if self._straggler is not None:
+            self._straggler.observe_epoch(epoch, part_seconds)
+        if self._liveness is not None:
+            self._liveness.epoch_end(epoch, alive=elastic.alive_partitions(P),
+                                     step_seconds=(stages or {}).get("step_device", seconds),
+                                     partition_seconds=part_seconds)
+
+    def maybe_emit_numerics(self, epoch: int, stats_dev) -> float:
+        """The stats step's records, then ``NTS_QUANT_PROBE``'s verdict: the
+        layer-0 payload (the features, the same every epoch) is measured
+        once and re-emitted each epoch; a failed probe warns."""
+        spent = super().maybe_emit_numerics(epoch, stats_dev)
+        if self._quant_probe is None:
+            return spent
+        t0 = get_time()
+        try:
+            if self._quant_probe_stats is None:
+                self._quant_probe_stats = {
+                    k: (v.item() if torch.is_tensor(v) else v)
+                    for k, v in self._quant_probe(self.feature).items()}
+            numerics.emit_payload_stats(self.metrics, self._quant_probe_stats, epoch)
+        except Exception as e:  # a probe never stops a run
+            log.warning("wire quant probe failed at epoch %d: %s", epoch, e)
+        return spent + get_time() - t0
+
     # ---- reporting ---------------------------------------------------------------
     def emit_epoch(self, epoch, seconds, loss=None, stages=None, **extra):
         """The epoch record plus the live wire counters (JAX's
@@ -641,8 +738,9 @@ class DistGCNTrainer(FullBatchTrainer):
         return acc
 
     def save(self, path: str, epoch: int) -> None:
-        """The parameters are replicated: world rank 0 writes the checkpoint."""
-        if self.world is None or self.world.rank == 0:
+        """The parameters are replicated: world rank 0 writes the npz
+        checkpoint; every rank takes part in a sharded save."""
+        if self.world is None or self.world.rank == 0 or self._ckpt_backend() == "orbax":
             super().save(path, epoch)
 
 

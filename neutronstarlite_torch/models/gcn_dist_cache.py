@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from neutronstarlite_torch.models.base import register_algorithm
+from neutronstarlite_torch.models.fullbatch import FullBatchTrainer
 from neutronstarlite_torch.models.gcn_dist import (
     DistGCNTrainer,
     check_dist_supported,
@@ -70,6 +71,12 @@ class DistGCNCacheTrainer(DistGCNTrainer):
     supports_optim_kernel = False
     supports_precision = False  # warns and runs f32
     supports_dist_path = False  # the DepCache exchange is the only one
+    # as JAX's DepCache trainer: no replan (refused), no stats step, no
+    # DEBUGINFO report
+    supports_elastic = False
+    supports_numerics = False
+    supports_debuginfo = False
+    forward_taped = FullBatchTrainer.forward_taped
 
     @classmethod
     def check_cfg(cls, cfg) -> None:

@@ -28,9 +28,15 @@
    that hold a NaN or an inf, in one reduction and one host fetch for the
    whole tree (the guards use it).
 
-The reference's wire quantization probe (``quant_rel_err``,
-``emit_payload_stats``, ``NTS_QUANT_PROBE``) measures the distributed
-ring's payload; it comes with the distributed slice.
+5. **Wire quantisation error** (``quant_rel_err``): the relative RMS error
+   of shipping a payload at the ring's ``WIRE_DTYPE`` instead of f32. The
+   stats step adds the layer-0 payload's group (``wire/l0``, stats at the
+   wire dtype plus ``quant_rel_err``) on a narrowed wire, and
+   ``NTS_QUANT_PROBE=1`` measures it once (the layer-0 payload is the
+   feature matrix, the same every epoch) and re-emits the verdict each
+   epoch (``emit_payload_stats``: a ``tensor_stats`` record and the
+   ``wire.quant_rel_err`` gauge, which the reference's drift auditor holds
+   against ``NTS_QUANT_TOL``).
 """
 
 from __future__ import annotations
@@ -68,6 +74,29 @@ def numerics_every() -> int:
         log.warning("NTS_NUMERICS_EVERY=%r is not an int; using 1", raw)
         n = 1
     return max(n, 1)
+
+
+def quant_probe_enabled() -> bool:
+    """``NTS_QUANT_PROBE=1``: the per-epoch wire quantisation-error probe
+    on a narrowed ring (one measurement, re-emitted each epoch)."""
+    return os.environ.get("NTS_QUANT_PROBE", "0") == "1"
+
+
+DEFAULT_QUANT_TOL = 0.01
+
+
+def quant_tol() -> float:
+    """``NTS_QUANT_TOL``: the measured wire quantisation error above which
+    the drift auditor flags a bf16 decision (default 0.01, above bf16's
+    ~4e-3 per-element RMS)."""
+    raw = os.environ.get("NTS_QUANT_TOL", "")
+    if not raw:
+        return DEFAULT_QUANT_TOL
+    try:
+        return float(raw)
+    except ValueError:
+        log.warning("bad NTS_QUANT_TOL=%r; using %g", raw, DEFAULT_QUANT_TOL)
+        return DEFAULT_QUANT_TOL
 
 
 # ---- device-side stat reductions ----------------------------------------------
@@ -152,6 +181,17 @@ def grad_global_norm(grads) -> Optional[torch.Tensor]:
     return torch.stack(torch._foreach_norm([t.float() for t in leaves], 2)).square().sum().sqrt()
 
 
+def quant_rel_err(x: torch.Tensor, wire_dtype: torch.dtype) -> torch.Tensor:
+    """Relative RMS error of shipping ``x`` at ``wire_dtype`` instead of
+    f32: ||cast(x) - x|| / ||x|| over all elements, in f32 (the casts round
+    to nearest even both ways, so the host reproduces it exactly)."""
+    x32 = x.detach().float()
+    q = x32.to(wire_dtype).float()
+    num = torch.sqrt(torch.mean(torch.square(q - x32)))
+    den = torch.sqrt(torch.mean(torch.square(x32)))
+    return num / torch.clamp(den, min=1e-30)
+
+
 def _layered(tag: str, tree) -> List[Tuple[str, List[torch.Tensor]]]:
     """Per-layer (name, leaves) groups: a list/tuple (the per-layer params
     and grads convention) splits per index; anything else is one group."""
@@ -165,10 +205,12 @@ def _layered(tag: str, tree) -> List[Tuple[str, List[torch.Tensor]]]:
 
 
 def step_stats(params=None, grads=None, acts: Optional[Sequence[Any]] = None,
-               logits=None) -> Dict[str, Any]:
+               logits=None, wire=None, wire_dtype=None) -> Dict[str, Any]:
     """The full per-step stat tree (device tensors): per-layer groups for
     params / grads / activations, the logits group and the global grad
-    norm. ``grads`` has the structure of ``params``."""
+    norm; with a narrowed wire (``wire_dtype``) the layer-0 payload
+    ``wire`` at the wire dtype (``wire/l0``) with its ``quant_rel_err``.
+    ``grads`` has the structure of ``params``."""
     groups = _layered("params", params) if params is not None else []
     first_grad = len(groups)
     grad_groups = _layered("grads", grads) if grads is not None else []
@@ -179,10 +221,15 @@ def step_stats(params=None, grads=None, acts: Optional[Sequence[Any]] = None,
             groups.append((f"acts/l{i}", leaves))
     if logits is not None and _float_leaves(logits):
         groups.append(("logits", _float_leaves(logits)))
+    narrowed = wire is not None and wire_dtype is not None
+    if narrowed:
+        groups.append(("wire/l0", [wire.detach().to(wire_dtype)]))
     out: Dict[str, Any] = {"groups": {}}
     if not groups:
         return out
     out["groups"], gsq = _reduce(groups)
+    if narrowed:
+        out["groups"]["wire/l0"]["quant_rel_err"] = quant_rel_err(wire, wire_dtype)
     if grad_groups:  # one run of the group list
         out["grad_global_norm"] = gsq[first_grad:first_grad + len(grad_groups)].sum().sqrt()
     return out
@@ -191,9 +238,10 @@ def step_stats(params=None, grads=None, acts: Optional[Sequence[Any]] = None,
 def pack_stats(stats: Dict[str, Any]) -> Tuple[tuple, torch.Tensor]:
     """(layout, flat float64 device tensor) of a ``step_stats`` tree: the
     groups' (nonfinite_count, zero_count) pairs, then their (absmax, rms)
-    pairs, then the grad norm. One tensor, so that the host fetch is one
-    copy and a captured CUDA graph can write the stats into one static
-    buffer; float64 holds the integer tallies exactly."""
+    pairs, then the grad norm, then the ``quant_rel_err`` of the groups
+    that carry one. One tensor, so that the host fetch is one copy and a
+    captured CUDA graph can write the stats into one static buffer;
+    float64 holds the integer tallies exactly."""
     names = tuple(sorted(stats["groups"]))
     groups = [stats["groups"][n] for n in names]
     tallies = torch.stack([st[k] for st in groups for k in ("nonfinite_count", "zero_count")])
@@ -201,13 +249,15 @@ def pack_stats(stats: Dict[str, Any]) -> Tuple[tuple, torch.Tensor]:
     has_norm = "grad_global_norm" in stats
     if has_norm:
         values.append(stats["grad_global_norm"])
+    quant = tuple(n for n, st in zip(names, groups) if "quant_rel_err" in st)
+    values += [stats["groups"][n]["quant_rel_err"] for n in quant]
     flat = torch.cat([tallies.double(), torch.stack(values).double()])
-    return (names, tuple(int(st["count"]) for st in groups), has_norm), flat
+    return (names, tuple(int(st["count"]) for st in groups), has_norm, quant), flat
 
 
 def unpack_stats(layout: tuple, values: Sequence[float]) -> Dict[str, Any]:
     """The host form of a packed stat tree (``pack_stats``'s inverse)."""
-    names, counts, has_norm = layout
+    names, counts, has_norm, quant = layout
     g = len(names)
     groups = {}
     for i, (name, n) in enumerate(zip(names, counts)):
@@ -219,6 +269,8 @@ def unpack_stats(layout: tuple, values: Sequence[float]) -> Dict[str, Any]:
     out: Dict[str, Any] = {"groups": groups}
     if has_norm:
         out["grad_global_norm"] = float(values[4 * g])
+    for i, name in enumerate(quant):
+        groups[name]["quant_rel_err"] = float(values[4 * g + int(has_norm) + i])
     return out
 
 
@@ -245,12 +297,15 @@ def _stat_fields(st: Dict[str, Any]) -> Dict[str, Any]:
     # fractions from the exact integer tallies, divided host-side in
     # f64 — one NaN in 1.4e8 elements must read < 1.0, never 1.0
     n = max(int(st["count"]), 1)
-    return {
+    fields = {
         "finite_fraction": 1.0 - int(st["nonfinite_count"]) / n,
         "absmax": _f(st.get("absmax")),
         "rms": _f(st.get("rms")),
         "zero_fraction": int(st["zero_count"]) / n,
     }
+    if "quant_rel_err" in st:
+        fields["quant_rel_err"] = _f(st["quant_rel_err"])
+    return fields
 
 
 def emit_stats(metrics, stats: Dict[str, Any], epoch: int) -> List[dict]:
@@ -272,6 +327,8 @@ def emit_stats(metrics, stats: Dict[str, Any], epoch: int) -> List[dict]:
         am = fields["absmax"]
         if am is not None:
             absmax_max = am if absmax_max is None else max(absmax_max, am)
+        if fields.get("quant_rel_err") is not None:
+            metrics.gauge_set("wire.quant_rel_err", fields["quant_rel_err"])
     if ff_min is not None:
         metrics.gauge_set("numerics.finite_fraction_min", ff_min)
     if absmax_max is not None:
@@ -291,6 +348,21 @@ def emit_stats(metrics, stats: Dict[str, Any], epoch: int) -> List[dict]:
         # a NaN/inf grad norm: keep the gauge numeric-free but say so
         metrics.gauge_set("numerics.grad_global_norm_finite", 0)
     return recs
+
+
+def emit_payload_stats(metrics, stats: Dict[str, Any], epoch: int,
+                       name: str = "wire.payload/l0") -> Optional[dict]:
+    """One probe ``tensor_stats`` record for a ring payload (host stats,
+    ``NTS_QUANT_PROBE``'s per-epoch leg) and the ``wire.quant_rel_err``
+    gauge."""
+    if metrics is None or not stats:
+        return None
+    fields = _stat_fields(stats)
+    rec = metrics.event("tensor_stats", name=name, epoch=int(epoch), **fields)
+    _pin(metrics, f"tensor_stats/{name}", rec)
+    if fields.get("quant_rel_err") is not None:
+        metrics.gauge_set("wire.quant_rel_err", fields["quant_rel_err"])
+    return rec
 
 
 def _pin(metrics, key: str, rec: dict) -> None:

@@ -133,6 +133,11 @@ class ProcessGroup:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.pg)
         return t
 
+    def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
+        """In place: every rank gets the group's first rank's ``t``."""
+        dist.broadcast(t, src=self.ranks[0], group=self.pg)
+        return t
+
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """[P*m, ...] per rank, chunk q for rank q -> [P*m, ...] whose chunk
         q came from rank q."""

@@ -4,11 +4,8 @@ Three facts every participant of the pipelined ring agrees on: who sends
 to whom (``ring_perm``), which source partition a rank holds at each step
 (``ring_source``) and what dtype rides the wire (``resolve_wire_dtype``).
 The backward runs the reverse ring (direction -1). ``trim_transfers``
-drops the hops of a skipped suffix.
-
-JAX's ``payload_quant_probe`` (``NTS_QUANT_PROBE``) belongs to the numerics
-plane of the dist trainers and is not ported here: the trainers refuse the
-switch.
+drops the hops of a skipped suffix. ``payload_quant_probe`` measures what
+the narrowed wire does to a payload (``NTS_QUANT_PROBE``).
 """
 
 from __future__ import annotations
@@ -57,6 +54,21 @@ def resolve_wire_dtype(cfg_value: str = "") -> Optional[torch.dtype]:
         )
     name = _WIRE_DTYPES[value]
     return getattr(torch, name) if name else None
+
+
+def payload_quant_probe(wire_dtype: torch.dtype):
+    """The probe over a ring payload (``NTS_QUANT_PROBE``): ``probe(x)`` is
+    the payload's stats at the wire dtype (``obs/numerics``' group stats,
+    device tensors) plus ``quant_rel_err``, the relative RMS error of
+    shipping it narrowed instead of f32."""
+    from neutronstarlite_torch.obs import numerics
+
+    def probe(x: torch.Tensor):
+        st = numerics.group_stats(x.detach().to(wire_dtype))
+        st["quant_rel_err"] = numerics.quant_rel_err(x, wire_dtype)
+        return st
+
+    return probe
 
 
 def trim_transfers(work_steps: List[int]) -> int:

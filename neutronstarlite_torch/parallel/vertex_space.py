@@ -22,6 +22,19 @@ def owner_of_vertices(offsets: np.ndarray) -> np.ndarray:
     return np.searchsorted(offsets, np.arange(v_num), side="right") - 1
 
 
+def reassigned_vertices(old_offsets: np.ndarray, new_offsets: np.ndarray) -> int:
+    """How many vertices change owner between two range-partition maps of
+    the same vertex space: the ``replan`` record's ``moved_vertices`` (a
+    lost partition's whole range, plus every boundary the re-balance
+    over the survivors shifts)."""
+    if int(old_offsets[-1]) != int(new_offsets[-1]):
+        raise ValueError(
+            "partition maps cover different vertex spaces: "
+            f"{int(old_offsets[-1])} vs {int(new_offsets[-1])}"
+        )
+    return int((owner_of_vertices(old_offsets) != owner_of_vertices(new_offsets)).sum())
+
+
 class PaddedVertexSpace:
     """Mixin for containers with partitions / vp / offsets / v_num fields."""
 

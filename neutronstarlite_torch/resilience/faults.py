@@ -24,20 +24,33 @@ stall        epoch, ms (default 1000)   sleeps ms inside the epoch
 exc          epoch, point (optional)    raises RuntimeError at its point
 ckpt_corrupt save (1-based save index)  bit-flips the just-published
                                         arrays.npz
+rank_loss    epoch, partition           kills one partition of the sim twin
+             (default 0)                (resilience/elastic.kill_partition):
+                                        its heartbeats stop and the liveness
+                                        monitor detects the loss; partition
+                                        is in the original launch numbering
+slow_rank    epoch, partition           sleeps ms inside one partition's
+             (default 0), ms, times     ``partition_step``: slow, not dead
+                                        (it keeps beating), so the straggler
+                                        detector (obs/skew) must name it;
+                                        ``times=M`` outlasts its latch
 ============ ========================== =====================================
 
 Common args: ``times`` (default 1: a spec fires once, so a supervised
 retry replays the same epochs without the fault) and ``point`` (another
 planted point). The port plants ``epoch_loss`` (the run loops, after the
 step), ``save`` (``utils/checkpoint.save_checkpoint``, after the step
-directory is published) and ``sample_produce`` (the sampling pipeline's
-producer, before each batch is staged).
+directory is published), ``sample_produce`` (the sampling pipeline's
+producer, before each batch is staged) and ``partition_step`` (the
+distributed trainers' per-partition step timing, once per epoch and live
+partition, with ``partition=`` the partition: an injected sleep lands in
+that partition's measured seconds alone).
 
 Kinds and points of other slices parse as in the reference and are then
-refused, naming the slice they wait for (``UNPORTED``): ``rank_loss`` and
-``slow_rank`` (elastic and per-partition steps, distributed), ``net_drop`` and ``slow_net`` (the
-cross-host HTTP fetch, cross-host serving), ``writer_crash`` (the delta log, stream),
-and the points those slices plant.
+refused, naming the slice they wait for (``UNPORTED``): ``net_drop`` and
+``slow_net`` (the cross-host HTTP fetch, cross-host serving),
+``writer_crash`` (the delta log, stream), and the points those slices
+plant.
 
 The plan, its fired counts and the save counter are process-global on
 purpose: a supervised retry in the same process must see the fired counts.
@@ -81,12 +94,9 @@ DEFAULT_POINTS = {
 _CROSS_HOST = "the live-graph and cross-host serving slice (the cross-host HTTP fetch)"
 # the slice each unported kind or point waits for
 UNPORTED = {
-    "rank_loss": "the last distributed slice (elastic survivor replan)",
-    "slow_rank": "the last distributed slice (per-partition steps, skew)",
     "net_drop": _CROSS_HOST,
     "slow_net": _CROSS_HOST,
     "writer_crash": "the stream slice (the delta log)",
-    "partition_step": "the last distributed slice (per-partition steps, skew)",
     "http_fetch": _CROSS_HOST,
     "delta_commit": "the stream slice (the delta log)",
     "finetune_round": "the stream slice (the fine-tune worker)",
@@ -245,11 +255,13 @@ def _epoch_matches(spec: FaultSpec, epoch: Optional[int]) -> bool:
 
 
 def fault_point(point: str, *, epoch: Optional[int] = None, value=None,
-                path: Optional[str] = None):
+                path: Optional[str] = None, partition: Optional[int] = None):
     """Named injection hook: matching specs of the active plan fire (at
     most ``times`` each) and may replace ``value`` (the epoch loss), sleep,
-    raise, corrupt ``path`` or end the process. Returns ``value``
-    unchanged when ``NTS_FAULT_SPEC`` is unset."""
+    raise, corrupt ``path``, kill a sim partition or end the process.
+    ``partition`` is the ``partition_step`` point's context (slow_rank
+    matches it). Returns ``value`` unchanged when ``NTS_FAULT_SPEC`` is
+    unset."""
     plan = active_plan()
     if not plan:
         return value
@@ -271,6 +283,8 @@ def fault_point(point: str, *, epoch: Optional[int] = None, value=None,
             continue
         if spec.kind == "crash" and spec.rank is not None and spec.rank != process_index():
             continue
+        if spec.kind == "slow_rank" and (spec.partition or 0) != partition:
+            continue
         spec.fired += 1
         if spec.kind == "nan_loss":
             if spec.layer is not None:
@@ -291,6 +305,25 @@ def fault_point(point: str, *, epoch: Optional[int] = None, value=None,
             raise RuntimeError(
                 f"injected fault: exc at point {point!r} (epoch {epoch})"
             )
+        elif spec.kind == "rank_loss":
+            part = spec.partition or 0
+            # the injection-site record; the detection record is the
+            # liveness monitor's rank_loss, once the missed beats reach K
+            events.emit_fault("rank_loss", point=point, epoch=epoch, partition=part,
+                              injected=True, rank=process_index())
+            log.warning("injecting rank loss: killing sim partition %d at epoch %s",
+                        part, epoch)
+            from neutronstarlite_torch.resilience import elastic
+
+            elastic.kill_partition(part)
+        elif spec.kind == "slow_rank":
+            # slow, not dead: the sleep lands in this partition's measured
+            # step time while its heartbeats keep flowing
+            events.emit_fault("slow_rank", point=point, epoch=epoch, partition=partition,
+                              injected=True, rank=process_index())
+            log.warning("injecting %.0f ms straggler sleep into partition %s at epoch %s",
+                        spec.ms, partition, epoch)
+            time.sleep(spec.ms / 1000.0)
         elif spec.kind == "crash":
             # nothing survives the exit to detect it, so the record comes
             # from the injection site

@@ -20,28 +20,41 @@ a :class:`~.guards.HealthError`:
    (``toolkit.init_model()``): the graph tables are not rebuilt;
 6. emits one ``recovery`` record (rollback or restart) and retries.
 
+Elastic mode (``NTS_ELASTIC=1``, resilience/elastic): on a
+:class:`~.elastic.RankLossError` that names the lost partition, on a
+multi-partition plan of the sim twin, the supervisor replans instead
+(``elastic.replan_survivors``: P -> P - 1, in a ``replan`` span), restores
+the replicated parameters from the last good checkpoint over the new plan
+and records ``recovery(action=replan, partitions=P')``. A loss without a
+partition (a collective timeout), a one-partition plan, or real ranks
+(which cannot evict a member, ``elastic.RANKS_CAVEAT``) roll back on the
+same plan. The dead set is cleared when ``supervised_run`` exits, so an
+injected death never leaks into the next run in the process.
+
 A run killed outright (a crash fault, a preemption) is recovered by the
 next invocation, which resumes from the checkpoint (``ckpt_begin`` records
-``resume``). The elastic survivor replan comes with the distributed slice.
+``resume``).
 
 Telemetry (obs/): each attempt is an ``attempt`` span, the backoff sleep a
 ``backoff`` span and a re-initialisation a ``rebuild`` span on the
 toolkit's tracer; the ``resilience.state`` / ``resilience.attempt`` /
 ``resilience.gave_up`` gauges and the ``resilience.faults`` /
-``resilience.restarts`` counters go to its registry. The toolkit's
+``resilience.restarts`` / ``resilience.replans`` counters go to its
+registry. The toolkit's
 registry becomes the fault/recovery sink unless the caller installed a
 sink of another kind.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import time
 from typing import Any, Dict, List, Optional
 
 from neutronstarlite_torch.obs.trace import Tracer
-from neutronstarlite_torch.resilience import events, guards
+from neutronstarlite_torch.resilience import elastic, events, guards
 from neutronstarlite_torch.resilience.guards import env_float
 from neutronstarlite_torch.utils.logging import get_logger, process_index
 
@@ -66,6 +79,29 @@ def backoff_jitter_frac(attempt: int) -> float:
     return 0.5 * random.Random(f"{seed}:{attempt}").random()
 
 
+def _should_replan(toolkit, err: guards.HealthError) -> bool:
+    """The survivor replan applies when elastic mode is armed, the fault
+    is a rank loss that names the lost partition, and the trainer has a
+    multi-partition plan of the sim twin to shrink."""
+    if not (elastic.elastic_enabled() and isinstance(err, elastic.RankLossError)):
+        return False
+    if err.partition is None:
+        # a collective timeout cannot name the partition: evicting a guess
+        # could drop a healthy rank
+        log.warning("rank loss without an identified partition (%s): cannot replan — "
+                    "falling back to same-plan rollback", err)
+        return False
+    dist = getattr(toolkit, "dist", None)
+    if dist is None or dist.partitions <= 1:
+        log.warning("rank loss but no multi-partition plan to shrink — falling back to "
+                    "same-plan rollback")
+        return False
+    if getattr(toolkit, "world", None) is not None:
+        log.warning("rank loss on real ranks: %s", elastic.RANKS_CAVEAT)
+        return False
+    return True
+
+
 def _have_restorable_checkpoint(toolkit) -> bool:
     """A look at the files only; restore verifies the digests, and when it
     rejects every step the retry's ckpt_begin re-initialises the model."""
@@ -75,8 +111,8 @@ def _have_restorable_checkpoint(toolkit) -> bool:
     from neutronstarlite_torch.utils.checkpoint import have_checkpoint
 
     try:
-        return have_checkpoint(ckpt_dir)
-    except OSError as e:  # an unreadable directory counts as none
+        return have_checkpoint(ckpt_dir, backend=toolkit.cfg.ckpt_backend)
+    except (OSError, RuntimeError) as e:  # an unreadable directory counts as none
         log.warning("checkpoint probe of %s failed: %s", ckpt_dir, e)
         return False
 
@@ -108,7 +144,10 @@ def supervised_run(
     attempt = 0
     divergence_streak = 0
     codes_seen: List[str] = []
-    with guards.armed():
+    with guards.armed(), contextlib.ExitStack() as cleanup:
+        # injected deaths must not leak into the next run in this process;
+        # the retries inside this loop still see them
+        cleanup.callback(elastic.reset)
         while True:
             watchdog = None
             if watchdog_s > 0 and use_interrupt:
@@ -170,18 +209,34 @@ def supervised_run(
                     with tracer.span("backoff", cat="resilience", attempt=attempt,
                                      delay_s=delay):
                         time.sleep(delay)
-                scale_lr = divergence_streak >= 2 and lr_backoff > 0 and lr_backoff != 1.0
-                if scale_lr:
-                    old = toolkit.cfg.learn_rate
-                    toolkit.cfg.learn_rate = old * lr_backoff
-                    log.warning("repeated divergence: scaling LR %g -> %g",
-                                old, toolkit.cfg.learn_rate)
-                rollback = _have_restorable_checkpoint(toolkit)
-                if scale_lr or not rollback:
-                    # fresh parameters and an AdamConfig with the new rate;
-                    # with a checkpoint the retry restores over them
-                    with tracer.span("rebuild", cat="resilience", attempt=attempt):
-                        toolkit.init_model()
+                scale_lr = False
+                replan_extra: Dict[str, Any] = {}
+                if _should_replan(toolkit, err):
+                    # the plan for P - 1 at the rollback boundary; the
+                    # retry restores the parameters over it
+                    with tracer.span("replan", cat="resilience", attempt=attempt,
+                                     lost_partition=err.partition):
+                        new_p = elastic.replan_survivors(toolkit, err.partition)
+                    rollback = _have_restorable_checkpoint(toolkit)
+                    action = "replan"
+                    replan_extra = {"partitions": new_p}
+                    if metrics is not None:
+                        metrics.counter_add("resilience.replans")
+                else:
+                    scale_lr = (divergence_streak >= 2 and lr_backoff > 0
+                                and lr_backoff != 1.0)
+                    if scale_lr:
+                        old = toolkit.cfg.learn_rate
+                        toolkit.cfg.learn_rate = old * lr_backoff
+                        log.warning("repeated divergence: scaling LR %g -> %g",
+                                    old, toolkit.cfg.learn_rate)
+                    rollback = _have_restorable_checkpoint(toolkit)
+                    if scale_lr or not rollback:
+                        # fresh parameters and an AdamConfig with the new
+                        # rate; with a checkpoint the retry restores over them
+                        with tracer.span("rebuild", cat="resilience", attempt=attempt):
+                            toolkit.init_model()
+                    action = "rollback" if rollback else "restart"
                 if not rollback:
                     # a restart's failed attempt leaves no epochs behind
                     # (a rollback rewinds in ckpt_begin instead)
@@ -195,8 +250,8 @@ def supervised_run(
                 # re-initialise when a chosen rollback finds no intact step
                 toolkit._supervised_retry = "rollback" if rollback else "restart"
                 events.emit_recovery(
-                    action="rollback" if rollback else "restart", attempt=attempt,
-                    epoch=err.epoch, fault=err.code,
+                    action=action, attempt=attempt, epoch=err.epoch, fault=err.code,
+                    **replan_extra,
                     **({"lr_scaled_to": toolkit.cfg.learn_rate} if scale_lr else {}),
                 )
             except BaseException as e:

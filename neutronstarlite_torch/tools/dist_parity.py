@@ -4,7 +4,7 @@
         [--device cpu] [--routes ell,bsp,ring,blocked,ring_blocked,mirror,mesh2x2] \\
         [--vertices V --edges E] [--layers 602-128-41] [--precision bfloat16] \\
         [--epochs 3] [--drop 0] [--kernel-tile 512] [--exchange-check] \\
-        [--edge-chunk N] [--rep-threshold D]
+        [--edge-chunk N] [--rep-threshold D]    (routes also: tune, resume, ...)
 
 Launched without ``RANK`` in the environment, it starts itself as P
 processes under ``torch.distributed.run`` (127.0.0.1, a free port; gloo on
@@ -27,7 +27,14 @@ must be bitwise the twin's). ``tune``: ``DIST_PATH:auto`` under
 ``NTS_TUNE=measure`` on the ranks (a fresh ``NTS_TUNE_DIR``), so the
 all_gather family is a candidate and its trial runs the rectangular
 ``ell_level`` kernel; every rank must hold the same decision, and the
-twin trains that decision pinned.
+twin trains that decision pinned. ``resume`` (the ELL route): every rank
+gets a CHECKPOINT_DIR of its own (not shared), trains half the epochs, then
+a new trainer resumes to ``--epochs`` (rank 0 alone writes; the resume
+epoch and the state reach the other ranks by broadcast); the two runs'
+curve must match the twin's straight run, and the report says which ranks'
+directories filled and where each rank resumed; ``resume_orbax`` does the
+same with ``CKPT_BACKEND:orbax`` (the sharded backend: every rank saves,
+rank 0's directory alone holds the data, the resume is broadcast).
 ``--exchange-check`` also
 runs the pipelined ring's exchange alone on the ranks, forward and
 backward, with the f32 and the bf16 wire, and reports whether every
@@ -88,6 +95,8 @@ ROUTES = {
     "depcache": dict(process_rep=True, cache_refresh=2),
     "getdep": {},
     "tune": dict(dist_path="auto"),
+    "resume": dict(optim_kernel=True),
+    "resume_orbax": dict(optim_kernel=True, ckpt_backend="orbax"),
 }
 DEFAULT_ALGORITHM = {"depcache": "GCNDISTCACHE", "getdep": "TEST_GETDEP"}
 
@@ -133,8 +142,10 @@ def _train(a, route: str, device):
         for axis, value in Candidate.from_label(pin).as_dict().items():
             if value:
                 setattr(cfg, axis, value)
-    tr = get_algorithm(cfg.algorithm).from_arrays(cfg, src, dst, datum, seed=a.seed,
-                                                  device=device)
+    cls = get_algorithm(cfg.algorithm)
+    if route.startswith("resume") and os.environ.get("NTS_DIST_SIMULATE") != "1":
+        return _resume(a, cls, cfg, src, dst, datum, device)
+    tr = cls.from_arrays(cfg, src, dst, datum, seed=a.seed, device=device)
     if route == "getdep":
         res = tr.run()
         return {"losses": [], "pass": bool(res["pass"]), "fwd_err": res["fwd_err"],
@@ -143,7 +154,7 @@ def _train(a, route: str, device):
                 "vp": tr.mg.vp, "tables": "UniformMirror"}
     ex = tr.compute_graph
     kind = type(ex).__name__
-    if route in ("ell", "bsp", "blocked"):
+    if route in ("ell", "bsp", "blocked") or route.startswith("resume"):
         kind = type(next(iter(ex.tables.fwd.values()))).__name__
     chunks = getattr(getattr(ex, "chunk_list", None), "n_chunks", None)
     res = tr.run()
@@ -159,6 +170,31 @@ def _train(a, route: str, device):
         out.update(decision=gauges["tune.decision"], source=gauges["tune.decision_source"],
                    trials=rows, launches=_launches())
     return out
+
+
+def _resume(a, cls, cfg, src, dst, datum, device) -> dict:
+    """The ranks' side of the ``resume`` route: half the epochs into a
+    CHECKPOINT_DIR of this rank's own, then a new trainer to the end."""
+    import torch.distributed as dist
+
+    from neutronstarlite_torch.utils.checkpoint import have_checkpoint
+
+    ckpt_dir = os.path.join(os.path.dirname(a.out),
+                            f"ckpt-{cfg.ckpt_backend or 'npz'}.{dist.get_rank()}")
+    cfg.checkpoint_dir, cfg.checkpoint_every = ckpt_dir, 1
+    cfg.epochs = a.epochs // 2
+    first = cls.from_arrays(cfg, src, dst, datum, seed=a.seed, device=device)
+    first.run()
+    filled = have_checkpoint(ckpt_dir, backend=cfg.ckpt_backend)
+    cfg.epochs = a.epochs
+    second = cls.from_arrays(cfg, src, dst, datum, seed=a.seed, device=device)
+    res = second.run()
+    return {"losses": [float(x) for x in first.loss_history + second.loss_history],
+            "epoch_s": [float(t) for t in first.epoch_times + second.epoch_times],
+            "acc": res["acc"], "rows": int(second.feature.shape[0]), "vp": second.dist.vp,
+            "tables": type(next(iter(second.compute_graph.tables.fwd.values()))).__name__,
+            "dir_filled": filled, "resumed_at": second._first_epoch_trained,
+            "epochs_run": len(second.loss_history), "final_loss": float(res["loss"])}
 
 
 def _launches() -> dict:
@@ -278,6 +314,17 @@ def main(argv=None) -> int:
         route_ok = gap <= tol and same_rows and all(
             r[route]["tables"] == twin["tables"] for r in ranks)
         entry = {}
+        if route.startswith("resume"):
+            # rank 0 alone wrote; every rank resumed at the same epoch and
+            # finished with the same loss and accuracies
+            entry = {"dir_filled": [r[route]["dir_filled"] for r in ranks],
+                     "resumed_at": [r[route]["resumed_at"] for r in ranks],
+                     "epochs_run": [r[route]["epochs_run"] for r in ranks],
+                     "final_loss": [r[route]["final_loss"] for r in ranks],
+                     "acc": [r[route]["acc"] for r in ranks]}
+            route_ok = (route_ok and entry["dir_filled"] == [True] + [False] * (a.partitions - 1)
+                        and len(set(entry["resumed_at"])) == 1
+                        and entry["resumed_at"][0] == a.epochs // 2)
         if route == "tune":
             # every rank decided the same tuple, over a space holding all_gather
             agree = len(decisions) == 1

@@ -1,8 +1,24 @@
-"""npz checkpoints — port of ``neutronstarlite_tpu/utils/checkpoint.py``
-(its npz backend; orbax is a JAX library and is refused, see
-``utils/config.check_ckpt_backend``).
+"""Checkpoints — port of ``neutronstarlite_tpu/utils/checkpoint.py``.
 
-The files are the reference's, byte for byte in layout: each save is one
+Two backends, as in JAX (``CKPT_BACKEND`` / ``NTS_CKPT_BACKEND``;
+:func:`resolve_backend` refuses other names):
+
+- ``npz`` (default): the host-side single-writer files below;
+- ``orbax``: JAX's name kept for the sharded asynchronous backend, written
+  here with ``torch.distributed.checkpoint`` (``async_save`` and
+  ``load``) under the same ``orbax/`` subdirectory, one ``<step>/``
+  directory per save, the newest 2 kept (JAX's ``max_to_keep=2``). Every
+  rank of a joined process group takes part in a save and a restore; the
+  replicated tensors are written by the lowest rank, so rank 0's
+  directory alone holds a whole checkpoint. A step counts once its
+  ``.metadata`` is written (the coordinator writes it last), so an empty
+  or unfinished directory is no step (:func:`orbax_latest_step`).
+  :func:`finalize_checkpoints` drains the saves in flight (the trainers
+  call it from ``ckpt_final``). Where ``async_save`` cannot run, the save
+  is synchronous, with one log line. A restore from a directory without a
+  completed step falls through to the npz files, as JAX's does.
+
+The npz files are the reference's, byte for byte in layout: each save is one
 ``step-<n>/`` directory (``n`` zero-padded to 8 digits) holding
 ``arrays.npz`` and ``manifest.json`` (format 2: the step, per tree its
 structure string and leaf count, per array its sha256, shape and dtype).
@@ -36,11 +52,13 @@ import os
 import re
 import shutil
 import time
+import warnings
 import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from neutronstarlite_torch.resilience import events
 from neutronstarlite_torch.utils import tree as tree_util
@@ -50,11 +68,24 @@ log = get_logger("checkpoint")
 
 MANIFEST = "manifest.json"
 ARRAYS = "arrays.npz"
+ORBAX_SUBDIR = "orbax"
+SHARDED_KEEP = 2  # JAX's CheckpointManager max_to_keep
+BACKENDS = ("npz", "orbax")
 STEP_PREFIX = "step-"
 CORRUPT_SUFFIX = ".corrupt"
 MANIFEST_FORMAT = 2  # 1 = legacy flat layout without digests
 
 _STEP_RE = re.compile(rf"^{STEP_PREFIX}(\d+)$")
+
+
+def resolve_backend(requested: str = "") -> str:
+    """The checkpoint backend: ``requested`` (CKPT_BACKEND), else
+    ``NTS_CKPT_BACKEND``, else npz; an unknown name refuses."""
+    backend = requested or os.environ.get("NTS_CKPT_BACKEND", "") or "npz"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown checkpoint backend {backend!r} (CKPT_BACKEND / "
+                         "NTS_CKPT_BACKEND: npz | orbax)")
+    return backend
 
 
 def keep_last_k() -> int:
@@ -91,9 +122,12 @@ def _legacy_files(path: str) -> Optional[Tuple[str, str]]:
     return None
 
 
-def have_checkpoint(path: str) -> bool:
-    """True when ``path`` holds a checkpoint by its files (a manifest and a
-    non-empty arrays file). No digest is checked: restore does that."""
+def have_checkpoint(path: str, backend: str = "") -> bool:
+    """True when ``path`` holds a checkpoint by its files (a completed
+    sharded step, or a manifest and a non-empty arrays file). No digest is
+    checked: restore does that."""
+    if resolve_backend(backend) == "orbax" and orbax_latest_step(path) is not None:
+        return True
     for _step, step_dir in reversed(list_steps(path)):
         arrays = os.path.join(step_dir, ARRAYS)
         if os.path.isfile(os.path.join(step_dir, MANIFEST)) and os.path.isfile(arrays) \
@@ -112,9 +146,14 @@ def _leaf_digest(arr: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
 
 
-def save_checkpoint(path: str, state: Dict[str, Any], step: int) -> None:
+def save_checkpoint(path: str, state: Dict[str, Any], step: int, backend: str = "") -> None:
     """Write a dict of trees (``{"params": ..., "opt": ...}``) as step
-    ``step`` under ``path``, then prune to the newest ``NTS_CKPT_KEEP``."""
+    ``step`` under ``path``. npz: one writer (the caller gates it), then
+    prune to the newest ``NTS_CKPT_KEEP``. orbax: asynchronous and sharded,
+    every rank calls."""
+    if resolve_backend(backend) == "orbax":
+        _sharded_save(path, state, step)
+        return
     os.makedirs(path, exist_ok=True)
     flat: Dict[str, np.ndarray] = {}
     manifest: Dict[str, Any] = {
@@ -341,11 +380,17 @@ def _rebuild_state(like: Dict[str, Any], manifest: Dict[str, Any],
 
 
 def restore_checkpoint(
-    path: str, like: Dict[str, Any]
+    path: str, like: Dict[str, Any], backend: str = "", local: bool = False
 ) -> Optional[Tuple[Dict[str, Any], int]]:
     """The newest intact checkpoint under ``path`` in the structure of
     ``like`` (numpy leaves in like's dtypes), and its step; None when there
-    is none. A corrupt step is quarantined and the previous one tried."""
+    is none. A corrupt npz step is quarantined and the previous one tried.
+    orbax: every rank of a joined group calls, unless ``local`` (one
+    process reads its own directory; the restore broadcast's rank 0)."""
+    if resolve_backend(backend) == "orbax":
+        step = orbax_latest_step(path)
+        if step is not None:
+            return _sharded_load(path, like, step, local), step
     quarantined = 0
     for step, step_dir in reversed(list_steps(path)):
         try:
@@ -391,3 +436,127 @@ def dump_vertex_array(path: str, name: str, arr) -> None:
 def restore_vertex_array(path: str, name: str) -> Optional[np.ndarray]:
     p = os.path.join(path, f"{name}.npy")
     return np.load(p) if os.path.exists(p) else None
+
+
+# ---- the sharded asynchronous backend (CKPT_BACKEND:orbax) ---------------------
+
+# without a process group (the twin, one device) DCP warns on every save and
+# load that it runs in one process: that is the intent here
+warnings.filterwarnings("ignore", message="torch.distributed is disabled",
+                        category=UserWarning)
+
+# the future of the save in flight, per sharded directory
+_pending: Dict[str, Any] = {}
+
+
+def _sharded_root(path: str) -> str:
+    return os.path.abspath(os.path.join(path, ORBAX_SUBDIR))
+
+
+def _joined() -> bool:
+    return tdist.is_available() and tdist.is_initialized()
+
+
+# (the world it was made in, a gloo group of every rank): the saves and
+# loads coordinate over their own group, since an asynchronous save's
+# collectives run in a background thread beside the training's
+_group: Optional[tuple] = None
+
+
+def _ckpt_group():
+    """The checkpoint's own process group (None without a joined world),
+    made by every rank at its first sharded save or restore."""
+    global _group
+    if not _joined():
+        return None
+    if _group is None or _group[0] is not tdist.group.WORLD:
+        _group = (tdist.group.WORLD, tdist.new_group(backend="gloo"))
+    return _group[1]
+
+
+def _flat_state(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """{key path: CPU tensor} of every leaf (copies: training goes on while
+    an asynchronous save writes them)."""
+    out = {}
+    for key, leaf in tree_util.flatten_with_path(state):
+        if torch.is_tensor(leaf):
+            out[key] = leaf.detach().to("cpu", copy=True)
+        else:
+            out[key] = torch.from_numpy(np.array(leaf))
+    return out
+
+
+def _wait(root: str) -> None:
+    fut = _pending.pop(root, None)
+    if fut is not None:
+        fut.result()
+
+
+def finalize_checkpoints() -> None:
+    """Drain the sharded saves in flight and prune to the newest
+    ``SHARDED_KEEP`` steps (npz: nothing to do)."""
+    for root in list(_pending):
+        _wait(root)
+        _prune_sharded(root)
+
+
+def _completed_steps(root: str) -> List[int]:
+    if not os.path.isdir(root):
+        return []
+    return sorted(int(n) for n in os.listdir(root)
+                  if n.isdigit() and os.path.isfile(os.path.join(root, n, ".metadata")))
+
+
+def orbax_latest_step(path: str) -> Optional[int]:
+    """The newest completed sharded step under ``path`` (after the saves in
+    flight finish), or None: no subdirectory, or none with its metadata
+    (an interrupted first save)."""
+    root = _sharded_root(path)
+    _wait(root)
+    steps = _completed_steps(root)
+    return steps[-1] if steps else None
+
+
+def _prune_sharded(root: str) -> None:
+    if _joined() and tdist.get_rank() != 0:
+        return
+    for step in _completed_steps(root)[:-SHARDED_KEEP]:
+        shutil.rmtree(os.path.join(root, str(step)), ignore_errors=True)
+
+
+def _sharded_save(path: str, state: Dict[str, Any], step: int) -> None:
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint import DefaultSavePlanner
+
+    root = _sharded_root(path)
+    _wait(root)  # one save in flight per directory, as orbax's manager
+    _prune_sharded(root)
+    step_dir = os.path.join(root, str(int(step)))
+    if not _joined() or tdist.get_rank() == 0:
+        os.makedirs(root, exist_ok=True)
+        if os.path.isdir(step_dir):  # a re-save of the same step replaces it
+            shutil.rmtree(step_dir)
+    flat = _flat_state(state)
+    kw = dict(checkpoint_id=step_dir, no_dist=not _joined(), process_group=_ckpt_group(),
+              planner=DefaultSavePlanner(dedup_save_to_lowest_rank=True))
+    try:
+        _pending[root] = dcp.async_save(flat, **kw)
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        log.info("sharded checkpoint: async_save unavailable here (%s); saving step %d "
+                 "synchronously", e, step)
+        dcp.save(flat, **kw)
+
+
+def _sharded_load(path: str, like: Dict[str, Any], step: int, local: bool) -> Dict[str, Any]:
+    import torch.distributed.checkpoint as dcp
+
+    leaves = tree_util.flatten_with_path(like)
+    flat = {}
+    for key, leaf in leaves:
+        t = leaf.detach() if torch.is_tensor(leaf) else torch.from_numpy(np.array(leaf))
+        flat[key] = torch.zeros(tuple(t.shape), dtype=t.dtype)
+    dist = not local and _joined()
+    dcp.load(flat, checkpoint_id=os.path.join(_sharded_root(path), str(int(step))),
+             no_dist=not dist, process_group=_ckpt_group() if dist else None)
+    return tree_util.unflatten_like(like, [
+        flat[key].numpy().astype(_np_dtype(leaf), copy=False) for key, leaf in leaves])

@@ -33,9 +33,9 @@ keys ``PROC_REP``, ``REP_THRESHOLD`` (an out-degree, or ``auto``: -1),
 ``CACHE_BUDGET_MIB`` and ``CACHE_REFRESH`` are read by ``GCNDISTCACHE``
 alone; any other trainer refuses them away from their defaults.
 ``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY`` turn on
-checkpoints (``utils/checkpoint.py``); ``CKPT_BACKEND`` takes ``npz`` alone:
-``orbax`` is a JAX library, and the sharded asynchronous saves it gives
-the reference come with the distributed slice. The serving keys
+checkpoints (``utils/checkpoint.py``); ``CKPT_BACKEND`` takes ``npz`` or
+``orbax`` (JAX's name kept for the sharded asynchronous backend, written
+with ``torch.distributed.checkpoint``). The serving keys
 (``SERVE_MAX_BATCH``, ``SERVE_MAX_WAIT_MS``, ``SERVE_MAX_QUEUE``,
 ``SERVE_BUCKETS``, ``SERVE_CACHE_CAP``, ``SERVE_CACHE_MAX_AGE_S``,
 ``SERVE_HOT_THRESHOLD``, ``SERVE_REPLICAS``, ``SERVE_ROUTE``, ``SERVE_CB``)
@@ -83,11 +83,6 @@ DIST_ALGORITHMS = (
 SUPPORTED_ALGORITHMS = (
     GCN_ALGORITHMS + GCN_EAGER_ALGORITHMS + GAT_ALGORITHMS + GIN_ALGORITHMS
     + COMMNET_ALGORITHMS + GGCN_ALGORITHMS + GCN_SAMPLE_ALGORITHMS + DIST_ALGORITHMS
-)
-# the slice that brings what this one refuses
-PLANE_SLICE = (
-    "the last distributed slice of the torch port (skew, elastic replan, "
-    "numerics, DEBUGINFO and the quantisation probe on the dist trainers)"
 )
 SAMPLE_PIPELINE_MODES = ("sync", "pipelined", "device", "fused")
 
@@ -199,7 +194,7 @@ class InputInfo:
     ell_levels: str = ""  # ELL_LEVELS: "" (the path's default), pow2 or binned
     checkpoint_dir: str = ""  # checkpoint and resume when set
     checkpoint_every: int = 0  # epochs between checkpoints (0: at the end only)
-    ckpt_backend: str = ""  # CKPT_BACKEND: "" (NTS_CKPT_BACKEND, else npz) or npz
+    ckpt_backend: str = ""  # CKPT_BACKEND: "" (NTS_CKPT_BACKEND, else npz), npz or orbax
     batch_size: int = 64  # sampled trainer: seeds per mini-batch
     fanout_string: str = ""  # sampled trainer: FANOUT, e.g. "25-10"
     sample_pipeline: str = ""  # SAMPLE_PIPELINE: "" (sync) or one of SAMPLE_PIPELINE_MODES
@@ -478,18 +473,13 @@ def check_unresolved_autos(cfg: InputInfo) -> None:
 
 def check_ckpt_backend(value: str) -> str:
     """The checkpoint backend ``value`` names (empty: ``NTS_CKPT_BACKEND``,
-    else npz); refuses orbax and unknown names."""
+    else npz): npz, or orbax (JAX's name for the sharded asynchronous
+    backend, ``utils/checkpoint.py``); refuses unknown names."""
     backend = value or os.environ.get("NTS_CKPT_BACKEND", "") or "npz"
-    if backend == "orbax":
-        raise ValueError(
-            "checkpoint backend orbax (CKPT_BACKEND / NTS_CKPT_BACKEND) is a JAX "
-            "library; the torch port writes npz checkpoints, and sharded "
-            "asynchronous saves come with the distributed slice: set npz"
-        )
-    if backend != "npz":
+    if backend not in ("npz", "orbax"):
         raise ValueError(
             f"unknown checkpoint backend {backend!r} (CKPT_BACKEND / "
-            "NTS_CKPT_BACKEND: npz)"
+            "NTS_CKPT_BACKEND: npz | orbax)"
         )
     return backend
 

@@ -431,7 +431,72 @@ def test_checkpoint_keys_parse(tmp_path, monkeypatch):
 
 
 def test_orbax_from_the_environment_is_refused(host_graphs, edges, tmp_path, monkeypatch):
+    """``NTS_CKPT_BACKEND=orbax`` (refused before the sharded backend came):
+    now a round trip. 3 epochs write sharded steps under ``orbax/``, and a
+    new trainer resumes to 6, bitwise the straight 6-epoch run (dropout
+    0.5: the epoch's masks are a function of the seed and the epoch)."""
     monkeypatch.setenv("NTS_CKPT_BACKEND", "orbax")
-    with pytest.raises(ValueError, match="orbax.*JAX library"):
-        _port("GCNCPU", host_graphs, edges, checkpoint_dir=str(tmp_path))
-    _port("GCNCPU", host_graphs, edges)  # no checkpoints: the variable is unused
+    straight = _port("GCNCPU", host_graphs, edges, epochs=6)
+    straight.run()
+    ck = str(tmp_path / "ck")
+    first = _port("GCNCPU", host_graphs, edges, epochs=3, checkpoint_dir=ck,
+                  checkpoint_every=1)
+    first.run()
+    assert sorted(os.listdir(os.path.join(ck, t_ckpt.ORBAX_SUBDIR))) == ["2", "3"]
+    assert t_ckpt.list_steps(ck) == []  # no npz step
+    second = _port("GCNCPU", host_graphs, edges, epochs=6, checkpoint_dir=ck,
+                   checkpoint_every=1)
+    second.run()
+    assert second._first_epoch_trained == 3
+    assert first.loss_history + second.loss_history == straight.loss_history
+    for a, b in zip(second.flat_params, straight.flat_params):
+        assert torch.equal(a, b)
+
+
+# ---- the sharded backend (JAX test_checkpoint.py:308, :343) --------------------------
+
+def test_orbax_roundtrip_and_trainer_resume(host_graphs, edges, tmp_path):
+    """``test_checkpoint.py:308``: the sharded backend's round trip keeps
+    values and dtypes, and the trainer's resume keeps the npz path's epoch
+    accounting."""
+    t_ckpt.save_checkpoint(str(tmp_path / "a"), _state(), step=4, backend="orbax")
+    t_ckpt.finalize_checkpoints()
+    got, step = t_ckpt.restore_checkpoint(str(tmp_path / "a"), _state(), backend="orbax")
+    assert step == 4
+    np.testing.assert_array_equal(got["params"][0]["W"], np.arange(6.0).reshape(2, 3))
+    assert got["params"][0]["W"].dtype == np.float32
+    assert int(got["opt"]["step"]) == 5 and got["opt"]["step"].dtype == np.int32
+    assert t_ckpt.have_checkpoint(str(tmp_path / "a"), backend="orbax")
+    assert not t_ckpt.have_checkpoint(str(tmp_path / "a"), backend="npz")
+    ck = str(tmp_path / "ck")
+    _port("GCNCPU", host_graphs, edges, epochs=4, checkpoint_dir=ck,
+          ckpt_backend="orbax").run()
+    tr = _port("GCNCPU", host_graphs, edges, epochs=6, checkpoint_dir=ck,
+               ckpt_backend="orbax")
+    tr.run()
+    assert len(tr.epoch_times) == 2 and tr._first_epoch_trained == 4
+
+
+def test_orbax_latest_step_empty_dir_is_none(tmp_path):
+    """``test_checkpoint.py:343``: no subdirectory, an empty one, or a step
+    whose metadata was never written is no step; a completed save is."""
+    path = str(tmp_path / "a")
+    assert t_ckpt.orbax_latest_step(path) is None
+    os.makedirs(os.path.join(path, t_ckpt.ORBAX_SUBDIR, "9"))  # an unfinished save
+    assert t_ckpt.orbax_latest_step(path) is None
+    assert not t_ckpt.have_checkpoint(path, backend="orbax")
+    assert t_ckpt.restore_checkpoint(path, _state(), backend="orbax") is None
+    t_ckpt.save_checkpoint(path, _state(), step=7, backend="orbax")
+    assert t_ckpt.orbax_latest_step(path) == 7  # waits for the save in flight
+
+
+def test_orbax_keeps_two_steps_and_unknown_backend_refuses(tmp_path):
+    for step in range(1, 5):
+        t_ckpt.save_checkpoint(str(tmp_path), _state(step), step=step, backend="orbax")
+    t_ckpt.finalize_checkpoints()
+    assert sorted(os.listdir(tmp_path / t_ckpt.ORBAX_SUBDIR)) == ["3", "4"]
+    got, step = t_ckpt.restore_checkpoint(str(tmp_path), _state(), backend="orbax")
+    assert step == 4 and got["params"][0]["W"][0, 1] == 4.0
+    with pytest.raises(ValueError, match="unknown checkpoint backend"):
+        t_ckpt.resolve_backend("zarr")
+    assert t_ckpt.resolve_backend("") == "npz"

@@ -367,3 +367,32 @@ def test_bf16_warns_and_runs_f32(cora, jax_runs, caplog):
     assert a.loss_history == b.loss_history
     assert b.metrics._gauges["wire.rows_per_layer_full"] == \
         (P_TRAIN - 1) * b.dist.mb
+
+
+def test_dist_plane_switches_as_jax(cora, monkeypatch, tmp_path, caplog):
+    """JAX's DepCache trainer reads none of NTS_DEBUGINFO, NTS_NUMERICS and
+    NTS_QUANT_PROBE (no report, no tensor_stats) and refuses NTS_ELASTIC at
+    the funnel; the port's does the same."""
+    import glob
+    import json
+
+    for k in ("NTS_DEBUGINFO", "NTS_NUMERICS", "NTS_QUANT_PROBE"):
+        monkeypatch.setenv(k, "1")
+    monkeypatch.setenv("NTS_METRICS_DIR", str(tmp_path))
+    lg = logging.getLogger("nts_torch")
+    lg.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.INFO, logger="nts_torch"):
+            tr = _port(cora, epochs=2, process_rep=True, rep_threshold=4)
+            tr.run()
+    finally:
+        lg.removeHandler(caplog.handler)
+    assert "DEBUGINFO" not in caplog.text and np.isfinite(tr.loss_history[-1])
+    with open(glob.glob(str(tmp_path / "*.jsonl"))[0]) as fh:
+        kinds = {json.loads(line)["event"] for line in fh if line.strip()}
+    assert "epoch" in kinds and "tensor_stats" not in kinds
+    assert tr.numerics_replay(0) is None
+    monkeypatch.setenv("NTS_ELASTIC", "1")
+    assert not getattr(j_get_algorithm("GCNDISTCACHE"), "supports_elastic", False)
+    with pytest.raises(ValueError, match="NTS_ELASTIC=1 is not available"):
+        _port(cora, epochs=1)

@@ -31,6 +31,7 @@ The JAX runs are cached at module scope; torch runs on one thread.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import subprocess
@@ -517,6 +518,37 @@ def test_two_gloo_ranks_match_the_sim_twin():
             assert abs(rank["acc"][split] - acc) <= 1e-3, (route, split)
 
 
+def test_two_process_resume_with_nonshared_ckpt_dir():
+    """JAX's ``tests/test_multihost.py:123`` over gloo: two ranks, one
+    CHECKPOINT_DIR each (not shared). Two epochs: only rank 0's directory
+    fills. Then to four: both ranks resume at 2 (the epoch and the state
+    broadcast from rank 0) and run 2 more, with equal losses (1e-6) and
+    accuracies, on the twin's straight 4-epoch curve (1e-5). Without the
+    broadcast rank 1 starts at 0 and the collectives hang: the limit of
+    120 s ends it. The sharded backend (``CKPT_BACKEND:orbax``, every rank
+    saving; rank 0's directory alone holds a completed step) resumes the
+    same way."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("NTS_DIST_SIMULATE", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "neutronstarlite_torch.tools.dist_parity", "--partitions",
+         "2", "--device", "cpu", "--routes", "resume,resume_orbax", "--vertices", "400",
+         "--edges",
+         "4000", "--layers", "31-15-7", "--epochs", "4", "--atol", "1e-5", "--timeout",
+         "110"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-3000:])
+    routes = json.loads(proc.stdout.strip().splitlines()[-1])["routes"]
+    for r in (routes["resume"], routes["resume_orbax"]):
+        assert r["ok"] and r["max_loss_gap"] <= 1e-5
+        assert r["dir_filled"] == [True, False]
+        assert r["resumed_at"] == [2, 2] and r["epochs_run"] == [2, 2]
+        assert abs(r["final_loss"][0] - r["final_loss"][1]) <= 1e-6 * abs(r["final_loss"][0])
+        assert r["acc"][0] == r["acc"][1]
+        assert len(r["rank0"]["losses"]) == 4
+
+
 # ---- refusals ------------------------------------------------------------------
 
 
@@ -560,21 +592,58 @@ def test_cfg_parses_the_dist_keys(tmp_path):
 
 @pytest.mark.parametrize("env,kw,match", [
     ({"NTS_PALLAS_RESIDENT": "1"}, {}, "resident"),
-    ({"NTS_DEBUGINFO": "1"}, {}, "distributed trainer"),
-    ({"NTS_NUMERICS": "1"}, {}, "distributed trainer"),
-    ({"NTS_ELASTIC": "1"}, {}, "distributed trainer"),
+    # the distributed plane's switches, refused until the elastic slice:
+    # DEBUGINFO, NUMERICS and QUANT_PROBE now run and write their report or
+    # records; NTS_ELASTIC refuses where JAX refuses it (GATDIST)
+    pytest.param({"NTS_DEBUGINFO": "1"}, {}, "runs:#nn_time=",
+                 id="env1-kw1-distributed trainer"),
+    pytest.param({"NTS_NUMERICS": "1"}, {}, "runs:tensor_stats",
+                 id="env2-kw2-distributed trainer"),
+    pytest.param({"NTS_ELASTIC": "1"}, {"algorithm": "GATDIST"},
+                 "NTS_ELASTIC=1 is not available for ALGORITHM 'GATDIST'",
+                 id="env3-kw3-distributed trainer"),
     # NTS_MESH=auto with the autotuner off; NTS_WIRE_DTYPE takes no auto
     pytest.param({"NTS_MESH": "auto"}, {}, "NTS_TUNE", id="env4-kw4-tune slice"),
     pytest.param({"NTS_WIRE_DTYPE": "auto"}, {}, "not from the env",
                  id="env5-kw5-tune slice"),
     ({"NTS_DIST_SIMULATE": "0"}, {}, "NTS_DIST_SIMULATE=1"),
-    ({"NTS_QUANT_PROBE": "1"}, {}, "distributed trainer"),
+    pytest.param({"NTS_QUANT_PROBE": "1"},
+                 {"optim_kernel": False, "kernel_tile": 0, "dist_path": "ring_blocked_sim",
+                  "wire_dtype": "bf16"}, "runs:wire.payload/l0",
+                 id="env7-kw7-distributed trainer"),
     ({}, {"optim_kernel": False, "comm_layer": "mirror", "mesh": "2,2"}, "ring-only"),
     ({}, {"comm_layer": "ring"}, "all_gather family"),
     ({}, {"sublinear": True}, "SUBLINEAR"),
 ])
-def test_dist_trainer_refusals(cora, monkeypatch, env, kw, match):
+def test_dist_trainer_refusals(cora, monkeypatch, tmp_path, caplog, env, kw, match):
+    """The funnel's refusals; a ``runs:`` case (a switch an earlier slice
+    refused) trains two epochs and must leave its report line or record."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(ValueError, match=match):
-        _port(cora, "GCNDIST", "ell", **kw)
+    kw = dict(kw)
+    algorithm = kw.pop("algorithm", "GCNDIST")
+    if not match.startswith("runs:"):
+        with pytest.raises(ValueError, match=match):
+            _port(cora, algorithm, "ell", **kw)
+        return
+    import logging
+
+    monkeypatch.setenv("NTS_METRICS_DIR", str(tmp_path))
+    lg = logging.getLogger("nts_torch")
+    lg.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.INFO, logger="nts_torch"):
+            tr = _port(cora, algorithm, "ell", epochs=2, **kw)
+            tr.run()
+    finally:
+        lg.removeHandler(caplog.handler)
+    assert np.isfinite(tr.loss_history[-1])
+    with open(glob.glob(str(tmp_path / "*.jsonl"))[0]) as fh:
+        names = [r.get("name") for r in map(json.loads, fh) if r["event"] == "tensor_stats"]
+    want = match[len("runs:"):]
+    if want.startswith("#"):
+        assert want in caplog.text and "#graph_time=" in caplog.text
+    elif want == "tensor_stats":
+        assert {"params/l0", "grads/l1", "acts/l0", "logits"} <= set(names)
+    else:
+        assert names.count(want) == 2

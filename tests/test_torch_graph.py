@@ -98,11 +98,20 @@ def test_cfg_parse_agrees_or_refuses(path):
 ])
 def test_cfg_refuses_unported_keys(tmp_path, line):
     """Refused at the parse, or (the autotuner's auto axes, while it is
-    off) at the trainer's funnel."""
+    off) at the trainer's funnel. ``CKPT_BACKEND:orbax`` (the sharded
+    backend, since the elastic slice) parses as JAX's and passes the
+    funnel with a CHECKPOINT_DIR."""
     from neutronstarlite_torch.models import get_algorithm
 
     p = tmp_path / "x.cfg"
     p.write_text("ALGORITHM:GCNCPU\nVERTICES:10\nLAYERS:4-2\n" + line + "\n")
+    if line == "CKPT_BACKEND:orbax":
+        p.write_text(p.read_text() + f"CHECKPOINT_DIR:{tmp_path}\n")
+        cfg = t_config.InputInfo.read_from_cfg_file(str(p))
+        ref = jax_config.InputInfo.read_from_cfg_file(str(p))
+        assert cfg.ckpt_backend == ref.ckpt_backend == "orbax"
+        get_algorithm(cfg.algorithm).check_cfg(cfg)
+        return
     with pytest.raises(ValueError):
         cfg = t_config.InputInfo.read_from_cfg_file(str(p))
         get_algorithm(cfg.algorithm).check_cfg(cfg)

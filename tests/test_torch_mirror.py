@@ -33,6 +33,7 @@ scope; torch runs on one thread.
 
 from __future__ import annotations
 
+import glob
 import json
 import logging
 import os
@@ -544,7 +545,10 @@ def test_cli_trains_on_the_cpu(tmp_path, monkeypatch, algorithm, extra):
     (dict(kernel="fused_edge", dist_path="all_gather"), {}, "ring schedule"),
     (dict(comm_layer="ring"), {}, "uniform mirror"),
     (dict(kernel_tile=256), {}, "KERNEL_TILE"),
-    ({}, {"NTS_DEBUGINFO": "1"}, "distributed trainer"),
+    # NTS_DEBUGINFO now runs on GATDIST (below); the switch of the plane that
+    # GATDIST refuses, as JAX does, is NTS_ELASTIC
+    pytest.param({}, {"NTS_ELASTIC": "1"}, "NTS_ELASTIC=1 is not available",
+                 id="kw5-env5-distributed trainer"),
     ({}, {"NTS_DIST_SIMULATE": "0"}, "NTS_DIST_SIMULATE=1"),
 ])
 def test_edge_family_refusals(cora, monkeypatch, kw, env, match):
@@ -552,6 +556,32 @@ def test_edge_family_refusals(cora, monkeypatch, kw, env, match):
         monkeypatch.setenv(k, v)
     with pytest.raises(ValueError, match=match):
         _port(cora, "GATDIST", **kw)
+
+
+@pytest.mark.parametrize("algorithm", ["GATDIST", "GGCNDIST"])
+def test_edge_family_debuginfo_and_numerics_as_jax(cora, monkeypatch, tmp_path, caplog,
+                                                   algorithm):
+    """JAX's edge-family dist trainers print the DEBUGINFO report with the
+    nn / graph split (the nn-only forward: a zero aggregate per layer) and
+    run no stats step: NTS_NUMERICS and NTS_QUANT_PROBE leave no record."""
+    for k in ("NTS_DEBUGINFO", "NTS_NUMERICS", "NTS_QUANT_PROBE"):
+        monkeypatch.setenv(k, "1")
+    monkeypatch.setenv("NTS_METRICS_DIR", str(tmp_path))
+    lg = logging.getLogger("nts_torch")
+    lg.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.INFO, logger="nts_torch"):
+            tr = _port(cora, algorithm, epochs=2)
+            tr.run()
+    finally:
+        lg.removeHandler(caplog.handler)
+    for key in ("#nn_time=", "#graph_time=", "#forward_time=", "#backward_time=",
+                "#update_time=", "#all_train_step_time="):
+        assert key in caplog.text
+    with open(glob.glob(str(tmp_path / "*.jsonl"))[0]) as fh:
+        kinds = {json.loads(line)["event"] for line in fh if line.strip()}
+    assert "epoch" in kinds and "tensor_stats" not in kinds
+    assert tr.numerics_replay(0) is None  # no layer taps: the provenance is unattributed
 
 
 def test_optim_kernel_is_ignored_with_a_warning(cora, caplog):

@@ -266,7 +266,7 @@ FLIGHT_CHAIN = (
 )
 
 
-@pytest.mark.parametrize("name", ["hist", "schema", "flight", "slo"])
+@pytest.mark.parametrize("name", ["hist", "schema", "flight", "slo", "skew"])
 def test_copied_module_code_equals_the_original(name):
     """The copies differ from the originals only in their docstring's port
     note and the import paths (and flight in its SIGUSR2 chaining,
@@ -724,3 +724,152 @@ def test_debuginfo_reports_and_leaves_the_model(jax_gcn, tmp_path, monkeypatch):
     for p, q in zip(a.flat_params, b.flat_params):
         assert torch.equal(p, q)
     assert a.run_summary_record["result"]["acc"] == b.run_summary_record["result"]["acc"]
+
+
+# ---- the distributed trainers' numerics plane (JAX test_numerics.py) ---------------
+
+DIST_V, DIST_EPOCHS = 120, 3
+DIST_ENV = ("NTS_FAULT_SPEC", "NTS_QUANT_PROBE", "NTS_DIST_SIMULATE")
+
+
+def _dist_cfg(cls, wire_dtype="bf16", epochs=DIST_EPOCHS):
+    return _cfg(cls, epochs, "GCNDIST", "8-8-3", vertices=DIST_V, learn_rate=0.01,
+                weight_decay=1e-4, decay_epoch=-1, partitions=2,
+                dist_path="ring_blocked_sim", kernel_tile=16, wire_dtype=wire_dtype)
+
+
+def _dist_rig():
+    from tests.test_models import _planted_data
+
+    src, dst, jd = _planted_data(v_num=DIST_V, classes=3, f=8, seed=1)
+    return src, dst, jd, GNNDatum(feature=jd.feature, label=jd.label, mask=jd.mask)
+
+
+def _dist_run(tmp, jax_side, p0=None, supervised=False, **env):
+    """GCNDIST on the 2-partition ring twin with a bf16 wire (JAX's
+    ``_dist_sim``): the trainer and its stream."""
+    src, dst, jd, datum = _dist_rig()
+    with pytest.MonkeyPatch.context() as mp:
+        for k in DIST_ENV:
+            mp.delenv(k, raising=False)
+        mp.setenv("NTS_METRICS_DIR", str(tmp / "m"))
+        mp.setenv("NTS_BACKOFF_BASE_S", "0")
+        for k, v in env.items():
+            mp.setenv(k, v)
+        if jax_side:
+            from neutronstarlite_tpu.models.gcn_dist import DistGCNTrainer as JDist
+
+            g = j_build_graph(src, dst, DIST_V, use_native=False)
+            tr = JDist.from_arrays(_dist_cfg(JInfo), src, dst, jd, host_graph=g)
+            p0 = params_from_jax(tr.params)
+            tr.run()
+            j_events.set_sink(None)
+        else:
+            tr = get_algorithm("GCNDIST").from_arrays(
+                _dist_cfg(InputInfo), src, dst, datum, device="cpu",
+                host_graph=build_graph(src, dst, DIST_V))
+            if p0 is not None:
+                tr.load_params(p0)
+            supervised_run(tr) if supervised else tr.run()
+            events.set_sink(None)
+            faults.reset()
+    return tr, _stream(tmp / "m"), p0
+
+
+@pytest.fixture(scope="module")
+def jax_dist_numerics(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NTS_NO_NATIVE", "1")
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_tried", False)
+        return _dist_run(tmp_path_factory.mktemp("jax-dist-num"), True, NTS_NUMERICS="1",
+                         NTS_QUANT_PROBE="1")
+
+
+@pytest.fixture(scope="module")
+def port_dist_numerics(jax_dist_numerics, tmp_path_factory):
+    return _dist_run(tmp_path_factory.mktemp("port-dist-num"), False, jax_dist_numerics[2],
+                     NTS_NUMERICS="1", NTS_QUANT_PROBE="1")
+
+
+def _host_quant_err(x: np.ndarray) -> float:
+    """||bf16(x) - x|| / ||x|| in f64 (round to nearest even)."""
+    x = np.asarray(x, dtype=np.float32)
+    q = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    x64 = x.astype(np.float64)
+    return float(np.sqrt(np.mean((q - x64) ** 2)) / np.sqrt(np.mean(x64 ** 2)))
+
+
+def test_dist_numerics_leaves_the_loss_curve_bitwise(jax_dist_numerics, port_dist_numerics,
+                                                     tmp_path):
+    """``test_numerics.py:181`` on the distributed trainer: numerics on and
+    off give bitwise-equal losses; the stream carries the per-layer groups
+    and the wire payload's, in JAX's order."""
+    off, _, _ = _dist_run(tmp_path, False, jax_dist_numerics[2])
+    on, trecs, _ = port_dist_numerics
+    assert on.loss_history == off.loss_history
+    _validate_both(trecs)
+    names = [(r["name"], r["epoch"]) for r in _of(trecs, "tensor_stats")]
+    assert names == [(r["name"], r["epoch"]) for r in _of(jax_dist_numerics[1], "tensor_stats")]
+    assert {n for n, _ in names} == {
+        "params/l0", "params/l1", "grads/l0", "grads/l1", "acts/l0", "acts/l1", "logits",
+        "grads/global", "wire/l0", "wire.payload/l0"}
+
+
+def test_dist_numerics_epoch0_stats_match_jax(jax_dist_numerics, port_dist_numerics):
+    jst = [r for r in _of(jax_dist_numerics[1], "tensor_stats") if r["epoch"] == 0]
+    tst = [r for r in _of(port_dist_numerics[1], "tensor_stats") if r["epoch"] == 0]
+    for t, j in zip(tst, jst):
+        assert t["name"] == j["name"]
+        for key in ("finite_fraction", "zero_fraction"):
+            assert t[key] == pytest.approx(j[key], abs=1e-6), (t["name"], key)
+        for key in ("absmax", "rms", "grad_global_norm"):
+            if j.get(key) is not None:
+                assert t[key] == pytest.approx(j[key], rel=1e-4), (t["name"], key)
+        if "quant_rel_err" in j:
+            assert abs(t["quant_rel_err"] - j["quant_rel_err"]) <= 1e-6
+
+
+def test_dist_quant_probe_gauge_and_record(jax_dist_numerics, port_dist_numerics):
+    """``test_numerics.py:363``: one payload record per epoch, the gauge the
+    last record's value, within 1e-6 of the host's exact value on the same
+    payload and of JAX's measurement."""
+    tr, trecs, _ = port_dist_numerics
+    payloads = [r for r in _of(trecs, "tensor_stats") if r["name"] == "wire.payload/l0"]
+    assert len(payloads) == DIST_EPOCHS
+    err = payloads[-1]["quant_rel_err"]
+    assert tr.metrics.snapshot()["gauges"]["wire.quant_rel_err"] == err
+    assert _of(trecs, "run_summary")[-1]["gauges"]["wire.quant_rel_err"] == err
+    assert abs(err - _host_quant_err(tr.feature.numpy())) <= 1e-6
+    jerr = [r for r in _of(jax_dist_numerics[1], "tensor_stats")
+            if r["name"] == "wire.payload/l0"][-1]["quant_rel_err"]
+    assert abs(err - jerr) <= 1e-6
+
+
+@pytest.mark.parametrize("scale", [1.0, 3.0, 1e-3])
+def test_quant_rel_err_matches_host_exact(scale):
+    """``test_numerics.py:345``: the measurement against a host-side exact
+    computation, within 1e-6, and the probe's stats at the wire dtype."""
+    from neutronstarlite_torch.parallel.ring_schedule import payload_quant_probe
+
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((257, 33)) * scale).astype(np.float32)
+    measured = float(t_numerics.quant_rel_err(torch.from_numpy(x), torch.bfloat16))
+    assert abs(measured - _host_quant_err(x)) <= 1e-6
+    assert 0 < measured < 0.01
+    st = payload_quant_probe(torch.bfloat16)(torch.from_numpy(x))
+    assert float(st["quant_rel_err"]) == measured
+    assert int(st["count"]) == x.size and int(st["nonfinite_count"]) == 0
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+def test_provenance_names_injected_layer_dist(jax_dist_numerics, tmp_path, layer):
+    """``test_numerics.py:299``: the chaos oracle on the distributed
+    trainer: ``nan_loss@epoch=1,layer=k`` under supervised_run, the
+    provenance replay through the forward's tap names layer k."""
+    tr, recs, _ = _dist_run(tmp_path, False, jax_dist_numerics[2], supervised=True,
+                            NTS_FAULT_SPEC=f"nan_loss@epoch=1,layer={layer}")
+    assert np.isfinite(tr.loss_history[-1])
+    prov = _of(recs, "nonfinite_provenance")
+    assert len(prov) == 1
+    assert (prov[0]["layer"], prov[0]["op"], prov[0]["injected"]) == (layer, "activation", True)

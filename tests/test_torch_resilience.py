@@ -129,12 +129,41 @@ def test_fault_spec_parsers_agree(text):
 def test_unported_faults_are_refused(monkeypatch, text, slice_):
     """Kinds and points of later slices refuse, naming the slice. The obs
     slice's ``nan_loss@layer=k`` is ported: it fires as in the reference,
-    replacing the loss with NaN and arming the provenance poison."""
+    replacing the loss with NaN and arming the provenance poison. The
+    distributed slice's ``rank_loss``, ``slow_rank`` and the
+    ``partition_step`` point are ported too: each fires at its point as in
+    the reference (the twin's end-to-end runs are tests/test_torch_elastic.py
+    and tests/test_torch_skew.py)."""
     monkeypatch.setenv("NTS_FAULT_SPEC", text)
     j_faults.parse_fault_spec(text)  # the reference runs it
     if slice_ == "obs slice":
         assert math.isnan(faults.fault_point("epoch_loss", epoch=0, value=1.0))
         assert faults.pending_layer_poison() == 1
+        return
+    if slice_ == "distributed":
+        from neutronstarlite_torch.resilience import elastic
+
+        slept = []
+        monkeypatch.setattr(faults.time, "sleep", slept.append)
+        elastic.reset()
+        try:
+            if text.startswith("rank_loss"):
+                assert faults.fault_point("epoch_loss", epoch=0, value=1.0) == 1.0
+                assert elastic.dead_partitions() == set()  # epoch=1 only
+                faults.fault_point("epoch_loss", epoch=1, value=1.0)
+                assert elastic.dead_partitions() == {2}
+                assert elastic.alive_partitions(4) == [0, 1, 3]
+            elif text.startswith("slow_rank"):
+                faults.fault_point("partition_step", epoch=0, partition=0)
+                assert slept == []
+                faults.fault_point("partition_step", epoch=0, partition=1)
+                assert slept == [1.0]  # ms defaults to 1000
+            else:
+                faults.fault_point("epoch_loss", epoch=0, value=1.0)
+                with pytest.raises(RuntimeError, match="partition_step"):
+                    faults.fault_point("partition_step", epoch=0, partition=3)
+        finally:
+            elastic.reset()
         return
     # the HTTP fetch comes with the live-graph and cross-host serving slice
     with pytest.raises(ValueError, match="cross-host serving" if slice_ == "serving" else slice_):

@@ -630,10 +630,18 @@ def test_numerics_and_liveness_records_equal_the_reference():
         finally:
             events.set_sink(None)
     assert runs[0] == runs[1]
-    with pytest.raises(ValueError, match="distributed slice"):
-        t_elastic.replan_survivors(None, 1)
-    with pytest.raises(ValueError, match="distributed slice"):
-        t_elastic.kill_partition(1)
+    # the survivor replan came with the elastic slice; on real ranks (a
+    # joined process group) it refuses, naming the relaunch it would need
+    import types
+
+    with pytest.raises(ValueError, match="relaunch"):
+        t_elastic.replan_survivors(types.SimpleNamespace(world=object()), 1)
+    # and the chaos kill marks a sim partition dead (the process-global set)
+    t_elastic.kill_partition(1)
+    try:
+        assert t_elastic.dead_partitions() == {1}
+    finally:
+        t_elastic.reset()
 
 
 # ---- the CLIs -----------------------------------------------------------------------
