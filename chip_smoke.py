@@ -60,7 +60,9 @@ Phases (each prints its lines; any failure exits non-zero):
    route's; (b) GAT f32 through KERNEL:fused_edge from phase 7's chain
    parameters, --epochs, held against the chain under phase 7's rules,
    with the time of the fused op's forward and of each of its three
-   backward passes over one epoch's calls, and one profiled epoch;
+   backward passes over one epoch's calls, and one profiled epoch (device
+   activity only: the host ops of these epochs' ~25,000 launches take some
+   20 s to parse, so their table is left out here and in (c));
    (c) GGCN f32 fused from phase 9's parameters at 0.2 x --scale, held
    against the chain, then 2 epochs at --scale itself (0.1: V=23,296,
    E=11,461,589) with its peak memory, pass times and one profiled epoch; (d) the fused op alone on a
@@ -162,13 +164,13 @@ Phases (each prints its lines; any failure exits non-zero):
    graph and parameters, drop 0: (a) GCNDIST on DIST_PATH:ring_blocked
    (vt = min(vp, 512)), on MESH:4,2 (ring_blocked_sim), on
    COMM_LAYER:mirror and on COMM_LAYER:auto without OPTIM_KERNEL (its
-   choice, mb and vp printed), and GCNEAGERDIST on ring_blocked, 3 epochs
-   each: first logits (valid rows) and epoch-0 loss against phase 15's
+   choice, mb and vp printed), and GCNEAGERDIST on ring_blocked,
+   RING_EPOCHS each: first logits (valid rows) and epoch-0 loss against phase 15's
    single-device ELL references (LOGITS_TOL, LOSS_RTOL), the live wire,
    ring and mesh gauges and the wire counter equal to ring_wire_plan /
    predict_mesh / (P-1)*mb, epoch times, host table build, peak memory;
-   (b) GCNDIST f32 on ring_blocked with WIRE_DTYPE:bf16 beside f32: first
-   logits within 0.02 max|f32| and not bitwise equal, the wire bytes
+   (b) GCNDIST f32 on ring_blocked with WIRE_DTYPE:bf16 beside f32, one
+   epoch each: first logits within 0.02 max|f32| and not bitwise equal, the wire bytes
    halved; (c) NTS_OVERLAP_PROBE=1 on (a)'s ring_blocked run: the
    ring.probe_* gauges present (the twin's hop is a slice, so the probe
    measures the schedule's overhead, not wire time); (d)
@@ -185,19 +187,23 @@ Phases (each prints its lines; any failure exits non-zero):
    parameters, MIRROR_EPOCHS: first logits (valid rows) and epoch-0 loss
    against phase 7's single-device chain (GAT_LOGITS_TOL, GAT_LOSS_RTOL);
    (c) GATDIST KERNEL:fused_edge on DIST_PATH:ring_blocked_sim,
-   FUSED_RING_EPOCHS, against (b) under phase 10's rule for fused against
-   chain, kernel.edge_hbm_bytes_per_epoch 0, and one training epoch under
-   torch.profiler (launches per epoch, idle share); (f) GATDIST
+   FUSED_RING_EPOCHS, on phase 9's graph (0.2 x --scale: at --scale one
+   epoch of the twin's fused ring is ~10^6 launches, 18 s), against the
+   mirror chain from the same parameters on that graph under phase 10's
+   rule for fused against chain, kernel.edge_hbm_bytes_per_epoch 0, and
+   one training epoch under torch.profiler (launches per epoch, idle
+   share); (f) GATDIST
    PRECISION:bfloat16 against (b) under JAX's bf16 bound (BF16_LOSS_TOL,
    BF16_ACC_DROP) with half the wire bytes; (d) GGCNDIST's chain at 0.2 x
    --scale from phase 9's parameters against phase 9's chain, the fused
-   ring at 0.2 x against that chain, then the fused ring alone at --scale;
+   ring at 0.2 x against that chain (phase 10 (c) runs GGCN's fused op at
+   --scale);
    (e) the chunked chain's per-rank body (GGCN, C = f = 128) at --scale
    with the default NTS_EDGE_CHUNK against the whole body on the same
    rank, forward and both gradients in f64 (in f32 a hub source's
    gradient row, summed chunk by chunk or at once, rounds apart by more
-   than F32_TOL), for each of the 8 ranks, with the chunk count and both
-   bodies' f32 peaks; (g) GCNDISTCACHE: PROC_REP:0 against
+   than F32_TOL), on ranks CHUNK_RANKS (0 and 7) of the 8, with the chunk
+   count and both bodies' f32 peaks; (g) GCNDISTCACHE: PROC_REP:0 against
    GCNDIST COMM_LAYER:mirror f32 (first logits, epoch-0 loss), PROC_REP:1
    REP_THRESHOLD:auto (its cached fraction, mc, mf and wire bytes) against
    PROC_REP:0 (CACHE_REFRESH:1 is the fresh fetch), and CACHE_REFRESH:3
@@ -251,7 +257,33 @@ Phases (each prints its lines; any failure exits non-zero):
    one with numerics off, tensor_stats for params, grads, activations,
    logits and the wire payload, and with NTS_QUANT_PROBE=1 the
    wire.quant_rel_err gauge within QUANT_ATOL of the host's value on the
-   same payload. Only (a), (b), (e) and (f) run a kernel (ell_level).
+   same payload, 2 epochs each. Only (a), (b), (e) and (f) run a kernel
+   (ell_level);
+20. the live graph and the stream (serve/delta.py, stream/; plain PyTorch,
+   no kernel: both kernels' launch counts stay 0 through the phase), on
+   phase 14's sampled GCN 602-128-41 bf16, FANOUT 25-10, trained one fused
+   epoch on phase 4's graph into a checkpoint and served from it (buckets
+   1-4-16-64; see phase_live_graph): (a) engines in the sync, device and
+   fused modes over one toolkit, a 256-row vertex margin reserved before
+   warm-up, then an edge-only delta (64 inserts, 16 removals of existing
+   edges) and a delta appending 8 vertices within the margin, each applied
+   through three pipelined servers whose executors hold a flush prepared
+   before it: no capture, every captured tensor's address unchanged, the
+   held flush answers bitwise what the pre-delta engine answered, and the
+   next flush (dirty and clean vertices) bitwise what a fresh engine over
+   the post-delta graph answers from the same generator state; plan_delta's
+   and the apply's seconds, the dirty sizes and the rows patched; (b) a
+   delta appending more vertices than the margin holds: the ladders are
+   dropped and captured again once per bucket, and the engines still match
+   a fresh one; (c) a 2-writer graph_gen.delta_trace through a DeltaLog
+   and a StreamIngestor into a fleet of 2 fused replicas under a
+   closed-loop load, at the rate the host sustains (from (a) and (b)),
+   beside the same load without deltas: p50, p99, throughput, the deltas
+   applied, no error, no capture after warm-up, and no cached row older
+   than a delta that dirtied it; (d) one FineTuneWorker.drain_once over the
+   stream's dirty region (batches, loss, seconds), the serving engine's
+   weights untouched, its checkpoint restored into an engine, and
+   exc@point=finetune_round rolled through.
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -280,6 +312,7 @@ before printing either.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import glob
 import json
 import logging
@@ -321,8 +354,14 @@ FAMILY_LOSS_RTOL = 1e-4  # GIN / CommNet kernel routes vs scatter, f32
 BSP_RESUME_RTOL = 1e-5
 
 
+T_START = time.perf_counter()  # the run's start (main resets it); log() prints the
+# seconds since. A run still going after WATCHDOG_S ends with every thread's
+# stack on stderr, so that a stall shows where it sits (the limit is 1200 s)
+WATCHDOG_S = 1140
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - T_START:6.1f}s] {msg}", flush=True)
 
 
 def check_close(name, got, want, tol, abs_sum=None) -> float:
@@ -812,19 +851,22 @@ def gat_sparse(g, gep, alphas, direction: str):
 OWN_KERNELS = ("ell_work_kernel", "ell_split_reduce", "bsp_ell_kernel", "::cast_kernel<")
 
 
-def profile_step(step, top: int = 8) -> dict:
+def profile_step(step, top: int = 8, host: bool = True) -> dict:
     """One call of ``step`` (a training epoch) under torch.profiler: the
     host wall time around it (ended by a synchronise), the device's busy
     time (the union of its kernels' intervals) and idle share, the device
-    time of the ELL kernel and of the GEMM kernels, and the ``top``
-    kernels by device time. Empty when the trace holds no device time."""
+    time of the ELL kernel and of the GEMM kernels, the ``top`` kernels by
+    device time and, with ``host``, the ``top`` host ops by self CPU time
+    (tracing the host ops of a step of some 25,000 launches adds about 20 s
+    of parsing). Empty when the trace holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host else []) + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         # kernels of its own open the trace, a spin kernel closes them and a
         # pause follows: the trace at times misses the first kernels after
         # it starts (one, then in the whole script up to nine of the step's
@@ -859,8 +901,8 @@ def profile_step(step, top: int = 8) -> dict:
     for name, a, b in kernels:
         by_name[name] = by_name.get(name, 0.0) + (b - a)
     total = sum(by_name.values())
-    host = sorted(((a.key, a.self_cpu_time_total) for a in prof.key_averages()),
-                  key=lambda kv: -kv[1])[:top]
+    host_ops = sorted(((a.key, a.self_cpu_time_total) for a in prof.key_averages()),
+                      key=lambda kv: -kv[1])[:top] if host else []
     h2d = sum(1 for name, _, _ in kernels if "HtoD" in name)
     # the hand-written kernels (launched through ctypes) the trace caught:
     # CUPTI at times misses some of them, so a kernel count that must hold
@@ -875,7 +917,7 @@ def profile_step(step, top: int = 8) -> dict:
         "wall_ms": wall_ms, "busy_ms": busy / 1e3, "kernel_ms": total / 1e3,
         "idle_share": max(0.0, 1.0 - busy / 1e3 / wall_ms), "ell_ms": ell / 1e3,
         "gemm_ms": gemm / 1e3, "kernels": len(kernels), "h2d": h2d, "own": own,
-        "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top], "host": host,
+        "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top], "host": host_ops,
         "counts": counts,
     }
 
@@ -924,7 +966,7 @@ def profile_text(p: dict) -> str:
     if not p:
         return "device time not measured (the trace holds no device events)"
     top = "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in p["top"])
-    host = "; ".join(f"{n[:40]} {t / 1e3:.3f} ms" for n, t in p["host"])
+    host = "; ".join(f"{n[:40]} {t / 1e3:.3f} ms" for n, t in p["host"]) or "not traced"
     return (f"host wall {p['wall_ms']:.3f} ms, device busy {p['busy_ms']:.3f} ms (idle share "
             f"{p['idle_share']:.3f}), {p['kernels']} kernels summing {p['kernel_ms']:.3f} ms: "
             f"ell_level {p['ell_ms']:.3f}, GEMM {p['gemm_ms']:.3f}, the rest "
@@ -1416,7 +1458,7 @@ def phase_blocked_and_fused(dev, g, scale: float, epochs: int, seed: int, result
         f"fused op passes, both layers: {pass_text(ms)}; "
         f"{tr.compute_graph.slot_count()} table slots")
     log(f"GAT fused training epoch under torch.profiler: "
-        f"{profile_text(profile_step(tr.train_step))}")
+        f"{profile_text(profile_step(tr.train_step, host=False))}")
     check_no_kernel("GAT fused")
     del tr
     torch.cuda.empty_cache()
@@ -1463,7 +1505,7 @@ def phase_blocked_and_fused(dev, g, scale: float, epochs: int, seed: int, result
         f"{setup_s:.1f} s); peak device memory {peak:.2f} GiB; fused op passes, both "
         f"layers: {pass_text(ms)}; {tr.compute_graph.slot_count()} table slots")
     log(f"GGCN fused training epoch at --scale under torch.profiler: "
-        f"{profile_text(profile_step(tr.train_step))}")
+        f"{profile_text(profile_step(tr.train_step, host=False))}")
     del tr, logits
     torch.cuda.empty_cache()
 
@@ -2448,7 +2490,7 @@ def phase_serving(dev, g, seed: int, results) -> None:
     operands (sync, device: the same SampledBatch; fused: the same seeds
     and key), and a warm clone against a cold engine from one seed, the
     same served sequence (sync, fused); (c) serve_bench closed loop with
-    SERVE_CLIENTS clients: sync and pipelined 200 requests, device and
+    SERVE_CLIENTS clients: sync and pipelined 100 requests, device and
     fused 2,000, then fused open loop at 1,000 requests/s for 2,000: p50,
     p95, p99, throughput, sheds, mean flush size; then 300 device and 300
     fused requests under torch.profiler (device busy time, idle share, top
@@ -2639,8 +2681,8 @@ def phase_serving(dev, g, seed: int, results) -> None:
                 f"wall {r['wall_s']:.2f} s (host clock)")
             return r
 
-        leg("(c) sync closed", "sync", 200)
-        leg("(c) pipelined closed", "sync", 200, server_mode="pipelined")
+        leg("(c) sync closed", "sync", 100)
+        leg("(c) pipelined closed", "sync", 100, server_mode="pipelined")
         leg("(c) device closed", "device", 2000)
         leg("(c) fused closed", "fused", 2000)
         leg("(c) fused open 1000/s", "fused", 2000, load="open", rps=1000.0)
@@ -2820,6 +2862,7 @@ def phase_serving(dev, g, seed: int, results) -> None:
 # tables ([vp, P*vp]) run over the whole [P*vp, f] slab in turn.
 DIST_P = 8
 DIST_EPOCHS = 3
+RING_EPOCHS = 2  # phase 16 (a)'s epochs per route
 # (c): configs/gcn_reddit_full.cfg on the data-prep tool's Reddit (planted
 # labels over 41 classes, mean degree 50). A model that learned nothing
 # sits at 1/41 = 0.024; the planted classes are learnable (GCN 602-128-41
@@ -2879,6 +2922,7 @@ def phase_dist(dev, g, seed: int, results) -> list:
     os.environ["NTS_DIST_SIMULATE"] = "1"
     os.environ.pop("NTS_PALLAS_RESIDENT", None)
     sizes = [602, 128, 41]
+    prep = None
     try:
         # ---- (a) the kernels on every shard's rectangular tables ----------------
         t0 = time.perf_counter()
@@ -2981,6 +3025,15 @@ def phase_dist(dev, g, seed: int, results) -> list:
         del ell, bsp, xs, adj
         torch.cuda.empty_cache()
 
+        # (c)'s data-prep tool runs on the host beside (b): a process of its
+        # own that does not touch the card
+        t_prep0 = time.perf_counter()
+        prep_out = tempfile.TemporaryFile(mode="w+")
+        prep = subprocess.Popen(
+            [sys.executable, "-m", "neutronstarlite_torch.graph.prep", "--dataset", "reddit",
+             "--out", "data"], cwd=REPO, stdout=prep_out, stderr=subprocess.STDOUT, text=True,
+        )
+
         # ---- (b) the trainers on the twin ----------------------------------------
         src, dst = results["edges"]
         datum = results["datum"]
@@ -3056,15 +3109,15 @@ def phase_dist(dev, g, seed: int, results) -> list:
 
         # ---- (c) the data-prep tool and the north-star cfg -----------------------
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "neutronstarlite_torch.graph.prep", "--dataset", "reddit",
-             "--out", "data"], cwd=REPO, capture_output=True, text=True, timeout=600,
-        )
-        t_prep = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"prep failed ({proc.returncode}): {proc.stderr[-2000:]}")
+        rc = prep.wait(timeout=600)
+        t_prep, t_wait = time.perf_counter() - t_prep0, time.perf_counter() - t0
+        prep_out.seek(0)
+        text = prep_out.read()
+        if rc != 0:
+            raise AssertionError(f"prep failed ({rc}): {text[-2000:]}")
         log(f"(c) python -m neutronstarlite_torch.graph.prep --dataset reddit --out data: "
-            f"{t_prep:.1f} s; {' '.join(proc.stdout.split())}")
+            f"{t_prep:.1f} s beside (b), {t_wait:.1f} s of it waited for; "
+            f"{' '.join(text.split())}")
 
         def cli(cfg_name):
             """The cfg through run.main on the card; the trainer and its result
@@ -3138,6 +3191,11 @@ def phase_dist(dev, g, seed: int, results) -> list:
             del tr, res
             torch.cuda.empty_cache()
     finally:
+        if prep is not None:
+            if prep.poll() is None:
+                prep.kill()
+                prep.wait()
+            prep_out.close()
         for k, val in saved_env.items():
             if val is None:
                 os.environ.pop(k, None)
@@ -3188,7 +3246,7 @@ def phase_ring(dev, g, seed: int, results) -> None:
     refs = results.pop("dist_refs")
     sizes = [602, 128, 41]
 
-    def cfg_of(algorithm, epochs=DIST_EPOCHS, precision="bfloat16", **kw):
+    def cfg_of(algorithm, epochs=RING_EPOCHS, precision="bfloat16", **kw):
         cfg = InputInfo(
             algorithm=algorithm, vertices=g.v_num, layer_string="602-128-41", epochs=epochs,
             drop_rate=0.0, precision=precision, learn_rate=0.01, weight_decay=1e-4,
@@ -3233,7 +3291,7 @@ def phase_ring(dev, g, seed: int, results) -> None:
         return want, want["wire.bytes_per_epoch_fwd"] * epochs
 
     try:
-        # ---- (a) the routes, 3 epochs each --------------------------------------
+        # ---- (a) the routes, RING_EPOCHS each -------------------------------------
         os.environ["NTS_OVERLAP_PROBE"] = "1"  # (c): on the first ring run
         for name, algorithm, kw in (
                 ("ring_blocked", "GCNDIST", dict(dist_path="ring_blocked")),
@@ -3302,7 +3360,7 @@ def phase_ring(dev, g, seed: int, results) -> None:
         # ---- (b) the wire dtype ---------------------------------------------------
         wire = {}
         for wd in ("f32", "bf16"):
-            tr = trainer("GCNDIST", epochs=2, precision="float32", dist_path="ring_blocked",
+            tr = trainer("GCNDIST", epochs=1, precision="float32", dist_path="ring_blocked",
                          wire_dtype=wd)
             first = tr.eval_logits()
             tr.run()
@@ -3369,6 +3427,7 @@ def phase_ring(dev, g, seed: int, results) -> None:
 # inside its time limit)
 MIRROR_EPOCHS = 3
 FUSED_RING_EPOCHS = 1
+CHUNK_RANKS = (0, DIST_P - 1)  # the ranks whose chunked chain body (e) checks
 # (f): JAX's test_dist_gat_bf16_tracks_f32 bound on the last loss (rtol,
 # atol) and the train accuracy's allowed drop
 BF16_LOSS_TOL = (0.05, 0.02)
@@ -3504,7 +3563,6 @@ def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> 
         # ---- (b) GATDIST f32 on the mirror chain ----------------------------------------
         sizes = [602, 128, 41]
         tr, t_build = build("GATDIST", (src, dst), datum, gat["graph"], gat["params"])
-        chain_first = tr.eval_logits()
         err = first_logits(tr, gat["logits"], "(b) GATDIST chain", gat["graph"])
         peak = train(tr, "(b) GATDIST chain")
         rel = loss_check(tr, gat["loss"], "(b) GATDIST chain")
@@ -3519,26 +3577,35 @@ def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> 
                f"; P={P} vp={mg.vp} mb={mg.mb} El={mg.el}; first logits max abs err "
                f"{err:.3e} against phase 7's chain, epoch-0 loss rel {rel:.2e}; gauges {got} "
                f"= the accounting; wire.bytes_fwd {live}")
-        chain_loss = tr.loss_history[0]
         chain_acc = tr.test(tr.eval_logits().float().cpu().numpy(), 0)
         chain_last = tr.loss_history[-1]
         del tr
         torch.cuda.empty_cache()
 
-        # ---- (c) GATDIST on the fused ring (ring_blocked_sim) ----------------------------
-        tr, t_build = build("GATDIST", (src, dst), datum, gat["graph"], gat["params"],
+        # ---- (c) GATDIST on the fused ring (ring_blocked_sim), at 0.2 x scale -----------
+        # on phase 9's graph (at --scale one epoch of the twin's fused ring is
+        # some 10^6 launches, 18 s), against the mirror chain on that graph
+        gg = ggcn_chain
+        ge = gg["edges"]
+        tr, _ = build("GATDIST", ge, gg["datum"], gg["graph"], gat["params"],
+                      epochs=FUSED_RING_EPOCHS)
+        small_first = tr.eval_logits()
+        train(tr, "(c) GATDIST chain, 0.2 x scale")
+        small_loss = tr.loss_history[0]
+        del tr
+        tr, t_build = build("GATDIST", ge, gg["datum"], gg["graph"], gat["params"],
                             epochs=FUSED_RING_EPOCHS, kernel="fused_edge",
                             dist_path="ring_blocked_sim")
-        row = max(1.0, float(gat["graph"].in_degree.max()) / GAT_ROW)
+        row = max(1.0, float(gg["graph"].in_degree.max()) / GAT_ROW)
         try:
             err = check_close("phase 17 (c) GATDIST fused first logits", tr.eval_logits(),
-                              chain_first, (GAT_LOGITS_TOL[0] * row, GAT_LOGITS_TOL[1]))
+                              small_first, (GAT_LOGITS_TOL[0] * row, GAT_LOGITS_TOL[1]))
         except AssertionError as exc:
             failures.append(str(exc))
             log(f"FAILED {exc}")
             err = float("nan")
         peak = train(tr, "(c) GATDIST fused")
-        rel = loss_check(tr, chain_loss, "(c) GATDIST fused")
+        rel = loss_check(tr, small_loss, "(c) GATDIST fused")
         vp = tr.dist.vp
         want = {"wire.comm_layer": "ring_fused", "wire.rows_per_layer": (P - 1) * vp,
                 "wire.bytes_per_epoch_fwd": (P - 1) * vp * sum(
@@ -3551,8 +3618,9 @@ def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> 
         check("(c) profile kernels", not any(kernel_launches().values()), kernel_launches())
         record("c", tr, t_build, peak,
                f"; vt {tr.metrics._gauges['kernel.fused_vt']}, "
-               f"{tr.metrics._gauges['kernel.fused_slots']} table slots; first logits max "
-               f"abs err {err:.3e} against (b)'s, epoch-0 loss rel {rel:.2e}; gauges {got} = "
+               f"{tr.metrics._gauges['kernel.fused_slots']} table slots; V={gg['graph'].v_num} "
+               f"E={gg['graph'].e_num}; first logits max abs err {err:.3e} against the mirror "
+               f"chain's on that graph, epoch-0 loss rel {rel:.2e}; gauges {got} = "
                f"the accounting; wire.bytes_fwd {live}; one training epoch under "
                f"torch.profiler (device activity, raw events): "
                + (f"host wall {prof['wall_ms']:.1f} ms, {prof['kernels']} kernels, device "
@@ -3560,7 +3628,7 @@ def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> 
                   f"read in {prof['read_s']:.1f} s)" if prof else
                   "device time not measured (the trace holds no device events)"))
         rows_out[-1].update(launches=prof.get("kernels"), idle=prof.get("idle_share"))
-        del tr
+        del tr, small_first
         torch.cuda.empty_cache()
 
         # ---- (f) GATDIST PRECISION:bfloat16 against (b) ----------------------------------
@@ -3580,12 +3648,10 @@ def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> 
                f"; last loss {last16:.6f} vs f32 {chain_last:.6f} (bound {BF16_LOSS_TOL[0]} "
                f"rel + {BF16_LOSS_TOL[1]}), train acc {acc16:.4f} vs f32 {chain_acc:.4f}; wire "
                f"bytes per epoch {got} (half the f32 chain's)")
-        del tr, chain_first
+        del tr
         torch.cuda.empty_cache()
 
         # ---- (d) GGCNDIST: the chain at 0.2 x scale, the fused ring -----------------------
-        gg = ggcn_chain
-        ge = gg["edges"]
         tr, t_build = build("GGCNDIST", ge, gg["datum"], gg["graph"], gg["params"],
                             epochs=2)
         g_first = tr.eval_logits()
@@ -3625,29 +3691,13 @@ def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> 
         gsrc, gdst, gdatum = ggcn_graph(scale, seed)
         g2 = build_graph(gsrc, gdst, gdatum.feature.shape[0], weight="ones")
         t_graph = time.perf_counter() - t0
-        tr, t_build = build("GGCNDIST", (gsrc, gdst), gdatum, g2, epochs=FUSED_RING_EPOCHS,
-                            kernel="fused_edge", dist_path="ring_blocked_sim")
-        peak = train(tr, "(d) GGCNDIST fused at --scale")
-        logits = tr.eval_logits()
-        check("(d) fused at --scale logits", tuple(logits.shape) == (P * tr.dist.vp, 41)
-              and bool(torch.isfinite(logits).all()), tuple(logits.shape))
-        vp = tr.dist.vp
-        want = {"wire.rows_per_layer": (P - 1) * vp,
-                "wire.bytes_per_epoch_fwd": (P - 1) * vp * sum(
-                    fused_wire_cols(f, f)["fwd"] for f in sizes[1:]) * 4,
-                "kernel.edge_hbm_bytes_per_epoch": 0}
-        got, live = wire_check(tr, "(d) fused at --scale", want,
-                               [want["wire.bytes_per_epoch_fwd"]] * FUSED_RING_EPOCHS)
-        record("d fused", tr, t_build, peak,
-               f"; V={g2.v_num} E={g2.e_num} (graph {t_graph:.1f} s); gauges {got} = the "
-               "accounting")
-        del tr, logits
-        torch.cuda.empty_cache()
+        del gsrc, gdst, gdatum
 
         # ---- (e) the chunked chain's per-rank body at --scale -----------------------------
         # held in f64 (the bodies sum wide: f64 inputs sum in f64), where a
         # hub source's gradient row, summed chunk by chunk or at once, agrees
-        # to rounding; each body's peak is measured in f32, as the ranks run
+        # to rounding; each body's peak is measured in f32, as the ranks run;
+        # on CHUNK_RANKS of the 8 (each rank's lists hold some 1.5M edges)
         t0 = time.perf_counter()
         mg2 = MirrorGraph.build(g2, P)
         ec = edge_chunk()
@@ -3669,7 +3719,7 @@ def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> 
 
         zero_launches()
         t0 = time.perf_counter()
-        for p in range(P):
+        for p in CHUNK_RANKS:
             cot = torch.randn((mg2.vp, f), generator=gen, device=dev)
             outs = {}
             for how in ("chunked", "whole"):
@@ -3693,13 +3743,14 @@ def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> 
                                                outs["chunked"], outs["whole"])])
             del outs
         check("(e) kernels", not any(kernel_launches().values()), kernel_launches())
-        log(f"(e) chunked chain body, GGCN C=f=128 at --scale {scale} (El={mg2.el}/rank), "
-            f"NTS_EDGE_CHUNK {ec}: {ch.n_chunks} chunk(s) of up to {ch.slot.shape[2]} edges "
-            f"(dp={ch.dp}) per rank; in f64, max abs err against the whole body over the "
-            f"8 ranks (forward, grad mirrors, grad dst half) "
+        log(f"(e) chunked chain body, GGCN C=f=128 at --scale {scale} (V={g2.v_num} "
+            f"E={g2.e_num}, graph {t_graph:.1f} s; El={mg2.el}/rank), NTS_EDGE_CHUNK {ec}: "
+            f"{ch.n_chunks} chunk(s) of up to {ch.slot.shape[2]} edges (dp={ch.dp}) per rank; "
+            f"in f64, max abs err against the whole body on ranks {list(CHUNK_RANKS)} "
+            f"(forward, grad mirrors, grad dst half) "
             f"{[f'{max(e[i] for e in errs):.3e}' for i in range(3)]} (F32_TOL); f32 peak "
             f"memory above the inputs, worst rank: chunked {peaks['chunked']:.2f} GiB, whole "
-            f"{peaks['whole']:.2f} GiB; tables {t_tables:.1f} s, the 8 ranks' checks "
+            f"{peaks['whole']:.2f} GiB; tables {t_tables:.1f} s, the ranks' checks "
             f"{time.perf_counter() - t0:.1f} s")
         rows_out.append({"run": "e", "chunks": ch.n_chunks, "peak_chunked": peaks["chunked"],
                          "peak_whole": peaks["whole"]})
@@ -4350,7 +4401,7 @@ def phase_elastic(dev, g, seed: int, results) -> None:
 
         # ---- (d) numerics and the quantisation probe on the bf16 ring -------------------
         os.environ.update(NTS_QUANT_PROBE="1", NTS_METRICS_DIR=os.path.join(tmp, "d_obs"))
-        tn, _ = build(cfg_of(4, optim_kernel=False, dist_path="ring_blocked_sim",
+        tn, _ = build(cfg_of(2, optim_kernel=False, dist_path="ring_blocked_sim",
                              wire_dtype="bf16"))
         zero_launches()
         tn.run()
@@ -4392,6 +4443,411 @@ def phase_elastic(dev, g, seed: int, results) -> None:
     log(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
 
 
+LIVE_MARGIN = 256  # phase 20's reserved vertex rows
+LIVE_IDS = 64  # vertices per checked flush: dirty and clean (the top bucket)
+LIVE_BASE_S = 4.0  # (c)'s load without deltas, seconds
+
+
+class _HeldServers:
+    """Pipelined servers whose executors wait on one event before each
+    flush: a flush prepared before a delta is held while the delta waits
+    for it (``InferenceServer.drain_prepared``)."""
+
+    def __init__(self, engines):
+        import threading
+
+        from neutronstarlite_torch.serve.server import InferenceServer
+
+        self.release = threading.Event()
+        self.servers = {}
+        for mode, eng in engines.items():
+            server = InferenceServer(eng)
+            run = server._execute_prepared
+
+            def held(*args, _run=run):
+                self.release.wait(300)
+                return _run(*args)
+
+            server._execute_prepared = held
+            self.servers[mode] = server
+
+    def close(self):
+        self.release.set()
+        for server in self.servers.values():
+            server.close()
+
+
+def phase_live_graph(dev, g, seed: int, results) -> None:
+    """Phase 20: graph deltas under running engines, servers and a fleet,
+    the delta log, stream ingest with its capacity margin and the fine-tune
+    worker, on the card (see the module docstring, item 20). A failed check
+    prints FAILED and fails the run at the end."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch.graph.dataset import GNNDatum
+    from neutronstarlite_torch.graph.storage import build_graph
+    from neutronstarlite_torch.models.gcn_sample import GCNSampleTrainer
+    from neutronstarlite_torch.resilience import faults
+    from neutronstarlite_torch.serve.batcher import ServeOptions
+    from neutronstarlite_torch.serve.delta import GraphDelta, apply_to_servers, plan_delta
+    from neutronstarlite_torch.serve.engine import InferenceEngine
+    from neutronstarlite_torch.serve.fleet import ReplicaSet
+    from neutronstarlite_torch.stream.finetune import FineTuneWorker
+    from neutronstarlite_torch.stream.ingest import StreamIngestor, reserve_feature_margin
+    from neutronstarlite_torch.stream.log import read_log_entries
+    from neutronstarlite_torch.tools import graph_gen
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    t_phase = time.perf_counter()
+    src, dst = results["edges"]
+    datum = results["datum"]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    log(f"phase 20 on {smi}")
+    failures = []
+
+    def check(name, ok, detail=""):
+        if not ok:
+            failures.append(f"phase 20 {name}: {detail}")
+            log(f"FAILED {failures[-1]}")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_live_")
+    saved_env = {k: os.environ.get(k) for k in (
+        "NTS_FINAL_EVAL", "NTS_SAMPLE_WORKERS", "NTS_SAMPLE_PIPELINE", "NTS_METRICS_DIR",
+        "NTS_FAULT_SPEC", "NTS_SERVE_CB", "NTS_STREAM_VERTEX_MARGIN")}
+    for k in saved_env:
+        os.environ.pop(k, None)
+    os.environ["NTS_FINAL_EVAL"] = "0"
+    os.environ["NTS_SAMPLE_WORKERS"] = "0"
+    modes = ("sync", "device", "fused")
+    V = g.v_num
+    rng = np.random.default_rng(seed + 20)
+    held = None
+    zero_launches()
+    try:
+        ckpt = os.path.join(work, "ck")
+
+        def make_cfg(v):
+            return InputInfo(
+                algorithm="GCNSAMPLE", vertices=v, layer_string="602-128-41",
+                precision="bfloat16", batch_size=512, fanout_string="25-10", epochs=1,
+                drop_rate=0.0, learn_rate=0.01, weight_decay=1e-4, decay_rate=0.97,
+                decay_epoch=100, sample_pipeline="fused", checkpoint_dir=ckpt,
+                serve_buckets="1-4-16-64", serve_max_batch=64, serve_max_wait_ms=2.0,
+                serve_max_queue=1024,
+            )
+
+        cfg = make_cfg(V)
+        t0 = time.perf_counter()
+        tr = GCNSampleTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device=dev,
+                                          host_graph=g)
+        tr.run()
+        torch.cuda.synchronize()
+        log(f"trained GCN 602-128-41 bf16 fused 1 epoch (loss {tr.loss_history[0]:.6f}) into "
+            f"a checkpoint in {time.perf_counter() - t0:.1f} s (trainer build included); "
+            f"device table {tuple(tr.par_sampler.hop_sampler.nbr.shape)}, "
+            f"{tr.par_sampler.hop_sampler.thinned} vertices pre-thinned")
+        base = ServeOptions.from_cfg(cfg)
+
+        def opts(mode, **kw):
+            return dataclasses.replace(base, sample_pipeline=mode, **kw)
+
+        def fresh_engines(plan, rows=None):
+            """The oracle: a new toolkit over the plan's edge list (its fused
+            neighbour table serves the device mode too), restored from the
+            same checkpoint, one engine per mode."""
+            d = datum
+            if rows is not None:
+                k = sum(len(r) for r in rows)
+                d = GNNDatum(feature=np.concatenate([datum.feature, *rows]),
+                             label=np.concatenate([datum.label, np.zeros(k, np.int32)]),
+                             mask=np.concatenate([datum.mask, np.full(k, 2, np.int32)]))
+            g2 = build_graph(plan.src, plan.dst, plan.v_num)
+            tk = GCNSampleTrainer.from_arrays(make_cfg(plan.v_num), plan.src, plan.dst, d,
+                                              seed=seed, device=dev, host_graph=g2)
+            return {m: InferenceEngine(tk, ckpt, options=opts(m),
+                                       rng=np.random.default_rng(0)) for m in modes}
+
+        # (a) one engine per mode over the trained toolkit, the margin first
+        engines = {m: InferenceEngine(tr, ckpt, options=opts(m, continuous_batching=True),
+                                      rng=np.random.default_rng(seed)) for m in modes}
+        reserve_feature_margin(list(engines.values()), LIVE_MARGIN)
+        for eng in engines.values():
+            eng.warmup()
+        torch.cuda.synchronize()
+        want_counts = {b: 1 for b in SERVE_BUCKETS}
+        check("(a) one capture per bucket", all(e.compile_counts == want_counts
+                                                for e in engines.values()),
+              f"{[e.compile_counts for e in engines.values()]}")
+
+        def addresses():
+            hs = tr.par_sampler.hop_sampler
+            out = [engines["sync"].feature.data_ptr(), hs.nbr.data_ptr(),
+                   hs.eff_deg.data_ptr()]
+            return out + [t.data_ptr() for t in engines["fused"]._fused_tables()[2:]]
+
+        ptrs0 = addresses()
+        twins = {m: e.clone(rng=np.random.default_rng(seed + 1)) for m, e in engines.items()}
+        held = _HeldServers({m: e.clone(rng=np.random.default_rng(seed + 1))
+                             for m, e in engines.items()})
+        def quiet(k):
+            """k vertices of least in-degree: wiring appends to them keeps the
+            table's width."""
+            deg = tr.host_graph.in_degree
+            return np.argsort(deg, kind="stable")[:k]
+
+        def append_delta(k):
+            v0 = tr.host_graph.v_num
+            peers = quiet(k)
+            feats = (rng.standard_normal((k, 602)) * 0.1).astype(np.float32)
+            add = [(int(p), v0 + i) for i, p in enumerate(peers)] + \
+                [(v0 + i, int(p)) for i, p in enumerate(peers)]
+            return GraphDelta.edges(add=add, add_vertices=k, add_features=feats), feats
+
+        def run_delta(tag, delta, rows, expect_counts, expect_same_ptrs):
+            gph = tr.host_graph
+            t0 = time.perf_counter()
+            plan = plan_delta(gph, delta, hops=2)
+            plan_s = time.perf_counter() - t0
+            clean = np.setdiff1d(np.arange(gph.v_num), plan.dirty)
+            dirty = plan.dirty[plan.dirty < gph.v_num]  # the ids a pre-delta flush knows
+            n_clean = min(LIVE_IDS // 2, len(clean))  # a 2-hop closure may dirty them all
+            pick = np.concatenate([rng.choice(dirty, LIVE_IDS - n_clean, replace=False),
+                                   rng.choice(clean, n_clean, replace=False)])
+            ids = np.unique(pick)
+            for m in modes:  # the twin draws what the held server will draw
+                twins[m].sampler.rng.bit_generator.state = \
+                    held.servers[m].engine.sampler.rng.bit_generator.state
+            want_pre = {m: twins[m].predict(ids) for m in modes}
+            held.release.clear()
+            reqs = {m: held.servers[m].submit(ids) for m in modes}
+            deadline = time.perf_counter() + 120
+            while any(s._prepared == 0 for s in held.servers.values()) \
+                    and time.perf_counter() < deadline:
+                time.sleep(0.005)
+            out = {}
+
+            def apply():
+                out["plan"] = apply_to_servers(
+                    list(held.servers.values()), delta,
+                    extra_engines=list(engines.values()) + list(twins.values()), plan=plan)
+
+            th = threading.Thread(target=apply)
+            th.start()
+            time.sleep(0.3)
+            waited = th.is_alive()
+            t1 = time.perf_counter()
+            held.release.set()
+            th.join(180)  # drain_prepared gives up after 120 s
+            torch.cuda.synchronize()
+            apply_s = time.perf_counter() - t1
+            check(f"{tag} the delta waited for the prepared flushes", waited)
+            check(f"{tag} applied", "plan" in out)
+            same_pre = {m: np.array_equal(reqs[m].result(timeout=120), want_pre[m])
+                        for m in modes}
+            check(f"{tag} prepared flush answers pre-delta", all(same_pre.values()),
+                  f"{same_pre}")
+            fresh = fresh_engines(plan, rows)
+            post_ids = ids if not plan.added_vertices else np.unique(np.concatenate(
+                [ids[: LIVE_IDS - 8], np.arange(plan.v_num - min(8, plan.added_vertices),
+                                                plan.v_num)]))
+            same_post = {}
+            for m in modes:
+                srv = held.servers[m]
+                fresh[m].sampler.rng.bit_generator.state = srv.engine.sampler.rng.bit_generator.state
+                got = srv.predict(post_ids, timeout=120)
+                same_post[m] = got.shape == (len(post_ids), 41) and bool(np.isfinite(got).all()) \
+                    and np.array_equal(got, fresh[m].predict(post_ids))
+            check(f"{tag} next flush == fresh engine", all(same_post.values()), f"{same_post}")
+            for eng in engines.values():
+                eng.warmup()
+            torch.cuda.synchronize()
+            counts = [e.compile_counts for e in engines.values()]
+            check(f"{tag} captures", all(c == expect_counts for c in counts), f"{counts}")
+            check(f"{tag} captured tensors in place", (addresses() == ptrs0) == expect_same_ptrs,
+                  f"{addresses()} vs {ptrs0}")
+            check_no_kernel(f"phase 20 {tag}")
+            log(f"{tag}: +{plan.added_edges}e -{plan.removed_edges}e +{plan.added_vertices}v, "
+                f"dirty rows {len(plan.dirty_rows)}, dirty predictions {len(plan.dirty)} of "
+                f"{plan.v_num} ({n_clean} clean vertices checked), "
+                f"rows patched {out['plan'].rows_patched if 'plan' in out else None}; "
+                f"plan_delta {plan_s:.3f} s, apply {apply_s:.3f} s (host clock, the held "
+                f"flushes included); prepared flush pre-delta bitwise {same_pre}; next flush "
+                f"({len(post_ids)} vertices) == fresh engine {same_post}; captures {counts[0]}")
+            del fresh
+            return plan_s, apply_s
+
+        d1_add = [(int(a), int(b)) for a, b in rng.integers(0, V, size=(64, 2))]
+        old_e = rng.choice(g.e_num, 16, replace=False)
+        d1_rm = [(int(g.row_indices[i]), int(g.dst_of_edge[i])) for i in old_e]
+        host_s = [run_delta("(a) edge-only delta", GraphDelta.edges(add=d1_add, remove=d1_rm),
+                            None, want_counts, True)]
+        d2, f2 = append_delta(8)
+        host_s.append(run_delta("(a) 8 vertices within the margin", d2, [f2], want_counts,
+                                True))
+        # (b) past the margin: the slab grows, the ladders capture again
+        d3, f3 = append_delta(LIVE_MARGIN - 8 + 1)
+        host_s.append(run_delta("(b) overflow", d3, [f2, f3], {b: 2 for b in SERVE_BUCKETS},
+                                False))
+        held.close()
+        held = None
+        del engines, twins
+        torch.cuda.empty_cache()
+
+        # (c) the stream into a 2-replica fused fleet, beside the same load,
+        # at the rate the host sustains: one delta per (a) and (b)'s median
+        # plan + apply seconds
+        per_delta_s = float(np.median([p + a for p, a in host_s]))
+        rate = 1.0 / per_delta_s
+        head = tr.host_graph
+        n_sub = min(head.e_num, 200_000)  # the trace's removal pool
+        trace = graph_gen.delta_trace(head.row_indices[:n_sub], head.dst_of_edge[:n_sub],
+                                      head.v_num, 602, rounds=1, writers=2, vertex_every=1,
+                                      seed=seed)
+        root = os.path.join(work, "log")
+        t0 = time.perf_counter()
+        dlog = graph_gen.write_trace_log(root, head, trace)
+        log_s = time.perf_counter() - t0
+        eng_c = InferenceEngine(tr, ckpt, options=opts("fused", cache_cap=4096),
+                                rng=np.random.default_rng(seed))
+        ing = StreamIngestor([eng_c], margin=LIVE_MARGIN, dirty_mode="exact")
+        ing.arm()
+        eng_c.warmup()
+        torch.cuda.synchronize()
+        counts_c = dict(eng_c.compile_counts)
+
+        def load(fleet, stop):
+            errors = []
+
+            def client(i):
+                r = np.random.default_rng(seed + 100 + i)
+                while not stop.is_set():
+                    try:
+                        fleet.submit(r.integers(0, V, 1)).result(timeout=30)
+                    except Exception as e:  # counted, the load goes on
+                        errors.append(repr(e))
+
+            ts = [threading.Thread(target=client, args=(i,), daemon=True)
+                  for i in range(SERVE_CLIENTS)]
+            for t in ts:
+                t.start()
+            return ts, errors
+
+        def serve_leg(with_stream):
+            fleet = ReplicaSet.from_engine(eng_c, 2, options=opts("fused", cache_cap=4096),
+                                           seed=seed)
+            ing.servers = [r.server for r in fleet.replicas]
+            stop = threading.Event()
+            t0 = time.perf_counter()
+            ts, errors = load(fleet, stop)
+            applied = []
+            if with_stream:
+                for e in read_log_entries(root):
+                    t_begin = time.monotonic()
+                    plan = ing.apply(e)
+                    applied.append((t_begin, set(plan.dirty.tolist())))
+                    time.sleep(max(0.0, 1.0 / rate - (time.monotonic() - t_begin)))
+            else:
+                time.sleep(LIVE_BASE_S)
+            stop.set()
+            deadline = time.perf_counter() + 60
+            for t in ts:
+                t.join(max(0.0, deadline - time.perf_counter()))
+            errors += [f"client {i} still waiting" for i, t in enumerate(ts) if t.is_alive()]
+            wall = time.perf_counter() - t0
+            stale = 0
+            for r in fleet.replicas:
+                for vid, (t_ins, _row) in list(r.server.cache._rows.items()):
+                    stale += sum(1 for t_begin, dirty in applied
+                                 if vid in dirty and t_ins < t_begin)
+            st = fleet.close()
+            return st, errors, applied, stale, wall
+
+        base_st, base_err, _, _, base_wall = serve_leg(False)
+        st, errors, applied, stale, wall = serve_leg(True)
+        check_no_kernel("phase 20 (c)")
+        check("(c) stream applied", len(applied) == dlog.head_seq == 2
+              and eng_c.graph_digest() == dlog.head_digest,
+              f"{len(applied)} of {dlog.head_seq}")
+        check("(c) no error", not errors and not base_err and st["shed"] == 0,
+              f"{errors[:3]} {base_err[:3]} shed {st['shed']}")
+        check("(c) no capture after warm-up", eng_c.compile_counts == counts_c,
+              f"{eng_c.compile_counts}")
+        check("(c) no pre-delta row in the cache", stale == 0, f"{stale}")
+        for name, s_, w in (("without deltas", base_st, base_wall),
+                            (f"with the stream at {rate:.3f}/s", st, wall)):
+            lat = s_["latency_ms"]
+            log(f"(c) fleet of 2 fused replicas, {SERVE_CLIENTS} closed-loop clients, {name}: "
+                f"{s_['requests']} served in {w:.1f} s ({s_['requests'] / w:.1f} requests/s), "
+                f"p50 {lat['p50']:.3f} / p99 {lat['p99']:.3f} ms, shed {s_['shed']}")
+        log(f"(c) trace: 1 round x 2 writers (vertex_every 1) written to the log in "
+            f"{log_s:.1f} s; {len(applied)} entries applied at {rate:.3f}/s (one per the "
+            f"{per_delta_s:.2f} s of (a) and (b)'s median plan + apply), digest == log head "
+            f"{eng_c.graph_digest() == dlog.head_digest}; captures {eng_c.compile_counts}; "
+            f"cached rows older than a delta that dirtied them: {stale}")
+
+        # (d) the fine-tune worker over the stream's dirty region
+        weights0 = [w.clone() for w in eng_c.weights]
+        ck_ft = os.path.join(work, "ft")
+        worker = FineTuneWorker(tr, ing, ck_ft, seed=seed)  # 4 x BATCH_SIZE seeds
+        torch.cuda.synchronize()
+        s = worker.drain_once()
+        n_seeds = min(4 * cfg.batch_size, int((datum.mask == 0).sum()))
+        check("(d) a round", s is not None and s["batches"] == -(-n_seeds // 512)
+              and np.isfinite(s["loss"]), f"{s}")
+        check("(d) serving weights untouched", all(torch.equal(a, b) for a, b in
+                                                   zip(weights0, eng_c.weights)))
+        restored = InferenceEngine(tr, ck_ft, options=opts("sync"),
+                                   rng=np.random.default_rng(seed))
+        ok = restored.ckpt_step == 0 and bool(np.isfinite(restored.predict(
+            np.arange(8))).all()) and all(torch.equal(w, p["W"].detach()) for w, p in
+                                          zip(restored.weights, tr.params))
+        check("(d) the checkpoint restores", ok)
+
+        class Region:
+            head_seq = 3
+
+            def take_dirty(self):
+                return np.arange(0, V, 97), 3, 3
+
+        os.environ["NTS_FAULT_SPEC"] = "exc@point=finetune_round"
+        faults.reset()
+        chaos = FineTuneWorker(tr, Region(), ck_ft, seeds_per_round=512, max_retries=2,
+                               seed=seed)
+        s2 = chaos.drain_once()
+        fired = [sp.fired for sp in faults.active_plan()]
+        os.environ.pop("NTS_FAULT_SPEC")
+        faults.reset()
+        check("(d) exc@point=finetune_round rolls through", s2 is not None and fired == [1]
+              and chaos.rounds == 1, f"{s2} fired {fired}")
+        check_no_kernel("phase 20 (d)")
+        log(f"(d) fine-tune drain over seq {s['seq_lo']}..{s['seq_hi']} ({s['dirty']} dirty "
+            f"vertices): {s['batches']} batches, loss {s['loss']:.6f}, {s['seconds']:.2f} s "
+            f"(checkpoint save included, host clock); serving weights untouched; the "
+            f"checkpoint restored into an engine (step {restored.ckpt_step}); "
+            f"exc@point=finetune_round fired {fired} and the retried round finished "
+            f"({s2['seconds'] if s2 else None} s)")
+        check_no_kernel("phase 20")
+        log(f"(e) both kernels' launch counts 0 through phase 20: {kernel_launches()}")
+    finally:
+        if held is not None:
+            held.close()
+        for k, val in saved_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    results["failures"].extend(failures)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1, help="fraction of Reddit's V and E")
@@ -4406,7 +4862,9 @@ def main(argv=None) -> int:
         return 1
     from neutronstarlite_torch.ops import _build
 
-    t_start = time.perf_counter()
+    global T_START
+    T_START = t_start = time.perf_counter()
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -4421,28 +4879,39 @@ def main(argv=None) -> int:
         _build.load(name)
     log(f"built {', '.join(_build.KERNELS)} for sm_90a in {build_s:.1f} s")
 
-    check_errs = phase_kernel_checks(dev, args.seed)
-    g, results = phase_main_path(dev, args.scale, args.epochs, args.seed)
-    phase_cora_cli(dev)
-    rows = phase_timing(dev, g, results, check_errs, args.seed)
+    spent = []  # (phase, seconds) in the order they ran
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        spent.append((name, round(time.perf_counter() - t0, 1)))
+        return out
+
+    check_errs = timed("3", phase_kernel_checks, dev, args.seed)
+    g, results = timed("4", phase_main_path, dev, args.scale, args.epochs, args.seed)
+    timed("5", phase_cora_cli, dev)
+    rows = timed("6", phase_timing, dev, g, results, check_errs, args.seed)
     for route in ("bsp", "ell"):  # free the GCN trainers' tables
         results[route].pop("trainer")
     torch.cuda.empty_cache()
-    rows.append(phase_gat(dev, args.epochs, args.seed, results,
-                          results["failures"]))
-    phase_gin_commnet(dev, g, 2, args.seed, results, results["failures"])
-    ggcn_chain = phase_ggcn(dev, args.scale, args.seed)
-    phase_blocked_and_fused(dev, g, args.scale, args.epochs, args.seed, results, ggcn_chain,
-                            results["failures"])
-    phase_resilience(dev, g, args.seed, results, results["failures"])
-    phase_sampled(dev, g, args.seed, results)
-    phase_obs(dev, g, args.seed, results)
-    phase_serving(dev, g, args.seed, results)
-    rows += phase_dist(dev, g, args.seed, results)
-    phase_ring(dev, g, args.seed, results)
-    phase_mirror(dev, g, args.seed, results, ggcn_chain, args.scale)
-    phase_tune(dev, g, args.seed, results, args.scale)
-    phase_elastic(dev, g, args.seed, results)
+    rows.append(timed("7", phase_gat, dev, args.epochs, args.seed, results,
+                      results["failures"]))
+    timed("8", phase_gin_commnet, dev, g, 2, args.seed, results, results["failures"])
+    ggcn_chain = timed("9", phase_ggcn, dev, args.scale, args.seed)
+    timed("10", phase_blocked_and_fused, dev, g, args.scale, args.epochs, args.seed, results,
+          ggcn_chain, results["failures"])
+    timed("11", phase_resilience, dev, g, args.seed, results, results["failures"])
+    timed("12", phase_sampled, dev, g, args.seed, results)
+    timed("13", phase_obs, dev, g, args.seed, results)
+    timed("14", phase_serving, dev, g, args.seed, results)
+    rows += timed("15", phase_dist, dev, g, args.seed, results)
+    timed("16", phase_ring, dev, g, args.seed, results)
+    timed("17", phase_mirror, dev, g, args.seed, results, ggcn_chain, args.scale)
+    timed("18", phase_tune, dev, g, args.seed, results, args.scale)
+    timed("19", phase_elastic, dev, g, args.seed, results)
+    timed("20", phase_live_graph, dev, g, args.seed, results)
+    faulthandler.cancel_dump_traceback_later()
+    log(f"seconds per phase: {dict(spent)}")
     if results["failures"]:
         for msg in results["failures"]:
             log(f"FAILED {msg}")

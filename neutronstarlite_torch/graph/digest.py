@@ -1,6 +1,7 @@
 """Canonical graph content digest — port of
-``neutronstarlite_tpu/graph/digest.py``, copied (the perf ledger keys its
-rows by it, as the reference's tune cache does).
+``neutronstarlite_tpu/graph/digest.py`` (the perf ledger keys its rows by
+it, as the reference's tune cache does): the same digest, with one packed
+sort in place of the reference's two-key lexsort.
 
 ``graph_digest(g)`` hashes the graph's structure — per-destination
 canonicalized neighbour multisets — into one sha256 hex string.
@@ -32,11 +33,15 @@ def graph_digest(g) -> str:
     """
     dst = np.asarray(g.dst_of_edge, dtype=np.int64)
     src = np.asarray(g.row_indices, dtype=np.int64)
-    # stable sort by (dst, src): dst_of_edge is already non-decreasing,
-    # so this only canonicalizes the within-segment tie order
-    perm = np.lexsort((src, dst))
+    # the sources sorted by (dst, src): dst_of_edge is already
+    # non-decreasing, so this only canonicalizes the within-segment tie
+    # order. Ids are below 2**32, so one int64 key packs the pair and a
+    # plain sort gives the reference's ``src[np.lexsort((src, dst))]``
+    # (equal keys are equal values) several times faster: a graph delta
+    # digests its post-delta graph
+    canon = np.sort((dst << 32) | src) & 0xFFFFFFFF
     h = hashlib.sha256()
     h.update(np.array([g.v_num, g.e_num], dtype="<i8").tobytes())
     h.update(np.asarray(g.column_offset, dtype="<i8").tobytes())
-    h.update(src[perm].astype("<i8").tobytes())
+    h.update(canon.astype("<i8").tobytes())
     return h.hexdigest()

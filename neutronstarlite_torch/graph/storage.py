@@ -107,11 +107,20 @@ class CSCGraph:
         return self.e_num / max(self.v_num, 1)
 
 
+def _stable_order(ids: np.ndarray, v_num: int) -> np.ndarray:
+    """``np.argsort(ids, kind="stable")``; ids below 2**16 sort as uint16,
+    which NumPy sorts by radix (the same order, several times faster: a
+    graph delta rebuilds the whole graph)."""
+    return np.argsort(ids.astype(np.uint16) if v_num <= 1 << 16 else ids, kind="stable")
+
+
 def build_graph(
-    src: np.ndarray, dst: np.ndarray, v_num: int, weight: str = "gcn_norm"
+    src: np.ndarray, dst: np.ndarray, v_num: int, weight: str = "gcn_norm",
+    use_native: bool = False,
 ) -> CSCGraph:
     """Dual CSC/CSR from an edge list. ``weight``: "gcn_norm" (the GCN
-    toolkits' 1/sqrt(dd)) or "ones"."""
+    toolkits' 1/sqrt(dd)) or "ones". The port builds in NumPy only;
+    ``use_native`` is the reference's call signature and changes nothing."""
     src = np.asarray(src, dtype=np.uint32)
     dst = np.asarray(dst, dtype=np.uint32)
     e_num = src.shape[0]
@@ -129,10 +138,10 @@ def build_graph(
     else:
         raise ValueError(f"unknown weight mode {weight}")
 
-    csc_perm = np.argsort(dst, kind="stable")
+    csc_perm = _stable_order(dst, v_num)
     column_offset = np.zeros(v_num + 1, dtype=np.int64)
     np.cumsum(in_degree, out=column_offset[1:])
-    csr_perm = np.argsort(src, kind="stable")
+    csr_perm = _stable_order(src, v_num)
     row_offset = np.zeros(v_num + 1, dtype=np.int64)
     np.cumsum(out_degree, out=row_offset[1:])
     return CSCGraph(

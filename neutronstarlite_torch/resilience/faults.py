@@ -34,6 +34,10 @@ slow_rank    epoch, partition           sleeps ms inside one partition's
                                         (it keeps beating), so the straggler
                                         detector (obs/skew) must name it;
                                         ``times=M`` outlasts its latch
+writer_crash seq (optional)             ``os._exit(41)`` at ``delta_commit``,
+                                        between the two halves of that log
+                                        entry's line (stream/log.py): the
+                                        tail is left torn
 ============ ========================== =====================================
 
 Common args: ``times`` (default 1: a spec fires once, so a supervised
@@ -41,16 +45,17 @@ retry replays the same epochs without the fault) and ``point`` (another
 planted point). The port plants ``epoch_loss`` (the run loops, after the
 step), ``save`` (``utils/checkpoint.save_checkpoint``, after the step
 directory is published), ``sample_produce`` (the sampling pipeline's
-producer, before each batch is staged) and ``partition_step`` (the
+producer, before each batch is staged), ``partition_step`` (the
 distributed trainers' per-partition step timing, once per epoch and live
 partition, with ``partition=`` the partition: an injected sleep lands in
-that partition's measured seconds alone).
+that partition's measured seconds alone), ``delta_commit`` (the delta log's
+tail append, with ``seq=`` the entry's sequence number) and
+``finetune_round`` (each fine-tune worker round, with ``epoch=`` the
+round).
 
-Kinds and points of other slices parse as in the reference and are then
-refused, naming the slice they wait for (``UNPORTED``): ``net_drop`` and
-``slow_net`` (the cross-host HTTP fetch, cross-host serving),
-``writer_crash`` (the delta log, stream), and the points those slices
-plant.
+The kinds and the point of the cross-host serving slice parse as in the
+reference and are then refused, naming it (``UNPORTED``): ``net_drop`` and
+``slow_net`` at ``http_fetch``, the cross-host HTTP fetch.
 
 The plan, its fired counts and the save counter are process-global on
 purpose: a supervised retry in the same process must see the fired counts.
@@ -91,15 +96,12 @@ DEFAULT_POINTS = {
     "writer_crash": "delta_commit",
 }
 
-_CROSS_HOST = "the live-graph and cross-host serving slice (the cross-host HTTP fetch)"
+_CROSS_HOST = "the cross-host serving slice (the cross-host HTTP fetch)"
 # the slice each unported kind or point waits for
 UNPORTED = {
     "net_drop": _CROSS_HOST,
     "slow_net": _CROSS_HOST,
-    "writer_crash": "the stream slice (the delta log)",
     "http_fetch": _CROSS_HOST,
-    "delta_commit": "the stream slice (the delta log)",
-    "finetune_round": "the stream slice (the fine-tune worker)",
 }
 
 # exit code of a simulated crash, told apart from a real failure's 1
@@ -255,13 +257,14 @@ def _epoch_matches(spec: FaultSpec, epoch: Optional[int]) -> bool:
 
 
 def fault_point(point: str, *, epoch: Optional[int] = None, value=None,
-                path: Optional[str] = None, partition: Optional[int] = None):
+                path: Optional[str] = None, partition: Optional[int] = None,
+                seq: Optional[int] = None):
     """Named injection hook: matching specs of the active plan fire (at
     most ``times`` each) and may replace ``value`` (the epoch loss), sleep,
     raise, corrupt ``path``, kill a sim partition or end the process.
     ``partition`` is the ``partition_step`` point's context (slow_rank
-    matches it). Returns ``value`` unchanged when ``NTS_FAULT_SPEC`` is
-    unset."""
+    matches it); ``seq`` the ``delta_commit`` point's (writer_crash matches
+    it). Returns ``value`` unchanged when ``NTS_FAULT_SPEC`` is unset."""
     plan = active_plan()
     if not plan:
         return value
@@ -279,6 +282,18 @@ def fault_point(point: str, *, epoch: Optional[int] = None, value=None,
                         path, _save_count)
             _corrupt_file(path)
             continue
+        if spec.kind == "writer_crash":
+            if spec.seq is not None and spec.seq != seq:
+                continue
+            spec.fired += 1
+            # like crash, the record can only come from the injection site;
+            # the point is planted mid entry write, so the log's tail holds
+            # a torn line that recovery must drop
+            events.emit_fault("writer_crash", point=point, seq=seq, injected=True,
+                              rank=process_index())
+            log.warning("injecting writer crash mid-commit of seq %s (exit %d)", seq,
+                        CRASH_EXIT_CODE)
+            os._exit(CRASH_EXIT_CODE)
         if not _epoch_matches(spec, epoch):
             continue
         if spec.kind == "crash" and spec.rank is not None and spec.rank != process_index():

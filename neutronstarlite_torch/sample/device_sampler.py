@@ -20,8 +20,16 @@ per-batch generator), so ``SAMPLE_PIPELINE:device`` is reproducible per
 (epoch, batch), and distribution-equivalent, not bitwise equal, to the host
 sampler.
 
-Left for the stream slice: ``reserve_capacity`` and ``apply_delta`` (the
-table's growth margin and in-place patches after a graph delta).
+A live graph (``serve/delta.py``): ``reserve_capacity`` adds slack rows
+with ``eff_deg`` 0 (a vertex append patches them), and ``apply_delta``
+rewrites only the rows whose in-neighbour set changed. Both write into the
+table's own storage wherever its shape allows: a CUDA graph captured over
+``nbr``/``eff_deg`` (the fused serving buckets) reads them by address, so
+a table that JAX would replace by a new array of the same shape is
+rewritten in place instead, and a rebuild keeps the physical row capacity
+when the post-delta graph fits it (JAX re-arms the margin beyond the new V;
+the slack rows are unreachable either way). Only a wider table, or more
+vertices than rows, makes new tensors.
 """
 
 from __future__ import annotations
@@ -89,6 +97,20 @@ def _hop(nbr: torch.Tensor, eff_deg: torch.Tensor, key, dsts: torch.Tensor, fano
     return src, chosen < PAD_KEY
 
 
+def _segment_order(prio: np.ndarray, deg: np.ndarray) -> np.ndarray:
+    """The permutation that sorts each destination's run of ``prio`` (the
+    runs are consecutive, of lengths ``deg``) stably, runs kept in order:
+    ``np.lexsort((prio, dst))`` for a sorted ``dst``, without the global
+    two-key sort (a stable sort per run is several times faster on a
+    graph of millions of edges, and a delta on a thinned table runs it)."""
+    order = np.arange(len(prio), dtype=np.int64)
+    ends = np.cumsum(deg)
+    for v in np.nonzero(deg > 1)[0].tolist():
+        lo, hi = int(ends[v] - deg[v]), int(ends[v])
+        order[lo:hi] = lo + np.argsort(prio[lo:hi], kind="stable")
+    return order
+
+
 def default_max_width() -> int:
     raw = os.environ.get("NTS_SAMPLE_DEVICE_MAX_DEG", "")
     if raw:
@@ -108,6 +130,22 @@ class DeviceUniformSampler:
         self.thinned = int(thinned)  # vertices whose neighbour set was capped
         self.nbr = torch.from_numpy(nbr).to(device)  # [V, D] int32
         self.eff_deg = torch.from_numpy(eff_deg).to(device)  # [V] int32
+        # row-capacity margin (stream/ingest): slack rows beyond V with
+        # eff_deg 0, never drawn from until a vertex append claims them
+        self.margin = 0
+
+    def reserve_capacity(self, extra_rows: int) -> None:
+        """Pre-size the table with ``extra_rows`` slack rows, so that vertex
+        appends within the margin patch rows in place instead of forcing a
+        full rebuild (the stream ingestion contract). Slack rows carry
+        eff_deg 0, so no draw reads them until a delta's dirty_rows patch
+        claims them. New tensors: call it before anything captures them."""
+        extra = int(extra_rows)
+        if extra <= 0:
+            return
+        self.margin = max(self.margin, extra)
+        self.nbr = torch.cat([self.nbr, self.nbr.new_zeros((extra, self.nbr.shape[1]))])
+        self.eff_deg = torch.cat([self.eff_deg, self.eff_deg.new_zeros(extra)])
 
     @classmethod
     def from_host(cls, graph: CSCGraph, max_width: Optional[int] = None, seed: int = 0,
@@ -129,7 +167,7 @@ class DeviceUniformSampler:
             # pre-thin over-capacity vertices uniformly (the host sampler's
             # random-priority ranking, seeded once)
             prio = np.random.default_rng(seed).random(total)
-            order = np.lexsort((prio, dst))
+            order = _segment_order(prio, deg)  # == np.lexsort((prio, dst)): dst is sorted
             rank = np.arange(total) - np.repeat(np.cumsum(deg) - deg, deg)
             keep = order[rank < D]
             src, dst = src[keep], dst[keep]
@@ -145,6 +183,59 @@ class DeviceUniformSampler:
         nbr = np.zeros((v_num, D), dtype=np.int32)
         nbr[dst, within] = src.astype(np.int32)
         return cls(nbr, eff.astype(np.int32), D, thinned, device=device)
+
+    def apply_delta(self, graph: CSCGraph, rows, seed: int = 0) -> int:
+        """Patch ONLY the neighbour-table rows a graph delta touched
+        (serve/delta.py ``dirty_rows``: vertices whose in-neighbour set
+        changed): each is regathered from the post-delta host CSC and
+        written into the table in place. A full rebuild (logged) when the
+        reference rebuilds: more vertices than rows, a dirty row or the
+        max in-degree outgrowing a width below the NTS_SAMPLE_DEVICE_MAX_DEG
+        cap, or a table holding pre-thinned rows (their kept subsets come
+        from one global priority stream over the edge layout, which a
+        delta shifts; the bitwise fresh-table oracle demands the rebuilt
+        form). A rebuild of the same width that fits the rows is written in
+        place too. Returns the number of rows written (V on a rebuild)."""
+        rows = np.unique(np.asarray(rows, dtype=np.int64))
+        cap = default_max_width()
+        max_deg = int(graph.in_degree.max()) if graph.v_num else 1
+        needed = int(min(max(max_deg, 1), cap))
+        rows_over = len(rows) > 0 and int(graph.in_degree[rows].max()) > self.width
+        capacity = int(self.nbr.shape[0])
+        if graph.v_num > capacity or needed > self.width or rows_over or self.thinned > 0:
+            log.warning(
+                "device sampler: delta changed the table shape or touched a pre-thinned "
+                "row (V %d -> %d, width %d -> %d); rebuilding the full neighbour table",
+                capacity, graph.v_num, self.width, needed,
+            )
+            fresh = DeviceUniformSampler.from_host(graph, seed=seed)
+            if fresh.width == self.width and graph.v_num <= capacity:
+                v = graph.v_num  # the rows past V stay slack
+                self.nbr[:v].copy_(fresh.nbr)
+                self.nbr[v:].zero_()
+                self.eff_deg[:v].copy_(fresh.eff_deg)
+                self.eff_deg[v:].zero_()
+            else:
+                dev = self.nbr.device
+                self.nbr, self.eff_deg = fresh.nbr.to(dev), fresh.eff_deg.to(dev)
+                if self.margin:
+                    margin, self.margin = self.margin, 0
+                    self.reserve_capacity(margin)  # keep the slack armed
+            self.width, self.thinned = fresh.width, fresh.thinned
+            return graph.v_num
+        if len(rows) == 0:
+            return 0
+        D = self.width
+        patch = np.zeros((len(rows), D), dtype=np.int32)
+        eff = graph.in_degree[rows].astype(np.int32)  # all <= D here
+        for j, v in enumerate(rows.tolist()):
+            start = int(graph.column_offset[v])
+            d = int(graph.in_degree[v])
+            patch[j, :d] = graph.row_indices[start:start + d]
+        idx = torch.from_numpy(rows).to(self.nbr.device)
+        self.nbr.index_copy_(0, idx, torch.from_numpy(patch).to(self.nbr.device))
+        self.eff_deg.index_copy_(0, idx, torch.from_numpy(eff).to(self.nbr.device))
+        return int(len(rows))
 
     def sample_neighbors(self, dsts: np.ndarray, fanout: int, rng: np.random.Generator,
                          cap: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:

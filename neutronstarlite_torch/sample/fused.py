@@ -129,10 +129,19 @@ def fused_sample_subgraph(nbr, eff_deg, out_deg, in_deg, seeds_pad, n_real, key,
     return nodes, hops
 
 
-def degree_tables(graph, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """int32 out- and in-degree vectors on the device, for the weights."""
-    return (torch.from_numpy(graph.out_degree.astype(np.int32)).to(device),
-            torch.from_numpy(graph.in_degree.astype(np.int32)).to(device))
+def degree_tables(graph, device, rows: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int32 out- and in-degree vectors on the device, for the weights;
+    ``rows`` > V pads them with zeros to a neighbour table's row capacity
+    (a reserved margin), so that a vertex append within it can rewrite
+    them in place."""
+    n = max(int(rows), graph.v_num)
+    out = []
+    for deg in (graph.out_degree, graph.in_degree):
+        host = np.zeros(n, dtype=np.int32)
+        host[:graph.v_num] = deg
+        out.append(torch.from_numpy(host).to(device))
+    return out[0], out[1]
+
 
 
 def dropout_keep(key, layer: int, shape, rate: float, device) -> torch.Tensor:

@@ -179,6 +179,45 @@ class Sampler:
             yield self._make_batch(nids[lo: lo + self.batch_size])
 
 
+def dirty_biased_seeds(
+    seed_nids: np.ndarray,
+    dirty: np.ndarray,
+    n: int,
+    dirty_frac: float,
+    rng: np.random.Generator,
+) -> np.ndarray:
+    """Draw ``n`` training seeds biased toward the dirty region.
+
+    The continuous fine-tune worker's seed policy (stream/finetune.py):
+    roughly ``dirty_frac`` of the draw comes from ``seed_nids ∩ dirty``
+    (the vertices whose aggregation inputs a delta changed — where the
+    model is most stale), the rest uniformly from the remaining seeds so
+    the update never forgets the clean region. Without replacement
+    within each pool; short pools spill into the other so the draw
+    always returns ``min(n, len(seed_nids))`` distinct seeds. The same
+    Generator state gives the reference's draw, bitwise.
+    """
+    seed_nids = np.asarray(seed_nids, dtype=np.int64)
+    n = int(min(n, len(seed_nids)))
+    if n <= 0:
+        return np.empty(0, np.int64)
+    dirty = np.asarray(dirty, dtype=np.int64)
+    is_dirty = np.isin(seed_nids, dirty)
+    pool_d = seed_nids[is_dirty]
+    pool_c = seed_nids[~is_dirty]
+    want_d = int(min(round(n * float(dirty_frac)), len(pool_d)))
+    want_c = min(n - want_d, len(pool_c))
+    # spill: a short clean pool refills from dirty (and vice versa above)
+    want_d = min(n - want_c, len(pool_d))
+    take_d = rng.choice(pool_d, size=want_d, replace=False) \
+        if want_d else np.empty(0, np.int64)
+    take_c = rng.choice(pool_c, size=want_c, replace=False) \
+        if want_c else np.empty(0, np.int64)
+    out = np.concatenate([take_d, take_c]).astype(np.int64)
+    rng.shuffle(out)
+    return out
+
+
 def _pad(arr: np.ndarray, n: int, fill=0) -> np.ndarray:
     out = np.full((n,) + arr.shape[1:], fill, dtype=arr.dtype)
     out[: min(len(arr), n)] = arr[:n] if len(arr) > n else arr

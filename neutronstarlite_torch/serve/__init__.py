@@ -9,15 +9,16 @@ embedding cache on top (sampling.py), and every serving event is a typed
 obs/ record (server.py). fleet.py runs SERVE_REPLICAS SLO-routed replicas
 (least-burn with hysteresis, drain-on-breach, fleet-shed only on
 all-breach, heartbeat-supervised restart) behind one submit(); SERVE_CB
-adds continuous batching.
+adds continuous batching; delta.py applies live graph deltas between
+flushes.
 
 Entry points (the CUDA card by default, ``--device cpu`` for the CPU):
   python -m neutronstarlite_torch.serve.server <cfg> [<ckpt_dir>]
   python -m neutronstarlite_torch.tools.serve_bench <cfg> [<ckpt_dir>] [--train]
-      [--replicas N] [--cb 0|1] ...
+      [--replicas N] [--cb 0|1] [--delta-rate R] ...
 
-Left for the live-graph and cross-host serving slice: graph deltas
-(delta.py) and replica processes behind a cross-host router (crosshost.py).
+Left for the cross-host serving slice: replica processes behind a
+cross-host router (crosshost.py).
 """
 
 import importlib
@@ -30,6 +31,9 @@ _EXPORTS = {
     "ServeOptions": "batcher",
     "ServeRequest": "batcher",
     "latency_percentiles": "batcher",
+    "DeltaPlan": "delta",
+    "GraphDelta": "delta",
+    "plan_delta": "delta",
     "InferenceEngine": "engine",
     "ServeSetupError": "engine",
     "EmbeddingCache": "sampling",

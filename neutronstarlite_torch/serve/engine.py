@@ -33,11 +33,17 @@ draw, not JAX's.
 
 Concurrency. A JAX executable is reentrant; a captured graph's static
 buffers are not, and ``clone()`` shares the ladder between the replicas of
-a fleet, which call it from several threads. So each bucket holds a lock
-around copy-in, replay and copy-out (the logits reach the host before the
-lock is released); a bucket is built under the engine's compile lock, with
-``capture_error_mode="thread_local"``, and ``warmup()`` builds every
-bucket before a server starts its threads.
+a fleet, which call it from several threads. Nor are two different graphs
+independent: every capture runs on PyTorch's one capture stream, and
+PyTorch keys the cuBLAS workspace by handle and stream, so the graphs
+captured in one thread share one workspace, and two of them replayed at
+once race in it (measured on the H100: a sync and a device bucket replayed
+together answered up to 3.4e-6 off their lone replays). So every replay on
+the card holds one process-wide lock around copy-in, replay and copy-out
+(the logits reach the host before it is released); on the CPU each
+bucket's eager forward holds its own lock. A bucket is built under the
+engine's compile lock, with ``capture_error_mode="thread_local"``, and
+``warmup()`` builds every bucket before a server starts its threads.
 
 The host-to-device stage: ``prepare_batch`` packs a flush's arrays into
 one pinned host buffer and copies it with one ``non_blocking`` copy on the
@@ -45,8 +51,17 @@ engine's side stream, recording an event; ``execute_prepared`` makes its
 stream wait on that event, then copies into the graph's static buffer. The
 pipelined server stages flush i+1 while flush i replays.
 
-Left for the live-graph and cross-host serving slice: ``apply_delta``
-(graph deltas under a running engine) refuses.
+Live graph (``apply_delta``, serve/delta.py). A captured graph reads its
+tensors by address, so a delta writes in place wherever the shapes allow:
+the neighbour table's dirty rows, the fused degree tables (sized to the
+table's row capacity) and, within a reserved margin (stream/ingest.py),
+the appended feature rows; no bucket is captured again. A vertex append
+past the margin makes a new feature slab and clears both ladders, and a
+neighbour table that must change shape recaptures the fused buckets (their
+ladder is keyed on the tables' shapes and addresses). The engine serves
+its own copy of the restored weights: a fine-tune worker that trains the
+toolkit's parameters in place (stream/finetune.py) never reaches a
+serving bucket.
 """
 
 from __future__ import annotations
@@ -69,11 +84,9 @@ from neutronstarlite_torch.utils.logging import get_logger
 
 log = get_logger("serve")
 
-LIVE_GRAPH_SLICE = (
-    "the live-graph and cross-host serving slice of the torch port (serve/delta.py)"
-)
-
 _ALIGN = 16  # byte alignment of each array in a packed buffer
+# held by every CUDA-graph replay in the process (see "Concurrency" above)
+_REPLAY_LOCK = threading.Lock()
 
 
 class ServeSetupError(RuntimeError):
@@ -154,7 +167,7 @@ class _Bucket:
     buffer and output; the CPU: ``run(buf)``, the eager forward over a
     packed buffer. ``packing``: the layout of a sync bucket's buffer (None
     for a fused bucket). ``lock`` guards the static buffers across
-    threads."""
+    threads; on the card it is the process-wide replay lock."""
 
     def __init__(self, run, packing: Optional[Packing] = None, graph=None, static=None,
                  out=None):
@@ -163,7 +176,7 @@ class _Bucket:
         self.graph = graph
         self.static = static
         self.out = out
-        self.lock = threading.Lock()
+        self.lock = threading.Lock() if graph is None else _REPLAY_LOCK
 
     def __call__(self, staged: Staged, stream) -> np.ndarray:
         """Logits [bucket, classes] as a host array."""
@@ -258,22 +271,19 @@ class InferenceEngine:
         self._check_servable(toolkit.params)
         self._restore(ckpt_dir)
         self.device = toolkit.device
-        self.weights = [layer["W"] for layer in toolkit.params]
+        # a copy: the toolkit's parameters may go on training in place
+        self.weights = [layer["W"].detach().clone() for layer in toolkit.params]
         self.feature = toolkit.feature
         self.fanouts = list(toolkit.fanouts)
         self.compute_dtype = toolkit.compute_dtype
         hop_sampler = None
-        # the fused program's device tables (nbr, eff_deg, out_deg, in_deg)
-        self._fused_tables = None
         if self.opts.sample_pipeline in ("device", "fused"):
             # the sampled trainer this engine restored through already built
             # the neighbour table for the same mode: reuse it
             hop_sampler = toolkit.par_sampler.hop_sampler
-            if self.opts.sample_pipeline == "fused":
-                from neutronstarlite_torch.sample.fused import degree_tables
-
-                self._fused_tables = (hop_sampler.nbr, hop_sampler.eff_deg) + \
-                    degree_tables(toolkit.host_graph, self.device)
+        # the fused program's degree tables, shared with every clone
+        # (``graph``: the host graph they hold; None until first use)
+        self._fused_shared: Dict[str, Any] = {"graph": None, "degrees": None}
         self.sampler = ServeSampler(
             toolkit.host_graph, self.fanouts, self.opts.ladder(), rng=rng,
             hop_sampler=hop_sampler,
@@ -286,7 +296,6 @@ class InferenceEngine:
         self._fused_compiled: Dict[int, Tuple[tuple, _Bucket]] = {}
         self.compile_counts: Dict[int, int] = {}
         self._compile_lock = threading.Lock()
-        self._digest: Optional[str] = None
         self._init_streams()
 
     def _init_streams(self) -> None:
@@ -323,16 +332,24 @@ class InferenceEngine:
         return self.opts.sample_pipeline == "fused"
 
     def graph_digest(self) -> str:
-        """The canonical digest of the graph this engine serves (the perf
-        ledger's key)."""
-        if self._digest is None:
+        """The canonical digest of the graph this engine serves: the
+        tune-cache and perf-ledger key that a graph delta bumps
+        (serve/delta.py updates the toolkit's cached copy)."""
+        digest = getattr(self.toolkit, "_tune_graph_digest", None)
+        if digest is None:
             from neutronstarlite_torch.graph.digest import graph_digest
 
-            self._digest = graph_digest(self.sampler.graph)
-        return self._digest
+            digest = graph_digest(self.sampler.graph)
+            self.toolkit._tune_graph_digest = digest
+        return digest
 
     def apply_delta(self, delta) -> Any:
-        raise ValueError(f"live graph deltas come with {LIVE_GRAPH_SLICE}")
+        """Engine-level delta application (no cache or batcher state: the
+        server and fleet paths add those; serve/delta.py has the
+        semantics). Returns the DeltaPlan."""
+        from neutronstarlite_torch.serve import delta as delta_mod
+
+        return delta_mod.apply_to_engines([self], delta)
 
     # ---- construction ----------------------------------------------------
     @classmethod
@@ -505,16 +522,53 @@ class InferenceEngine:
                                   self.device.type, bucket=bucket, compile_s=round(dt, 4))
 
     # ---- fused one-replay ladder (SAMPLE_PIPELINE:fused) -------------------
+    def _fused_tables(self):
+        """The fused program's device tables (nbr, eff_deg, out_deg,
+        in_deg), read at call time: a delta patches them in place or, when
+        a shape must change, replaces them (serve/delta.py). The degree
+        tables are sized to the neighbour table's row capacity."""
+        hs = self.sampler.hop_sampler
+        shared = self._fused_shared
+        deg = shared["degrees"]
+        if deg is None or deg[0].shape[0] != hs.nbr.shape[0]:
+            from neutronstarlite_torch.sample.fused import degree_tables
+
+            shared["degrees"] = degree_tables(self.sampler.graph, self.device,
+                                              rows=hs.nbr.shape[0])
+            shared["graph"] = self.sampler.graph
+        return (hs.nbr, hs.eff_deg) + tuple(shared["degrees"])
+
+    def refresh_fused_degrees(self) -> None:
+        """Rewrite the fused degree tables for the graph this engine now
+        serves, in place where their size holds (serve/delta.py calls it
+        once per shared table set, while no flush is in flight)."""
+        shared = self._fused_shared
+        deg, g = shared["degrees"], self.sampler.graph
+        if deg is None or shared["graph"] is g:
+            return
+        if deg[0].shape[0] >= g.v_num:
+            from neutronstarlite_torch.sample.fused import degree_tables
+
+            # in place: the captured graphs read these tensors
+            for old, new in zip(deg, degree_tables(g, self.device, rows=deg[0].shape[0])):
+                old.copy_(new)
+            shared["graph"] = g
+        else:
+            shared["degrees"] = None  # rebuilt at the next call
+
     def _ensure_fused(self, bucket: int) -> _Bucket:
-        shapes = tuple(tuple(a.shape) for a in self._fused_tables)
+        tables = self._fused_tables()
+        # a captured graph reads its tables by address: a replaced table
+        # (a shape change) needs a new capture
+        key = tuple((tuple(a.shape), a.data_ptr()) for a in tables)
         entry = self._fused_compiled.get(bucket)
-        if entry is not None and entry[0] == shapes:
+        if entry is not None and entry[0] == key:
             return entry[1]
         with self._compile_lock:
             entry = self._fused_compiled.get(bucket)
-            if entry is not None and entry[0] == shapes:
+            if entry is not None and entry[0] == key:
                 return entry[1]
-            return self._build_fused_bucket(bucket, shapes)
+            return self._build_fused_bucket(bucket, key)
 
     def fused_forward(self, buf: torch.Tensor, bucket: int) -> torch.Tensor:
         """Eager logits of a fused flush (``fused_run``'s operands)."""
@@ -522,10 +576,10 @@ class InferenceEngine:
 
     def _fused_run(self, bucket: int):
         return fused_run(self.weights, self.feature, self.compute_dtype,
-                         self.sampler.node_caps(bucket), self.fanouts, self._fused_tables,
+                         self.sampler.node_caps(bucket), self.fanouts, self._fused_tables(),
                          bucket)
 
-    def _build_fused_bucket(self, bucket: int, shapes) -> _Bucket:
+    def _build_fused_bucket(self, bucket: int, key) -> _Bucket:
         caps = self.sampler.node_caps(bucket)
         t0 = time.perf_counter()
         rep = torch.zeros(bucket + 2, dtype=torch.int64, device=self.device)
@@ -537,7 +591,7 @@ class InferenceEngine:
         else:
             entry = _Bucket(run)
         dt = time.perf_counter() - t0
-        self._fused_compiled[bucket] = (shapes, entry)
+        self._fused_compiled[bucket] = (key, entry)
         self._built(f"serve.fused_bucket_{bucket}", bucket, dt, lambda: run(rep))
         log.info("%s: fused bucket %d (caps %s, sample+execute one replay) in %.3fs",
                  self._built_how(), bucket, caps, dt)

@@ -40,9 +40,10 @@ record, and every request the dead replica still owed — batcher-pending
 and prepared-but-unexecuted — is re-routed to a live replica, not
 dropped (latency honestly keeps the original ``t_submit``).
 
-Live graph deltas (``apply_delta``) and the cross-host hub's per-replica
-telemetry targets come with the live-graph and cross-host serving slice;
-``apply_delta`` refuses.
+Live graph deltas (``apply_delta``): one plan, every replica's engine
+swapped under its graph gate, per-replica cache invalidation and records
+(serve/delta.py). The cross-host hub's per-replica telemetry targets come
+with the cross-host serving slice.
 
 Telemetry: each replica owns its own MetricsRegistry (stream file,
 histograms, SLO engine) labeled ``r0..rN-1``; the exporter merges them
@@ -74,7 +75,7 @@ from neutronstarlite_torch.serve.batcher import (
     ServeOptions,
     ServeRequest,
 )
-from neutronstarlite_torch.serve.engine import LIVE_GRAPH_SLICE, InferenceEngine
+from neutronstarlite_torch.serve.engine import InferenceEngine
 from neutronstarlite_torch.serve.server import InferenceServer
 from neutronstarlite_torch.utils.logging import get_logger
 
@@ -442,8 +443,20 @@ class ReplicaSet:
             self.replicas[idx].killed = True
             self.replicas[idx].server.inject_death()
 
+    # ---- live graph deltas ----------------------------------------------
     def apply_delta(self, delta):
-        raise ValueError(f"live graph deltas come with {LIVE_GRAPH_SLICE}")
+        """Fleet-wide delta: one plan, every replica's engine swapped
+        under its graph gate, per-replica cache invalidation + records
+        (serve/delta.py)."""
+        from neutronstarlite_torch.serve import delta as delta_mod
+
+        plan = delta_mod.apply_to_servers(
+            [r.server for r in self.replicas], delta,
+            extra_engines=[self.engine],
+        )
+        self.registry.counter_add("fleet.graph_deltas")
+        self.registry.gauge_set("graph.digest", plan.digest)
+        return plan
 
     # ---- stats / close ---------------------------------------------------
     def _merged_latency(self):

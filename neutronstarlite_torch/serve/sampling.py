@@ -14,10 +14,10 @@ cache — zero compute, bounded staleness. Which vertices are worth caching
 follows the hot/cold split rule of the reference's training-side cache
 (:func:`hot_vertex_mask`: out-degree >= threshold; a row referenced by many
 consumers amortizes its cache slot). Staleness is bounded by
-``cache_max_age_s``: entries older than that are recomputed.
-
-Left for the cross-host serving slice (live graph deltas): swapping the
-graph under a running sampler and invalidating the touched cache rows.
+``cache_max_age_s``: entries older than that are recomputed. A graph delta
+(serve/delta.py) swaps the graph under the running samplers
+(``ServeSampler.set_graph``) and drops exactly the cache rows whose logits
+it can change (``EmbeddingCache.invalidate``).
 """
 
 from __future__ import annotations
@@ -86,6 +86,14 @@ class ServeSampler:
     def sample(self, bucket: int, seed_ids: np.ndarray) -> SampledBatch:
         return self._samplers[int(bucket)].sample_batch(seed_ids)
 
+    def set_graph(self, graph: CSCGraph) -> None:
+        """Swap in a post-delta host graph (serve/delta.py): every bucket
+        Sampler re-points at the new structure; capacities/fanouts/rng
+        are graph-independent and keep their state."""
+        self.graph = graph
+        for s in self._samplers.values():
+            s.graph = graph
+
 
 class EmbeddingCache:
     """Bounded LRU of per-vertex inference outputs with a staleness TTL.
@@ -113,6 +121,7 @@ class EmbeddingCache:
         self.hits = 0
         self.misses = 0
         self.expired = 0
+        self.invalidated = 0
 
     @classmethod
     def for_graph(cls, graph: CSCGraph, capacity: int, max_age_s: float,
@@ -160,6 +169,20 @@ class EmbeddingCache:
                 self._rows.popitem(last=False)
         return inserted
 
+    def invalidate(self, vids) -> int:
+        """Drop the cached rows for exactly ``vids`` (the graph-delta
+        dirty set, serve/delta.py) — entries for untouched vertices keep
+        hitting; returns how many entries were actually dropped."""
+        if self.capacity <= 0:
+            return 0
+        n = 0
+        with self._lock:
+            for vid in np.asarray(vids, dtype=np.int64).tolist():
+                if self._rows.pop(int(vid), None) is not None:
+                    n += 1
+            self.invalidated += n
+        return n
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._rows)
@@ -171,4 +194,5 @@ class EmbeddingCache:
                 "hits": self.hits,
                 "misses": self.misses,
                 "expired": self.expired,
+                "invalidated": self.invalidated,
             }

@@ -18,9 +18,12 @@ CLI: ``python -m neutronstarlite_torch.serve.server <cfg> [<ckpt_dir>]
 ladder, serves a batch of random requests, and prints the latency summary.
 It runs on the CUDA card unless ``--device cpu`` asks for the CPU.
 
-Left for the live-graph and cross-host serving slice: ``apply_delta`` (and
-with it the graph gate that lets a delta land between two flushes)
-refuses, and a request span's ``graph_seq`` lineage is None.
+Live graph deltas (``apply_delta``, serve/delta.py) land between flushes:
+the graph gate serializes them against the flush produce stage, and a
+delta waits until every flush already prepared has executed
+(``drain_prepared``) before it writes into the tensors the buckets read,
+so such a flush answers from the pre-delta view; the graph version keeps
+its logits out of the cache once a delta has passed.
 """
 
 from __future__ import annotations
@@ -38,11 +41,7 @@ import numpy as np
 
 from neutronstarlite_torch.obs.trace import TraceContext, Tracer
 from neutronstarlite_torch.serve.batcher import MicroBatcher, ServeOptions, ServeRequest
-from neutronstarlite_torch.serve.engine import (
-    LIVE_GRAPH_SLICE,
-    InferenceEngine,
-    ServeSetupError,
-)
+from neutronstarlite_torch.serve.engine import InferenceEngine, ServeSetupError
 from neutronstarlite_torch.serve.sampling import EmbeddingCache
 from neutronstarlite_torch.utils.logging import get_logger
 
@@ -64,8 +63,8 @@ class InferenceServer:
         self.opts = options or engine.opts
         self.metrics = engine.metrics
         # fleet identity (serve/fleet.py): stamps the exporter surface
-        # label and the flight-dump filename prefix; None for a standalone
-        # server
+        # label, the flight-dump filename prefix, and the graph_delta
+        # records; None for a standalone server
         self.replica = replica
         if self.metrics is not None and replica:
             self.metrics.gauge_set("serve.replica", replica)
@@ -117,6 +116,16 @@ class InferenceServer:
             self.opts.continuous_batching
             or self.opts.sample_pipeline in ("pipelined", "device")
         )
+        # serializes the flush PRODUCE stage against live graph-delta
+        # application (serve/delta.py): a delta lands between flushes,
+        # never inside one; the version keeps logits computed before a
+        # delta out of the cache after it
+        self._graph_gate = threading.RLock()
+        self._graph_version = 0
+        # flushes produced and not yet answered: a delta waits for 0
+        # (drain_prepared) before it writes into the tensors they read
+        self._prepared = 0
+        self._prepared_cv = threading.Condition()
         self._prep_q: Optional[queue_mod.Queue] = None
         self._exec_thread: Optional[threading.Thread] = None
         self._producing = False
@@ -156,8 +165,31 @@ class InferenceServer:
         """Blocking convenience wrapper: logits [n, n_classes]."""
         return self.submit(node_ids).result(timeout)
 
+    # ---- live graph deltas (serve/delta.py) ------------------------------
     def apply_delta(self, delta):
-        raise ValueError(f"live graph deltas come with {LIVE_GRAPH_SLICE}")
+        """Apply a GraphDelta between flushes: post-delta graph swapped
+        in under the graph gate once the prepared flushes have executed,
+        only the touched embedding-cache entries invalidated, device
+        neighbour-table rows patched, digest bumped, one typed
+        ``graph_delta`` record emitted. Returns the DeltaPlan."""
+        from neutronstarlite_torch.serve import delta as delta_mod
+
+        return delta_mod.apply_to_servers([self], delta)
+
+    def drain_prepared(self, timeout: float = 120.0) -> None:
+        """Wait until every flush produced so far has been answered (call
+        with the graph gate held, so that none is produced meanwhile)."""
+        with self._prepared_cv:
+            if not self._prepared_cv.wait_for(lambda: self._prepared == 0, timeout):
+                raise RuntimeError(
+                    f"{self._prepared} prepared flush(es) did not execute within "
+                    f"{timeout:.0f} s; a graph delta cannot land under them"
+                )
+
+    def _answered(self) -> None:
+        with self._prepared_cv:
+            self._prepared -= 1
+            self._prepared_cv.notify_all()
 
     # ---- fleet-side surface (serve/fleet.py) -----------------------------
     def beating(self) -> bool:
@@ -191,6 +223,7 @@ class InferenceServer:
                     break
                 if item is None:
                     continue
+                self._answered()
                 out.extend(item[0])
         return [r for r in out if not r.done()]
 
@@ -221,6 +254,12 @@ class InferenceServer:
 
     def _flush_body(self, requests: List[ServeRequest], t0: float,
                     flush_id: int, batch_span):
+        with self._graph_gate:  # a graph delta lands between flushes
+            return self._flush_body_locked(requests, t0, flush_id,
+                                           batch_span)
+
+    def _flush_body_locked(self, requests: List[ServeRequest], t0: float,
+                           flush_id: int, batch_span):
         # cache pass: per requested id, a fresh cached row or a compute slot
         all_ids, cached_rows = self._cache_pass(requests)
         t_cache = time.perf_counter()
@@ -300,32 +339,36 @@ class InferenceServer:
         flush_id = next(_FLUSH_IDS)
         self._producing = True
         try:
-            all_ids, cached_rows = self._cache_pass(requests)
-            t_cache = time.perf_counter()
-            bucket = None
-            prepared = None
-            uniq = None
-            t_sample = t_cache
-            t_h2d = t_cache
-            if all_ids:
-                uniq = np.asarray(all_ids, dtype=np.int64)
-                bucket = self.engine.sampler.bucket_for(len(uniq))
-                if getattr(self.engine, "fused", False):
-                    # fused produce stage: no host sampling, no subgraph
-                    # H2D — only the padded seeds, the live count and the
-                    # draw key stage to the device; sample+execute run as
-                    # ONE replay in the executor
-                    t_sample = time.perf_counter()
-                    self.engine._ensure_fused(bucket)
-                    prepared = self.engine.prepare_fused(uniq, bucket)
-                else:
-                    batch = self.engine.sampler.sample(bucket, uniq)
-                    t_sample = time.perf_counter()
-                    # a cold bucket builds here, out of the executor's
-                    # steady-state path
-                    self.engine._ensure_compiled(bucket)
-                    prepared = self.engine.prepare_batch(batch)
-                t_h2d = time.perf_counter()
+            with self._graph_gate:  # a delta lands between produce stages
+                version = self._graph_version
+                all_ids, cached_rows = self._cache_pass(requests)
+                t_cache = time.perf_counter()
+                bucket = None
+                prepared = None
+                uniq = None
+                t_sample = t_cache
+                t_h2d = t_cache
+                if all_ids:
+                    uniq = np.asarray(all_ids, dtype=np.int64)
+                    bucket = self.engine.sampler.bucket_for(len(uniq))
+                    if getattr(self.engine, "fused", False):
+                        # fused produce stage: no host sampling, no
+                        # subgraph H2D — only the padded seeds, the live
+                        # count and the draw key stage to the device;
+                        # sample+execute run as ONE replay in the executor
+                        t_sample = time.perf_counter()
+                        self.engine._ensure_fused(bucket)
+                        prepared = self.engine.prepare_fused(uniq, bucket)
+                    else:
+                        batch = self.engine.sampler.sample(bucket, uniq)
+                        t_sample = time.perf_counter()
+                        # a cold bucket builds here, out of the executor's
+                        # steady-state path
+                        self.engine._ensure_compiled(bucket)
+                        prepared = self.engine.prepare_batch(batch)
+                    t_h2d = time.perf_counter()
+                with self._prepared_cv:
+                    self._prepared += 1
             for name, a, b in (
                 ("cache_lookup", t0, t_cache),
                 ("sample", t_cache, t_sample),
@@ -343,7 +386,7 @@ class InferenceServer:
         # flows to the batcher queue, whose bound sheds — policy unchanged)
         self._prep_q.put(
             (requests, reason, flush_id, t0, t_h2d, bucket, uniq,
-             cached_rows, prepared)
+             cached_rows, prepared, version)
         )
         depth = self._prep_q.qsize()
         if self.metrics is not None:
@@ -373,11 +416,11 @@ class InferenceServer:
                     "sample_wait", dur_s=wait, t0=t_idle, cat="sample",
                 )
             (requests, reason, flush_id, t0, t_h2d, bucket, uniq,
-             cached_rows, prepared) = item
+             cached_rows, prepared, version) = item
             try:
                 self._execute_prepared(
                     requests, reason, flush_id, t0, t_h2d, bucket, uniq,
-                    cached_rows, prepared,
+                    cached_rows, prepared, version,
                 )
             except BaseException as e:  # mirror MicroBatcher._loop
                 log.warning(
@@ -391,9 +434,12 @@ class InferenceServer:
                 for r in requests:
                     if not r.done():
                         r._complete(None, "error", e)
+            finally:
+                self._answered()
 
     def _execute_prepared(self, requests, reason, flush_id, t0, t_h2d,
-                          bucket, uniq, cached_rows, prepared) -> None:
+                          bucket, uniq, cached_rows, prepared,
+                          version: int = 0) -> None:
         t_exec0 = time.perf_counter()
         # the producer->executor queue wait: without this stage the serve
         # critical path's stage sum would silently undershoot the recorded
@@ -411,7 +457,11 @@ class InferenceServer:
                 logits = self.engine.execute_prepared(prepared, bucket)
             for i, vid in enumerate(uniq.tolist()):
                 rows[vid] = logits[i]
-            self.cache.insert(uniq, logits[: len(uniq)])
+            # a delta waits for this flush before it lands (drain_prepared),
+            # so the version still matches; the check keeps pre-delta logits
+            # out of the cache should one ever pass
+            if version == self._graph_version:
+                self.cache.insert(uniq, logits[: len(uniq)])
         t_exec = time.perf_counter()
         exec_ms = (t_exec - t0) * 1000.0
         for r in requests:
@@ -438,8 +488,9 @@ class InferenceServer:
 
     def _lineage(self):
         """(graph_seq, model_seq) for the freshness-lineage span fields: the
-        delta-log seq (None: the graph is static in this port) and the
-        checkpoint step that answered."""
+        delta-log seq (None: in the reference only the cross-host replica
+        child wires its ingestor's seq here, and that slice is not ported)
+        and the checkpoint step that answered."""
         return None, int(self.engine.ckpt_step)
 
     def _record(self, requests: List[ServeRequest], reason: str,

@@ -3,7 +3,7 @@
 
 ``python -m neutronstarlite_torch.tools.serve_bench <cfg> [<ckpt_dir>]
 [--train] [--mode closed|open] [--clients C | --rps R] [--requests N]
-[--replicas N] [--cb 0|1] [--device cpu]``
+[--replicas N] [--cb 0|1] [--delta-rate R [--delta-edges K]] [--device cpu]``
 
 Drives the in-process serving stack (serve/server.py — or the
 multi-replica fleet, serve/fleet.py, with ``--replicas N``) on the CUDA
@@ -24,7 +24,13 @@ Two load models:
   R exceeds capacity.
 
 ``--replicas N`` serves through a ReplicaSet (SLO-routed, supervised);
-``--cb 0|1`` pins continuous batching (SERVE_CB) for the run.
+``--cb 0|1`` pins continuous batching (SERVE_CB) for the run;
+``--delta-rate R`` applies R live graph-delta batches per second
+(``--delta-edges`` random novel edge inserts each, the previous batch
+removed) DURING the load — the "predictions track a live graph" leg. Each
+delta rebuilds the host graph (serve/delta.plan_delta sorts the whole edge
+list), so R must stay below what the host keeps up with; a delta that
+fails to apply stops the deltas (logged) while the load finishes.
 
 ``--train`` first runs the cfg's training loop (with CHECKPOINT_DIR set
 to the serving checkpoint dir) when no checkpoint exists yet — the
@@ -35,11 +41,11 @@ Prints ONE JSON line:
    "vs_baseline": null, "extra": {p50/p95/p99, throughput, sheds, ...}}
 
 When ``NTS_LEDGER_DIR`` is set, one ``kind=serve`` row (p50/p95/p99,
-shed rate, replica count — keyed by cfg fingerprint + load shape + graph
-digest) is appended to the cross-run perf ledger.
+shed rate, replica count, delta rate and deltas applied — keyed by cfg
+fingerprint + load shape + the PRE-delta graph digest) is appended to the
+cross-run perf ledger.
 
-Left for the live-graph and cross-host serving slice: ``--delta-rate``
-(live graph deltas during the load), ``--targets`` (replica processes
+Left for the cross-host serving slice: ``--targets`` (replica processes
 behind the cross-host router) and ``--trace`` (the cross-process request
 trace join); each refuses, naming it.
 """
@@ -60,7 +66,7 @@ from neutronstarlite_torch.utils.logging import get_logger
 
 log = get_logger("serve_bench")
 
-CROSS_HOST_SLICE = "the live-graph and cross-host serving slice of the torch port"
+CROSS_HOST_SLICE = "the cross-host serving slice of the torch port"
 
 
 def ensure_checkpoint(cfg, base_dir: str, ckpt_dir: str, train: bool, device=None) -> None:
@@ -200,13 +206,62 @@ def percentiles_from_streams(paths) -> Dict[str, Any]:
     return out
 
 
+def run_delta_loop(target, rate: float, edges_per_delta: int, seed: int,
+                   stop: threading.Event, counts: Dict[str, int]) -> None:
+    """Apply live graph-delta batches at ``rate``/s while the load runs:
+    each batch inserts ``edges_per_delta`` random NOVEL edges and removes
+    the previous batch's — the graph keeps changing, its size stays
+    bounded, and the base graph is never damaged. Novelty matters:
+    removal drops EVERY occurrence of a listed pair, so a random insert
+    that collided with a pre-existing edge would take the original down
+    with it on the next round — candidates are filtered against the
+    current edge set. ``target`` is an InferenceServer or ReplicaSet (both
+    expose apply_delta). ``counts["applied"]`` counts the deltas applied
+    and ``counts["seconds"]`` their summed apply seconds."""
+    from neutronstarlite_torch.serve.delta import GraphDelta, _edge_keys
+
+    rng = np.random.default_rng(seed + 31337)
+    interval = 1.0 / max(rate, 1e-6)
+    last: list = []
+    while not stop.wait(interval):
+        g = target.engine.sampler.graph
+        v = g.v_num
+        existing = set(_edge_keys(
+            g.row_indices.astype(np.int64), g.dst_of_edge.astype(np.int64)
+        ).tolist())
+        add: list = []
+        chosen = set()
+        for _ in range(20 * max(edges_per_delta, 1)):  # bounded tries
+            if len(add) >= max(edges_per_delta, 1):
+                break
+            u, w = int(rng.integers(0, v)), int(rng.integers(0, v))
+            key = (u << 32) | w
+            if key in existing or key in chosen:
+                continue
+            chosen.add(key)
+            add.append((u, w))
+        if not add:
+            continue
+        t0 = time.perf_counter()
+        try:
+            target.apply_delta(GraphDelta.edges(add=add, remove=last))
+        except Exception as e:  # the load must finish; deltas are the leg
+            log.warning("delta application failed (%s); stopping deltas", e)
+            return
+        counts["seconds"] = counts.get("seconds", 0.0) + time.perf_counter() - t0
+        last = add
+        counts["applied"] += 1
+
+
 def measure(engine, options=None, replicas: int = 1, mode: str = "closed",
             clients: int = 4, rps: float = 200.0, requests: int = 200,
-            seeds_per_request: int = 1, seed: int = 0) -> Dict[str, Any]:
+            seeds_per_request: int = 1, seed: int = 0, delta_rate: float = 0.0,
+            delta_edges: int = 4) -> Dict[str, Any]:
     """Serve one load over a built engine: an InferenceServer (or a
     ``replicas``-replica ReplicaSet) with ``options`` (default: the
-    engine's), the closed or open load model, then the numbers read back
-    from the run's streams — the ``extra`` dict of the JSON line."""
+    engine's), the closed or open load model, with ``delta_rate`` live
+    graph deltas per second during it, then the numbers read back from the
+    run's streams — the ``extra`` dict of the JSON line."""
     from neutronstarlite_torch.serve.fleet import ReplicaSet
     from neutronstarlite_torch.serve.server import InferenceServer
 
@@ -218,11 +273,29 @@ def measure(engine, options=None, replicas: int = 1, mode: str = "closed",
         server = InferenceServer(engine, options=opts)
         stream_paths = [engine.metrics.path] if engine.metrics.path else []
     v_num = engine.toolkit.host_graph.v_num
+    # the PRE-delta digest is the run's workload identity (the ledger key):
+    # the count of deltas applied depends on wall-clock timing
+    initial_digest = engine.graph_digest()
+    delta_stop = threading.Event()
+    delta_counts: Dict[str, Any] = {"applied": 0, "seconds": 0.0}
+    delta_thread = None
+    if delta_rate > 0:
+        delta_thread = threading.Thread(
+            target=run_delta_loop,
+            args=(server, delta_rate, delta_edges, seed, delta_stop, delta_counts),
+            daemon=True,
+        )
+        delta_thread.start()
     t0 = time.perf_counter()
-    if mode == "closed":
-        errors = run_closed_loop(server, v_num, requests, clients, seeds_per_request, seed)
-    else:
-        errors = run_open_loop(server, v_num, requests, rps, seeds_per_request, seed)
+    try:
+        if mode == "closed":
+            errors = run_closed_loop(server, v_num, requests, clients, seeds_per_request, seed)
+        else:
+            errors = run_open_loop(server, v_num, requests, rps, seeds_per_request, seed)
+    finally:
+        delta_stop.set()
+        if delta_thread is not None:
+            delta_thread.join(timeout=120.0)
     wall_s = time.perf_counter() - t0
     stats = server.close()
     if replicas > 1:
@@ -282,6 +355,11 @@ def measure(engine, options=None, replicas: int = 1, mode: str = "closed",
         "replicas": replicas,
         "fleet_shed": stats.get("fleet_shed"),
         "restarts": stats.get("restarts"),
+        "delta_rate": delta_rate,
+        "deltas_applied": delta_counts["applied"],
+        "delta_apply_s": delta_counts["seconds"],
+        "initial_graph_digest": initial_digest,
+        # the graph digest the run ENDED on (deltas bump it)
         "graph_digest": engine.graph_digest(),
         "device": str(engine.device),
         "wall_s": wall_s,
@@ -320,14 +398,17 @@ def main(argv=None) -> int:
                     help="serving (and --train) device (default: the CUDA "
                     "card; raises when there is none)")
     ap.add_argument("--delta-rate", type=float, default=0.0,
-                    help="live graph deltas per second (not in this port yet)")
+                    help="apply this many live graph-delta batches per "
+                    "second during the load (0 = frozen graph)")
+    ap.add_argument("--delta-edges", type=int, default=4,
+                    help="edge inserts per delta batch (the previous "
+                    "batch is removed)")
     ap.add_argument("--targets", default=None,
                     help="cross-host replica addresses (not in this port yet)")
     ap.add_argument("--trace", action="store_true",
                     help="cross-process request tracing (not in this port yet)")
     args = ap.parse_args(argv)
-    for flag, used in (("--delta-rate", args.delta_rate > 0),
-                       ("--targets", bool(args.targets)), ("--trace", args.trace)):
+    for flag, used in (("--targets", bool(args.targets)), ("--trace", args.trace)):
         if used:
             ap.error(f"{flag} comes with {CROSS_HOST_SLICE}")
     if args.cb is not None:
@@ -383,6 +464,7 @@ def main(argv=None) -> int:
         engine, replicas=replicas, mode=args.mode, clients=args.clients,
         rps=args.rps, requests=args.requests,
         seeds_per_request=args.seeds_per_request, seed=args.seed,
+        delta_rate=args.delta_rate, delta_edges=args.delta_edges,
     )
     extra["warmup_compile_s"] = warmup_s
     result = {
@@ -404,10 +486,12 @@ def main(argv=None) -> int:
             throughput_rps=extra["throughput_rps"],
             requests=args.requests,
             cfg_fingerprint=config_fingerprint(cfg),
-            graph_digest=extra["graph_digest"],
+            graph_digest=extra["initial_graph_digest"],
             mode=args.mode,
             replicas=replicas,
             continuous_batching=extra["continuous_batching"],
+            delta_rate=args.delta_rate,
+            deltas_applied=extra["deltas_applied"],
             extra={
                 "clients": args.clients if args.mode == "closed" else None,
                 "rps_offered": args.rps if args.mode == "open" else None,

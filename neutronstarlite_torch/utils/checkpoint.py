@@ -122,6 +122,22 @@ def _legacy_files(path: str) -> Optional[Tuple[str, str]]:
     return None
 
 
+def latest_npz_step(path: str) -> Optional[int]:
+    """Newest intact npz step under ``path`` (legacy flat layout reads as
+    its manifest step), or None."""
+    steps = list_steps(path)
+    if steps:
+        return steps[-1][0]
+    legacy = _legacy_files(path)
+    if legacy:
+        try:
+            with open(legacy[0]) as fh:
+                return int(json.load(fh)["step"])
+        except (OSError, ValueError, KeyError, json.JSONDecodeError):
+            return None
+    return None
+
+
 def have_checkpoint(path: str, backend: str = "") -> bool:
     """True when ``path`` holds a checkpoint by its files (a completed
     sharded step, or a manifest and a non-empty arrays file). No digest is

@@ -745,6 +745,45 @@ def test_cuda_captured_buckets_equal_the_eager_forward(cuda_device, monkeypatch,
     assert eng.compile_counts == {1: 1, 4: 1, 16: 1}
 
 
+def test_cuda_concurrent_replays_equal_lone_replays(cuda_device, monkeypatch, tmp_path):
+    """Flushes of different buckets replayed from several threads at once
+    answer bitwise what each answers alone: the graphs share one cuBLAS
+    workspace, so replays on the card are serialized
+    (``serve/engine.py`` ``_REPLAY_LOCK``)."""
+    import threading
+
+    from neutronstarlite_torch.serve.batcher import ServeOptions
+    from neutronstarlite_torch.serve.engine import InferenceEngine
+
+    tr = _cora_sampled(cuda_device, monkeypatch, "sync", epochs=1,
+                       checkpoint_dir=str(tmp_path / "ck"))
+    tr.run()
+    opts = ServeOptions(max_batch=16, buckets=(1, 4, 16), sample_pipeline="sync")
+    eng = InferenceEngine(tr, str(tmp_path / "ck"), options=opts, rng=np.random.default_rng(0))
+    eng.warmup()
+    rng = np.random.default_rng(3)
+    jobs = []
+    for b in (4, 16, 4, 16, 1, 16):
+        batch = eng.sampler.sample(b, rng.choice(2708, size=b, replace=False))
+        jobs.append((batch, b, eng.forward_batch(batch, b)))
+    got = {}
+
+    def run(i):
+        clone = eng.clone(rng=np.random.default_rng(i))
+        batch, b, _ = jobs[i % len(jobs)]
+        got[i] = [clone.forward_batch(batch, b) for _ in range(20)]
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    for i, outs in got.items():
+        for out in outs:
+            np.testing.assert_array_equal(out, jobs[i][2])
+    assert len(got) == len(jobs)
+
+
 # ---- the rectangular per-shard tables of the distributed trainers --------------
 
 

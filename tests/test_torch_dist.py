@@ -76,7 +76,9 @@ V, F, H, C = 2708, 64, 32, 7
 EPOCHS = 20
 P_TRAIN = 4
 SIM_TOL = dict(rtol=1e-5, atol=1e-6)
-GIN_TOL = 5e-3  # GINDIST against JAX's GINDIST from seed 0 (see the curve test)
+# GINDIST against JAX's GINDIST from seed 0: a limit of parity, one ReLU kink
+# that rounding decides (test_gindist_seed0_gap_is_one_relu_kink)
+GIN_TOL = 5e-3
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -393,9 +395,10 @@ def test_jax_initial_params_start_the_port_trainer(cora, jax_runs):
 ])
 def test_sim_trainer_curve_matches_jax(cora, jax_runs, algorithm, route, seed):
     """GIN from JAX's seed-0 init is held at GIN_TOL against JAX's
-    GINDIST: that init is ill-conditioned (a first batch-norm column 92 %
-    dead amplifies rounding ~60x), and there JAX's own GINDIST and GIN
-    curves part (up to 1.9e-3), while the port stays with JAX's GIN. So
+    GINDIST: there JAX's own GINDIST and GIN curves part (up to 1.9e-3)
+    through one ReLU kink that rounding decides
+    (test_gindist_seed0_gap_is_one_relu_kink), while the port stays with
+    JAX's GIN. So
     every GIN case is also held at 1e-4 against JAX's single-device GIN
     from the same initial parameters, and GIN from seed 1, where JAX's two
     curves agree, at 1e-4 against JAX's GINDIST."""
@@ -419,6 +422,76 @@ def test_sim_trainer_curve_matches_jax(cora, jax_runs, algorithm, route, seed):
     assert {k: tr.metrics._gauges.get(k) for k in WIRE} == j_gauges
     assert {k: tr.metrics._counters.get(k) for k in j_counters} == j_counters
     assert set(out["acc"]) == {"train", "eval", "test"}
+
+
+def _jax_gindist_grads(cora, P):
+    """JAX's GINDIST at P partitions from its seed-0 init, epoch 0: (loss,
+    layer-0 aggregation, layer outputs, d loss / d layer outputs), each
+    over the real rows, and the trainer."""
+    from neutronstarlite_tpu.models.gcn_dist import dist_gcn_forward as j_forward
+    from neutronstarlite_tpu.parallel.dist_ell import dist_ell_gather_dst_from_src
+
+    src, dst, jg, _ = cora
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("NTS_DIST_SIMULATE", raising=False)
+        tr = j_get_algorithm("GINDIST").from_arrays(_cfg(JInfo, "GINDIST", "ell", P=P), src,
+                                                    dst, _data(JDatum), host_graph=jg, seed=0)
+    n = P * tr.dist.vp
+
+    def loss_fn(probes):
+        acts = []
+
+        def tap(i, x):
+            acts.append(x)
+            return x + probes[i]
+
+        logits = j_forward(tr.mesh, tr.dist, tr.blocks, tr.params, tr.feature_p, tr.valid_p,
+                           jax.random.PRNGKey(0), 0.0, True, type(tr).layer_nn, False, tap=tap)
+        return tr.masked_nll_loss(logits, tr.label_p, tr.train01_p), acts
+
+    probes = [jnp.zeros((n, H)), jnp.zeros((n, C))]
+    (loss, acts), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(probes)
+    agg0 = jax.jit(lambda x: dist_ell_gather_dst_from_src(tr.mesh, tr.blocks, x))(tr.feature_p)
+    real = tr.dist.unpad_vertex_array
+    return (float(loss), real(np.asarray(agg0)), [real(np.asarray(a)) for a in acts],
+            [real(np.asarray(g)) for g in grads], tr)
+
+
+def test_gindist_seed0_gap_is_one_relu_kink(cora):
+    """Why JAX's GINDIST (P >= 2) and JAX's GIN part from seed 0, while the
+    port's twin and JAX's GINDIST at P=1 stay with GIN: a limit of parity,
+    not a fault. The first op that differs is layer 0's aggregation, whose
+    ELL levels sum in an order that the partitioning sets (P=1 against P=4:
+    at most 3e-8 apart, never more than f32 rounding). Layer 0's outputs
+    then differ by ~1e-6, and vertex 1351's layer-1 pre-activation of hidden
+    unit 1 sits within that of 0 (2e-8): its ReLU passes the gradient under
+    one rounding and not the other. So epoch 0's gradient at layer 0's
+    output differs at vertex 1351 and its two in-neighbours only, by 1 % of
+    the largest; Adam's normalised first step moves layer 0's weights 3.5e-4
+    apart, and the curves part by up to 1.9e-3 in 20 epochs. The port's
+    twin takes P=1's branch (its GINDIST curve holds 1e-4 against JAX's
+    GIN)."""
+    l1, agg1, acts1, g1, tr1 = _jax_gindist_grads(cora, 1)
+    l4, agg4, acts4, g4, _ = _jax_gindist_grads(cora, 4)
+    assert abs(l1 - l4) <= 1e-6
+    d_agg = np.abs(agg1 - agg4).max()
+    assert 0 < d_agg <= 1e-7  # the first op that differs, by rounding
+    for a, b in zip(acts1, acts4):
+        assert np.abs(a - b).max() <= 1e-5  # the forward stays at rounding
+    assert np.abs(g1[1] - g4[1]).max() <= 1e-8  # d loss / d logits agree
+    d_grad = np.abs(g1[0] - g4[0])
+    rows = np.where(d_grad.max(axis=1) > 1e-7)[0]
+    assert rows.tolist() == [900, 1351, 1498]
+    assert d_grad.max() >= 0.005 * np.abs(g1[0]).max()  # 1 % of the largest
+    # the kink: vertex 1351's in-neighbours are exactly those rows, and its
+    # layer-1 pre-activation (float64 from P=1's layer-0 output) is ~0
+    _, _, jg, _ = cora
+    a = np.zeros((V, V))
+    np.add.at(a, (jg.dst_of_edge, jg.row_indices), jg.edge_weight_forward)
+    assert np.nonzero(a[1351])[0].tolist() == [900, 1351, 1498]
+    x = acts1[0].astype(np.float64)
+    pre = (a[1351] @ x + x[1351]) @ np.asarray(tr1.params[1]["W1"], np.float64)
+    assert np.abs(pre).min() < 1e-6 and int(np.abs(pre).argmin()) == 1
 
 
 @pytest.mark.parametrize("route", ["bsp", "ring"])

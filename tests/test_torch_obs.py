@@ -266,11 +266,26 @@ FLIGHT_CHAIN = (
 )
 
 
-@pytest.mark.parametrize("name", ["hist", "schema", "flight", "slo", "skew"])
+# the copies outside obs/: the graph and delta-trace generator, the delta log
+COPIED_ELSEWHERE = {"graph_gen": "tools", "log": "stream"}
+# the one difference the log copy carries: its removal mask is the delta
+# module's binary search, in place of two np.isin calls
+LOG_REMOVAL = (
+    ("        mask, present = delta_mod._removal_mask(keys, rm)\n",
+     "        present = np.isin(rm, keys)\n"),
+    ("            )\n    src = np.concatenate([old_src[mask], delta.add_src])",
+     "            )\n        mask = ~np.isin(keys, rm)\n"
+     "    src = np.concatenate([old_src[mask], delta.add_src])"),
+)
+
+
+@pytest.mark.parametrize("name", ["hist", "schema", "flight", "slo", "skew", "graph_gen",
+                                  "log"])
 def test_copied_module_code_equals_the_original(name):
     """The copies differ from the originals only in their docstring's port
     note and the import paths (and flight in its SIGUSR2 chaining,
-    ``FLIGHT_CHAIN``)."""
+    ``FLIGHT_CHAIN``, the log in its removal mask, ``LOG_REMOVAL``)."""
+    sub = COPIED_ELSEWHERE.get(name, "obs")
     def body(path, pkg, diffs=()):
         with open(path) as fh:
             src = fh.read()
@@ -280,9 +295,10 @@ def test_copied_module_code_equals_the_original(name):
         head, doc, rest = src.split('"""', 2)
         return doc.split("\n", 1)[0], rest.replace(pkg, "PKG")
 
-    t = body(os.path.join(REPO, "neutronstarlite_torch", "obs", f"{name}.py"),
-             "neutronstarlite_torch", FLIGHT_CHAIN if name == "flight" else ())
-    j = body(os.path.join(REPO, "neutronstarlite_tpu", "obs", f"{name}.py"),
+    t = body(os.path.join(REPO, "neutronstarlite_torch", sub, f"{name}.py"),
+             "neutronstarlite_torch",
+             {"flight": FLIGHT_CHAIN, "log": LOG_REMOVAL}.get(name, ()))
+    j = body(os.path.join(REPO, "neutronstarlite_tpu", sub, f"{name}.py"),
              "neutronstarlite_tpu")
     assert t == j
 

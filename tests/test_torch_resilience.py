@@ -133,7 +133,10 @@ def test_unported_faults_are_refused(monkeypatch, text, slice_):
     distributed slice's ``rank_loss``, ``slow_rank`` and the
     ``partition_step`` point are ported too: each fires at its point as in
     the reference (the twin's end-to-end runs are tests/test_torch_elastic.py
-    and tests/test_torch_skew.py)."""
+    and tests/test_torch_skew.py). So are the stream slice's
+    ``writer_crash`` and its ``delta_commit`` and ``finetune_round`` points:
+    each package fires them alike (tests/test_torch_stream.py runs the log's
+    crash and the worker's deaths end to end)."""
     monkeypatch.setenv("NTS_FAULT_SPEC", text)
     j_faults.parse_fault_spec(text)  # the reference runs it
     if slice_ == "obs slice":
@@ -165,8 +168,39 @@ def test_unported_faults_are_refused(monkeypatch, text, slice_):
         finally:
             elastic.reset()
         return
-    # the HTTP fetch comes with the live-graph and cross-host serving slice
-    with pytest.raises(ValueError, match="cross-host serving" if slice_ == "serving" else slice_):
+    if slice_ == "stream":
+        class Exited(Exception):
+            pass
+
+        def exit_(code):
+            raise Exited(code)
+
+        slept = []
+        monkeypatch.setattr(os, "_exit", exit_)
+        monkeypatch.setattr(time, "sleep", slept.append)
+
+        def fire(mod):
+            """What each point does in turn under the spec: None, the
+            exception's text, or ('exit', code) / ('slept', seconds)."""
+            mod.reset()
+            out = []
+            for point, ctx in (("delta_commit", dict(seq=1)), ("delta_commit", dict(seq=3)),
+                               ("finetune_round", dict(epoch=0))):
+                del slept[:]
+                try:
+                    mod.fault_point(point, **ctx)
+                    out.append(("slept", slept[0]) if slept else None)
+                except Exited as e:
+                    out.append(("exit", e.args[0]))
+                except RuntimeError as e:
+                    out.append(str(e))
+            return out
+
+        got, want = fire(faults), fire(j_faults)
+        assert got == want and any(got), got
+        return
+    # the HTTP fetch comes with the cross-host serving slice
+    with pytest.raises(ValueError, match="cross-host serving"):
         faults.fault_point("epoch_loss", epoch=0, value=1.0)
 
 

@@ -246,7 +246,7 @@ def test_embedding_cache_lru_staleness_and_hot_split():
     assert c.lookup(3) is None and c.lookup(1) is not None
     clock["t"] = 11.0  # everything is now stale
     assert c.lookup(1) is None
-    assert c.stats() == {"entries": 1, "hits": 3, "misses": 4, "expired": 1}
+    assert c.stats() == {"entries": 1, "hits": 3, "misses": 4, "expired": 1, "invalidated": 0}
     off = EmbeddingCache(capacity=0)
     assert off.insert(np.array([1]), rows[:1]) == 0
     assert off.lookup(1) is None
@@ -478,8 +478,13 @@ def test_refusals_name_what_is_missing(planted, jax_trained, tmp_path):
                                  label=datum.label, mask=datum.mask), device="cpu")
     with pytest.raises(ServeSetupError, match="GAT family"):
         InferenceEngine(gat, ckpt)
-    with pytest.raises(ValueError, match="live-graph and cross-host serving"):
-        InferenceEngine(tk, ckpt).apply_delta(None)
+    # a delta that cannot apply raises out of apply_delta (no fallback)
+    from neutronstarlite_torch.serve.delta import GraphDelta
+
+    present = set(zip(src.tolist(), dst.tolist()))
+    missing = next((u, w) for u in range(V) for w in range(V) if (u, w) not in present)
+    with pytest.raises(ValueError, match="do not exist"):
+        InferenceEngine(tk, ckpt).apply_delta(GraphDelta.edges(remove=[missing]))
 
 
 def test_server_cache_serves_repeats(port_engine):
@@ -679,7 +684,7 @@ def test_serve_bench_trains_and_the_server_cli_serves_on_cpu(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "served 50 requests (shed 0, errors 0)" in proc.stdout
-    for flag in (["--delta-rate", "2"], ["--targets", "127.0.0.1:1"], ["--trace"]):
+    for flag in (["--targets", "127.0.0.1:1"], ["--trace"]):
         bad = subprocess.run(
             [sys.executable, "-m", "neutronstarlite_torch.tools.serve_bench", cfg,
              "--device", "cpu"] + flag,
