@@ -155,18 +155,20 @@ Phases (each prints its lines; any failure exits non-zero):
    then configs/gcn_reddit_full.cfg unchanged through run.main: 10 epochs,
    falling loss, test accuracy >= NORTH_STAR_MIN_TEST_ACC, its epoch times,
    host build and peak memory; (d) configs/gcn_reddit_full_dist_bsp.cfg
-   and _dist_blocked.cfg through run.main on (c)'s data, the twin at full
-   scale (P=8): falling loss, the bsp cfg launching only bsp_ell, the
-   blocked one neither kernel;
+   through run.main on (c)'s data, the twin at full scale (P=8): falling
+   loss, only bsp_ell launched (its _dist_blocked.cfg twin is left out for
+   the time limit; (b) runs the blocked route);
 16. the pipelined ring, the 2D mesh and the split mirror (plain PyTorch,
    no hand-written kernel: every run must leave both kernels' launch
-   counts at 0) on the sim twin at P=8, GCN 602-128-41 bf16 on phase 4's
-   graph and parameters, drop 0: (a) GCNDIST on DIST_PATH:ring_blocked
+   counts at 0) on the sim twin at P=8, GCN 602-128-41 bf16 on phase 9's
+   graph (0.2 x --scale, for the time limit), drop 0: (a) GCNDIST on
+   DIST_PATH:ring_blocked
    (vt = min(vp, 512)), on MESH:4,2 (ring_blocked_sim), on
    COMM_LAYER:mirror and on COMM_LAYER:auto without OPTIM_KERNEL (its
    choice, mb and vp printed), and GCNEAGERDIST on ring_blocked,
-   RING_EPOCHS each: first logits (valid rows) and epoch-0 loss against phase 15's
-   single-device ELL references (LOGITS_TOL, LOSS_RTOL), the live wire,
+   RING_EPOCHS each: first logits (valid rows) and epoch-0 loss against
+   single-device ELL runs on that graph (GCN with the ELL kernel, GCNEAGER
+   as phase 15's eager reference; LOGITS_TOL, LOSS_RTOL), the live wire,
    ring and mesh gauges and the wire counter equal to ring_wire_plan /
    predict_mesh / (P-1)*mb, epoch times, host table build, peak memory;
    (b) GCNDIST f32 on ring_blocked with WIRE_DTYPE:bf16 beside f32, one
@@ -203,7 +205,8 @@ Phases (each prints its lines; any failure exits non-zero):
    rank, forward and both gradients in f64 (in f32 a hub source's
    gradient row, summed chunk by chunk or at once, rounds apart by more
    than F32_TOL), on ranks CHUNK_RANKS (0 and 7) of the 8, with the chunk
-   count and both bodies' f32 peaks; (g) GCNDISTCACHE: PROC_REP:0 against
+   count and both bodies' f32 peaks; (g) GCNDISTCACHE on phase 9's graph
+   (0.2 x --scale, for the time limit): PROC_REP:0 against
    GCNDIST COMM_LAYER:mirror f32 (first logits, epoch-0 loss), PROC_REP:1
    REP_THRESHOLD:auto (its cached fraction, mc, mf and wire bytes) against
    PROC_REP:0 (CACHE_REFRESH:1 is the fresh fetch), and CACHE_REFRESH:3
@@ -217,7 +220,8 @@ Phases (each prints its lines; any failure exits non-zero):
    mean degree 492, f 602, P=8 (wire rows, peak rows and MiB, ms per
    forward+backward step), the ell leg launching ell_level (and never
    bsp_ell) and its per-shard sums held against the plain version; (b)
-   GCNDIST bf16 602-128-41 at P=8 with DIST_PATH, WIRE_DTYPE and MESH auto
+   GCNDIST bf16 602-128-41 at P=8 on phase 9's graph (0.2 x --scale, for
+   the time limit) with DIST_PATH, WIRE_DTYPE and MESH auto
    (1 x 2 x 4 = 8 candidates, 4 trialled) under NTS_TUNE=measure, with each
    trial's program_cost, 3 epochs under the decision, then NTS_TUNE=cached
    (the same decision, no trial), then the decided tuple pinned: first
@@ -253,7 +257,8 @@ Phases (each prints its lines; any failure exits non-zero):
    buckets summing to the step within DEBUG_SUM_RTOL; (f) CKPT_BACKEND:orbax
    (torch.distributed.checkpoint): 3 epochs, then a new trainer resumed to
    6, bitwise the straight 6-epoch curve; (d) NTS_NUMERICS=1 on
-   DIST_PATH:ring_blocked_sim WIRE_DTYPE:bf16: the loss curve bitwise the
+   DIST_PATH:ring_blocked_sim WIRE_DTYPE:bf16, on phase 9's graph (0.2 x
+   --scale, for the time limit): the loss curve bitwise the
    one with numerics off, tensor_stats for params, grads, activations,
    logits and the wire payload, and with NTS_QUANT_PROBE=1 the
    wire.quant_rel_err gauge within QUANT_ATOL of the host's value on the
@@ -283,7 +288,37 @@ Phases (each prints its lines; any failure exits non-zero):
    than a delta that dirtied it; (d) one FineTuneWorker.drain_once over the
    stream's dirty region (batches, loss, seconds), the serving engine's
    weights untouched, its checkpoint restored into an engine, and
-   exc@point=finetune_round rolled through.
+   exc@point=finetune_round rolled through;
+21. cross-host serving (serve/crosshost.py; host code over HTTP and plain
+   PyTorch in each child: both kernels' launch counts stay 0 in this
+   process): phase 14's checkpoint (GCNSAMPLE 602-128-41 bf16, FANOUT
+   25-10, fused, buckets 1-4-16-64) served by replica processes that each
+   read phase 4's graph, features, labels and masks from files written
+   here (see phase_crosshost): (a) 3 children spawned together: the 2 of
+   CrossHostFleet.spawn (XH_REPLICAS: the rollout runs on 2 replicas for
+   the time limit) and the 1 of tools/serve_router (a process of its own),
+   each child's startup split (import, CUDA init, graph build, model,
+   restore, captures) and memory, nvidia-smi's compute apps; (b) SIGKILL of
+   one child under serve_bench's open loop at 100 requests/s: exactly 1
+   target_loss, 1 recovery action=restart, 0 sheds and 0 errors, the
+   restart's seconds and the clients' p50 / p99; meanwhile serve_router,
+   once its child serves, is offered a drifted copy (float leaves x 1.5 +
+   0.25, valid digests): exit 3, canary_reject, 0 restarts; (c) a rolling
+   rollout to a byte-identical copy under the same load: promoted, canary
+   disagreement exactly 0.0, 2 drains and restarts, 0 sheds, the merged
+   p99 of the kind=fleet ledger rows present in every row once
+   established; (d) 2 replay_seed probes per replica bitwise a fresh
+   in-process engine built from the promoted checkpoint; (e) serve_bench
+   --targets --trace (its main, in this process, beside the fleet's polling
+   and supervision) with 8 closed-loop clients: the clients' submit ->
+   answer p50 and p99, the replicas' merged p50 and p99, requests/s beside
+   phase 14's one-process numbers, the trace's
+   complete-chain fraction (>= 0.95), the chains carrying graph_seq 0 and
+   model_seq, and the merged Chrome trace valid; (f) under
+   net_drop@target=1,times=1 the dropped fetch retried and answered, and
+   routed requests all answered; (g) both kernels' counts 0; (h) after
+   close() no child process left (reaped, off nvidia-smi's list and its
+   memory freed).
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -312,13 +347,16 @@ before printing either.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import glob
+import io
 import json
 import logging
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2570,6 +2608,9 @@ def phase_serving(dev, g, seed: int, results) -> None:
         log(f"trained GCN 602-128-41 bf16 fused 2 epochs (losses "
             f"{[round(x, 6) for x in tr.loss_history]}) into a checkpoint in "
             f"{time.perf_counter() - t0:.1f} s (trainer build included)")
+        # phase 21 serves the same model from its replica processes
+        results["serve_ckpt"] = shutil.copytree(
+            ckpt, os.path.join(tempfile.mkdtemp(prefix="chip_smoke_serve_ck_"), "ck"))
         base = ServeOptions.from_cfg(cfg)
         check("ladder", base.ladder() == list(SERVE_BUCKETS), f"{base.ladder()}")
 
@@ -2684,7 +2725,7 @@ def phase_serving(dev, g, seed: int, results) -> None:
         leg("(c) sync closed", "sync", 100)
         leg("(c) pipelined closed", "sync", 100, server_mode="pipelined")
         leg("(c) device closed", "device", 2000)
-        leg("(c) fused closed", "fused", 2000)
+        results["serve_fused_closed"] = leg("(c) fused closed", "fused", 2000)
         leg("(c) fused open 1000/s", "fused", 2000, load="open", rps=1000.0)
         for mode in ("device", "fused"):  # where the time goes while serving
             server = InferenceServer(engines[mode].clone(rng=np.random.default_rng(seed)))
@@ -2770,6 +2811,7 @@ def phase_serving(dev, g, seed: int, results) -> None:
         check("(e) no capture in the clones", engines["fused"].compile_counts == want_counts,
               f"{engines['fused'].compile_counts}")
         lat = fst["latency_ms"]
+        results["serve_fleet_latency"] = lat
         log(f"(e) fleet of 3 (SERVE_CB 1, fused): replica r{victim} killed after "
             f"{t_kill - t0:.2f} s, restarted {restart_s:.2f} s later (heartbeat 0.1 s, miss_k 1), "
             f"{stolen} in-flight requests re-routed; {fst['requests']} served, {fst['shed']} "
@@ -3057,7 +3099,6 @@ def phase_dist(dev, g, seed: int, results) -> list:
         first = eager_ref.eval_logits()
         eager_ref.run()
         refs["GCNEAGERDIST"] = (first, eager_ref.loss_history[0])
-        results["dist_refs"] = refs  # phase 16 holds its routes against them too
         del eager_ref, first
         dist_runs = {}
         for algorithm, route in (("GCNDIST", "ell"), ("GCNDIST", "bsp"),
@@ -3167,9 +3208,10 @@ def phase_dist(dev, g, seed: int, results) -> list:
         del tr, res
         torch.cuda.empty_cache()
 
-        # ---- (d) the distributed Reddit cfgs on (c)'s data -----------------------
-        for cfg_name, want in (("gcn_reddit_full_dist_bsp.cfg", "bsp_ell"),
-                               ("gcn_reddit_full_dist_blocked.cfg", None)):
+        # ---- (d) the distributed Reddit cfg on (c)'s data ------------------------
+        # (its blocked twin, gcn_reddit_full_dist_blocked.cfg, is left out for
+        # the script's time limit: (b) runs the blocked route at --scale)
+        for cfg_name, want in (("gcn_reddit_full_dist_bsp.cfg", "bsp_ell"),):
             rc, tr, res, wall, launches, peak = cli(cfg_name)
             check(f"(d) {cfg_name} rc", rc == 0, rc)
             if tr is None or res is None:
@@ -3206,14 +3248,17 @@ def phase_dist(dev, g, seed: int, results) -> list:
 
 
 
-def phase_ring(dev, g, seed: int, results) -> None:
+def phase_ring(dev, scale: float, seed: int, results) -> None:
     """Phase 16 (see the module docstring): the pipelined ring, the 2D mesh
     and the split mirror on the sim twin, against the single-device ELL
-    route; the wire dtype; the overlap probe; the two smoke cfgs."""
+    route, on phase 9's graph (0.2 x --scale); the wire dtype; the overlap
+    probe; the two smoke cfgs."""
     import numpy as np
     import torch
 
     from neutronstarlite_torch import run
+    from neutronstarlite_torch.graph.storage import build_graph
+    from neutronstarlite_torch.models.gcn import GCNEagerTrainer, GCNTrainer
     from neutronstarlite_torch.models.gcn_dist import (
         DistGCNEagerTrainer,
         DistGCNTrainer,
@@ -3240,10 +3285,12 @@ def phase_ring(dev, g, seed: int, results) -> None:
     saved_env = {k: os.environ.get(k) for k in keys}
     for k in keys:
         os.environ.pop(k, None)
-    os.environ["NTS_DIST_SIMULATE"] = "1"
-    src, dst = results["edges"]
-    datum = results["datum"]
-    refs = results.pop("dist_refs")
+    # phase 9's graph at 0.2 x --scale: at --scale each ring_blocked twin
+    # spends ~9 s in its host table build, and the script must stay well
+    # inside its time limit
+    t0 = time.perf_counter()
+    src, dst, datum = ggcn_graph(0.2 * scale, seed)
+    g = build_graph(src, dst, datum.feature.shape[0])
     sizes = [602, 128, 41]
 
     def cfg_of(algorithm, epochs=RING_EPOCHS, precision="bfloat16", **kw):
@@ -3255,6 +3302,23 @@ def phase_ring(dev, g, seed: int, results) -> None:
         for k, v in kw.items():
             setattr(cfg, k, v)
         return cfg
+
+    # the single-device ELL references on that graph (phase 15's, there)
+    os.environ["NTS_PALLAS_RESIDENT"] = "1"
+    refs = {}
+    for algorithm, cls in (("GCNDIST", GCNTrainer), ("GCNEAGERDIST", GCNEagerTrainer)):
+        ref = cls.from_arrays(cfg_of(algorithm.replace("DIST", ""), epochs=1,
+                                     partitions=1, optim_kernel=True,
+                                     pallas_kernel=algorithm == "GCNDIST"),
+                              src, dst, datum, seed=seed, device=dev, host_graph=g)
+        first = ref.eval_logits()
+        ref.run()
+        refs[algorithm] = (first, ref.loss_history[0])
+        del ref
+    os.environ.pop("NTS_PALLAS_RESIDENT")
+    os.environ["NTS_DIST_SIMULATE"] = "1"
+    log(f"phase 16 on phase 9's graph (V={g.v_num} E={g.e_num}, 0.2 x --scale): the "
+        f"single-device ELL references (GCN, GCNEAGER) in {time.perf_counter() - t0:.1f} s")
 
     def trainer(algorithm, **kw):
         cls = DistGCNEagerTrainer if algorithm == "GCNEAGERDIST" else DistGCNTrainer
@@ -3758,7 +3822,11 @@ def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> 
         torch.cuda.empty_cache()
 
         # ---- (g) the DepCache GCN --------------------------------------------------------
-        ref, t_build = build("GCNDIST", (src, dst), datum, g, epochs=1, comm_layer="mirror")
+        # on phase 9's graph (0.2 x --scale) with GCN's weights: at --scale its
+        # four twins' host builds took ~20 s, and the script must stay well
+        # inside its time limit
+        gn = build_graph(*ge, gg["datum"].feature.shape[0])
+        ref, t_build = build("GCNDIST", ge, gg["datum"], gn, epochs=1, comm_layer="mirror")
         ref_first = ref.eval_logits()
         train(ref, "(g) GCNDIST mirror f32")
         ref_loss = ref.loss_history[0]
@@ -3769,7 +3837,7 @@ def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> 
                          ("auto", dict(process_rep=True, rep_threshold=-1)),
                          ("refresh3", dict(process_rep=True, rep_threshold=-1,
                                            cache_refresh=3))):
-            tr, t_build = build("GCNDISTCACHE", (src, dst), datum, g, **kw)
+            tr, t_build = build("GCNDISTCACHE", ge, gg["datum"], gn, **kw)
             first = tr.eval_logits()
             peak = train(tr, f"(g) {name}")
             cmg = tr.dist
@@ -3806,7 +3874,7 @@ def phase_mirror(dev, g, seed: int, results, ggcn_chain: dict, scale: float) -> 
             f"loss rel {rel:.2e}; PROC_REP:1 auto (CACHE_REFRESH:1) vs PROC_REP:0: first "
             f"logits {err2:.3e}, losses max gap {gap:.3e}; CACHE_REFRESH:3 losses "
             f"{[round(x, 6) for x in runs['refresh3'][1]]}")
-        del runs, ref_first
+        del runs, ref_first, gn
     finally:
         for k, val in saved_env.items():
             if val is None:
@@ -3961,11 +4029,17 @@ def phase_tune(dev, g, seed: int, results, scale: float) -> None:
             f"{bench['ring_blocked']['per_step_compute_s']}")
 
         # ---- (b) GCNDIST bf16, DIST_PATH / WIRE_DTYPE / MESH auto --------------------
+        # on phase 9's graph (0.2 x --scale): at --scale the trials' host
+        # table builds alone take ~30 s, and the script must stay well
+        # inside its time limit
         os.environ["NTS_DIST_SIMULATE"] = "1"
         os.environ["NTS_TUNE_DIR"] = os.path.join(tmp, "cache")
+        s9, d9, dat9 = ggcn_graph(0.2 * scale, seed)
+        v9 = dat9.feature.shape[0]
+        g9n = build_graph(s9, d9, v9)
 
         def gcn_cfg(**kw):
-            cfg = InputInfo(algorithm="GCNDIST", vertices=g.v_num, layer_string="602-128-41",
+            cfg = InputInfo(algorithm="GCNDIST", vertices=v9, layer_string="602-128-41",
                             epochs=3, drop_rate=0.0, precision="bfloat16", learn_rate=0.01,
                             weight_decay=1e-4, decay_rate=0.97, decay_epoch=100,
                             partitions=TUNE_P)
@@ -3975,9 +4049,10 @@ def phase_tune(dev, g, seed: int, results, scale: float) -> None:
 
         autos = dict(dist_path="auto", wire_dtype="auto", mesh="auto")
         zero_launches()
-        tr, recs, build_s = tuned("b_measure", "GCNDIST", gcn_cfg(**autos), src, dst, datum,
-                                  g, "measure")
-        dec = report("(b) GCNDIST measure", tr, recs, build_s, n_trials=8)
+        tr, recs, build_s = tuned("b_measure", "GCNDIST", gcn_cfg(**autos), s9, d9, dat9,
+                                  g9n, "measure")
+        dec = report(f"(b) GCNDIST measure (V={v9} E={g9n.e_num})", tr, recs, build_s,
+                     n_trials=8)
         check("(b) candidates", len(getattr(tr, "tune_rows", [])) == 8,
               f"{len(getattr(tr, 'tune_rows', []))} candidates, want 1 x 2 x 4")
         costs = {r["label"] for r in of(recs, "program_cost")}
@@ -3994,7 +4069,7 @@ def phase_tune(dev, g, seed: int, results, scale: float) -> None:
                 f"losses {[round(v, 6) for v in tuned_losses]} ({time.perf_counter() - t0:.1f}"
                 f" s)")
             del tr
-            tr, recs, _ = tuned("b_cached", "GCNDIST", gcn_cfg(**autos), src, dst, datum, g,
+            tr, recs, _ = tuned("b_cached", "GCNDIST", gcn_cfg(**autos), s9, d9, dat9, g9n,
                                 "cached")
             dc = of(recs, "tune_decision")
             check("(b) cached replay", len(dc) == 1 and dc[0]["source"] == "cached"
@@ -4003,8 +4078,8 @@ def phase_tune(dev, g, seed: int, results, scale: float) -> None:
             del tr
             pin = {k: v for k, v in Candidate.from_label(dec["candidate"]).as_dict().items()
                    if k in autos}
-            tp = get_algorithm("GCNDIST").from_arrays(gcn_cfg(**pin), src, dst, datum,
-                                                      seed=seed, device=dev, host_graph=g)
+            tp = get_algorithm("GCNDIST").from_arrays(gcn_cfg(**pin), s9, d9, dat9,
+                                                      seed=seed, device=dev, host_graph=g9n)
             pfirst = tp.eval_logits()
             tp.run()
             torch.cuda.synchronize()
@@ -4016,6 +4091,7 @@ def phase_tune(dev, g, seed: int, results, scale: float) -> None:
                 f"logits and losses bitwise: {torch.equal(first, pfirst)} / "
                 f"{tuned_losses == list(tp.loss_history)}")
             del tp, first, pfirst
+        del g9n
         check_no_kernel("phase 18 (b)")
         torch.cuda.empty_cache()
         os.environ.pop("NTS_DIST_SIMULATE", None)
@@ -4040,8 +4116,6 @@ def phase_tune(dev, g, seed: int, results, scale: float) -> None:
 
         # ---- (d) GATDIST f32, KERNEL auto, at 0.2 x scale (phase 9's graph) ----------
         os.environ["NTS_DIST_SIMULATE"] = "1"
-        s9, d9, dat9 = ggcn_graph(0.2 * scale, seed)
-        v9 = dat9.feature.shape[0]
         g9 = build_graph(s9, d9, v9, weight="ones")
         gd_cfg = InputInfo(algorithm="GATDIST", vertices=v9, layer_string="602-128-41",
                            epochs=1, drop_rate=0.0, learn_rate=0.01, weight_decay=1e-4,
@@ -4136,7 +4210,7 @@ def debuginfo_buckets(report: str) -> dict:
     return out
 
 
-def phase_elastic(dev, g, seed: int, results) -> None:
+def phase_elastic(dev, g, seed: int, results, scale: float) -> None:
     """Phase 19 (see the module docstring): the rest of the distributed
     plane on the P=8 twin at phase 4's graph, GCNDIST 602-128-41 bf16,
     drop 0: (a) a rank loss replanned 8 -> 7 under supervised_run on the
@@ -4147,6 +4221,7 @@ def phase_elastic(dev, g, seed: int, results) -> None:
     import numpy as np
     import torch
 
+    from neutronstarlite_torch.graph.storage import build_graph
     from neutronstarlite_torch.models.gat_dist import DistGATTrainer
     from neutronstarlite_torch.models.gcn_dist import DistGCNTrainer
     from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
@@ -4400,9 +4475,15 @@ def phase_elastic(dev, g, seed: int, results) -> None:
         torch.cuda.empty_cache()
 
         # ---- (d) numerics and the quantisation probe on the bf16 ring -------------------
+        # on phase 9's graph (0.2 x --scale): at --scale the ring's host
+        # table build alone takes ~9 s, and the script must stay well
+        # inside its time limit
         os.environ.update(NTS_QUANT_PROBE="1", NTS_METRICS_DIR=os.path.join(tmp, "d_obs"))
-        tn, _ = build(cfg_of(2, optim_kernel=False, dist_path="ring_blocked_sim",
-                             wire_dtype="bf16"))
+        s9, d9, dat9 = ggcn_graph(0.2 * scale, seed)
+        g9 = build_graph(s9, d9, dat9.feature.shape[0])
+        tn = DistGCNTrainer.from_arrays(
+            cfg_of(2, optim_kernel=False, dist_path="ring_blocked_sim", wire_dtype="bf16",
+                   vertices=g9.v_num), s9, d9, dat9, seed=seed, device=dev, host_graph=g9)
         zero_launches()
         tn.run()
         off, off_s = list(tn.loss_history), steady_s(tn.epoch_times)
@@ -4429,7 +4510,7 @@ def phase_elastic(dev, g, seed: int, results) -> None:
             f"tensor_stats groups {sorted(names)}; wire.quant_rel_err {gauge!r} vs host "
             f"{host!r} (|d| {abs((gauge or 0) - host):.2e}); steady epoch off {off_s:.4f} s, "
             f"on {steady_s(tn.epoch_times):.4f} s")
-        del tn
+        del tn, g9
         torch.cuda.empty_cache()
     finally:
         faults.reset()
@@ -4848,6 +4929,470 @@ def phase_live_graph(dev, g, seed: int, results) -> None:
     results["failures"].extend(failures)
 
 
+# phase 21: cross-host serving. The model of phase 14 (its checkpoint)
+# served by replica PROCESSES behind serve/crosshost's HTTP router; every
+# child reads phase 4's graph from files, restores and captures on its own
+XH_REPLICAS = 2  # the fleet's children; serve_router's one makes 3 spawned at once
+XH_RPS = 100.0  # the open-loop load under the kill and under the roll
+XH_PROBES = ((21, 16), (22, 64))  # (replay seed, vertices) of (d)'s probes
+XH_REQUESTS = 1000  # (e)'s closed-loop requests through serve_bench --targets
+XH_WAIT_S = 120.0  # the bound of every wait for a child
+
+
+def compute_apps() -> dict:
+    """pid -> MiB of every compute process nvidia-smi lists on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout
+    apps = {}
+    for ln in out.splitlines():
+        parts = [p.strip() for p in ln.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps[int(parts[0])] = parts[1]
+    return apps
+
+
+def mib(apps: dict) -> float:
+    """The MiB of nvidia-smi's compute apps, summed."""
+    return sum(float(v) for v in apps.values() if v.replace(".", "", 1).isdigit())
+
+
+def fmt_ms(v) -> str:
+    return f"{v:.3f}" if isinstance(v, (int, float)) else "n/a"
+
+
+def open_load(fleet, v_num: int, seed: int):
+    """serve_bench's open loop on ``fleet`` at XH_RPS (one vertex a request)
+    in a thread, until the function returned is called; that returns the
+    requests sent and the errors among them."""
+    import threading
+
+    from neutronstarlite_torch.tools.serve_bench import run_open_loop
+
+    halt, reqs, out = threading.Event(), [], {}
+    thread = threading.Thread(target=lambda: out.update(errors=run_open_loop(
+        fleet, v_num, 0, XH_RPS, 1, seed, done=reqs, stop=halt)), daemon=True)
+    thread.start()
+
+    def stop():
+        halt.set()
+        thread.join(timeout=XH_WAIT_S + 30)
+        return reqs, out.get("errors", len(reqs))
+
+    return stop
+
+
+def stop_router(proc) -> None:
+    """End a serve_router process as ^C does (it closes its fleet, so its
+    children go with it), then kill it if it lingers."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def drift_checkpoint(src: str, dst: str) -> str:
+    """A copy of checkpoint ``src`` whose float leaves are x * 1.5 + 0.25,
+    its digests made valid again (it passes the rollout's preflight)."""
+    import numpy as np
+
+    from neutronstarlite_torch.utils import checkpoint as ckpt_mod
+
+    shutil.copytree(src, dst)
+    for _step, d in ckpt_mod.list_steps(dst):
+        path = os.path.join(d, ckpt_mod.ARRAYS)
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files}
+        with open(os.path.join(d, ckpt_mod.MANIFEST)) as fh:
+            manifest = json.load(fh)
+        for k, a in arrays.items():
+            if a.dtype.kind == "f":
+                arrays[k] = (a * 1.5 + 0.25).astype(a.dtype)
+                manifest["arrays"][k]["sha256"] = ckpt_mod._leaf_digest(arrays[k])
+        np.savez(path, **arrays)
+        with open(os.path.join(d, ckpt_mod.MANIFEST), "w") as fh:
+            json.dump(manifest, fh)
+    return dst
+
+
+def phase_crosshost(dev, g, seed: int, results) -> None:
+    """Phase 21: cross-host serving on the card (see the module docstring,
+    item 21). On a CPU ``dev`` (a dry run) the children get ``--device
+    cpu``. A failed check prints FAILED and fails the run at the end."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch.graph.prep import (
+        _write_edges_binary,
+        _write_feature_table,
+        _write_label_table,
+        _write_mask,
+    )
+    from neutronstarlite_torch.obs import httpc, ledger
+    from neutronstarlite_torch.obs import registry as obs_registry
+    from neutronstarlite_torch.resilience import faults
+    from neutronstarlite_torch.serve import crosshost
+    from neutronstarlite_torch.serve.engine import InferenceEngine
+    from neutronstarlite_torch.tools import serve_bench, trace_timeline
+    from neutronstarlite_torch.tools.metrics_report import expand_paths
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    t_phase = time.perf_counter()
+    src, dst = results["edges"]
+    datum = results["datum"]
+    V = g.v_num
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    log(f"phase 21 on {smi}")
+    failures = []
+
+    def check(name, ok, detail=""):
+        if not ok:
+            failures.append(f"phase 21 {name}: {detail}")
+            log(f"FAILED {failures[-1]}")
+
+    ckpt = results.pop("serve_ckpt", None)
+    child_dev = None if dev.type == "cuda" else dev.type  # a CPU dry run's children
+    work = tempfile.mkdtemp(prefix="chip_smoke_xhost_")
+    saved_env = {k: os.environ.get(k) for k in (
+        "NTS_METRICS_DIR", "NTS_TRACE", "NTS_FAULT_SPEC", "NTS_LEDGER_DIR", "NTS_METRICS_PORT",
+        "NTS_SLO_SPEC", "NTS_SAMPLE_PIPELINE", "NTS_HUB_MISS_K", "NTS_FINAL_EVAL")}
+    for k in saved_env:
+        os.environ.pop(k, None)
+    children_dir = os.path.join(work, "children")  # the replicas' streams
+    bench_dir = os.path.join(work, "bench")  # serve_bench's router stream
+    ledger_dir = os.path.join(work, "ledger")
+    fleet = cli = None
+    pids = set()  # every child process this phase started
+    zero_launches()
+    try:
+        check("(a) phase 14's checkpoint", ckpt is not None, "phase 14 left none")
+        if ckpt is None:
+            return
+        # phase 4's graph, features, labels and masks as the cfg's files
+        t0 = time.perf_counter()
+        data = os.path.join(work, "data")
+        os.makedirs(data)
+        _write_edges_binary(os.path.join(data, "edges.bin"), src, dst)
+        feature_file = _write_feature_table(os.path.join(data, "features"), datum.feature,
+                                            text=False)
+        _write_label_table(os.path.join(data, "labels.txt"), datum.label)
+        _write_mask(os.path.join(data, "mask.txt"), datum.mask)
+        cfg_path = os.path.join(work, "serve.cfg")
+        with open(cfg_path, "w") as fh:
+            fh.write("\n".join([
+                "ALGORITHM:GCNSAMPLE", f"VERTICES:{V}", "LAYERS:602-128-41",
+                "PRECISION:bfloat16", "BATCH_SIZE:512", "FANOUT:25-10", "EPOCHS:2",
+                "DROP_RATE:0", "LEARN_RATE:0.01", "WEIGHT_DECAY:0.0001",
+                "SAMPLE_PIPELINE:fused", "SERVE_BUCKETS:1-4-16-64", "SERVE_MAX_BATCH:64",
+                "SERVE_MAX_WAIT_MS:2", "SERVE_MAX_QUEUE:1024",
+                f"EDGE_FILE:{os.path.join(data, 'edges.bin')}",
+                f"FEATURE_FILE:{feature_file}",
+                f"LABEL_FILE:{os.path.join(data, 'labels.txt')}",
+                f"MASK_FILE:{os.path.join(data, 'mask.txt')}",
+            ]) + "\n")
+        log(f"wrote phase 4's graph ({len(src):,} edges), features {datum.feature.shape}, "
+            f"labels and masks and a GCNSAMPLE fused serve cfg in "
+            f"{time.perf_counter() - t0:.1f} s")
+        apps0 = compute_apps()
+        router_reg = obs_registry.MetricsRegistry(
+            "router-chip-smoke", algorithm="ROUTER", fingerprint="f",
+            path=os.path.join(work, "router.jsonl"))
+
+        # (a) three replica processes, spawned together: the fleet's
+        # XH_REPLICAS and the one of tools/serve_router (a process of its
+        # own), which is offered a drifted candidate once its child serves
+        # and runs beside (a) and (b)
+        drifted = drift_checkpoint(ckpt, os.path.join(work, "drift"))
+        t0 = t_cli = time.perf_counter()
+        cli_log = os.path.join(work, "serve_router.log")
+        with open(cli_log, "w") as fh:
+            cli = subprocess.Popen(
+                [sys.executable, "-m", "neutronstarlite_torch.tools.serve_router", cfg_path,
+                 ckpt, "--replicas", "1", "--rollout", drifted, "--rollout-after", "1",
+                 "--polls", "2", "--json", "--spawn-dir", os.path.join(work, "router_spawn")]
+                + (["--device", child_dev] if child_dev else []),
+                cwd=REPO, stdout=fh, stderr=subprocess.STDOUT,
+                env=dict(os.environ, NTS_METRICS_DIR=os.path.join(work, "router_cli"),
+                         NTS_PROGRAM_COST="0"),
+            )
+        fleet = crosshost.CrossHostFleet.spawn(
+            cfg_path, ckpt, XH_REPLICAS, spawn_dir=os.path.join(work, "spawn"), seed=seed,
+            # the children's streams carry their spans; no program_cost
+            # record is counted per bucket (its flop counter cost ~5 s of
+            # each start on the card)
+            extra_env={"NTS_METRICS_DIR": children_dir, "NTS_TRACE": "1",
+                       "NTS_PROGRAM_COST": "0"},
+            registry=router_reg, ledger_dir=ledger_dir, spawn_timeout_s=XH_WAIT_S,
+            device=child_dev,
+        )
+        spawn_s = time.perf_counter() - t0
+        apps = compute_apps()
+        for r in fleet.replicas:
+            pids.add(r.proc.pid)
+            su = r.startup or {}
+            check(f"(a) {r.rid} startup split", all(k in su for k in (
+                "import_s", "cuda_init_s", "graph_s", "model_s", "restore_s", "capture_s")),
+                f"{su}")
+            log(f"(a) {r.rid} pid {r.proc.pid} at {r.base_url}: startup "
+                + ", ".join(f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+                            for k, v in su.items())
+                + f"; nvidia-smi {apps.get(r.proc.pid, 'not listed by pid')} MiB")
+        log(f"(a) the fleet's {XH_REPLICAS} children up in {spawn_s:.1f} s, spawned together "
+            f"with serve_router's; nvidia-smi --query-compute-apps pid: MiB before {apps0}, "
+            f"after {apps} (this process, serve_router and the 3 children: "
+            f"+{mib(apps) - mib(apps0):.0f} MiB)")
+        check("(a) every replica beating", all(s["beating"] for s in fleet.route_states()),
+              f"{fleet.route_states()}")
+
+        # (b) SIGKILL one child under open-loop load
+        shed0 = fleet.stats()["shed"]
+        stop = open_load(fleet, V, seed + 1)
+        time.sleep(1.0)
+        victim = fleet.replicas[1]
+        t_kill = time.perf_counter()
+        os.kill(victim.proc.pid, signal.SIGKILL)
+        deadline = t_kill + XH_WAIT_S
+        while victim.restarts == 0 and time.perf_counter() < deadline:
+            time.sleep(0.02)
+        back_s = time.perf_counter() - t_kill
+        time.sleep(0.5)
+        reqs, errors = stop()
+        pids.add(victim.proc.pid)
+        shed = fleet.stats()["shed"] - shed0
+        cl = serve_bench.client_latency_ms(reqs)
+        check("(b) restart under load", victim.restarts == 1 and errors == 0 and shed == 0,
+              f"restarts {victim.restarts}, errors {errors}, shed {shed}")
+        log(f"(b) SIGKILL of r1 under {XH_RPS:.0f} requests/s open loop: respawned "
+            f"{back_s:.2f} s after the kill (the respawn itself {victim.restart_s} s, "
+            f"startup {victim.startup}); {len(reqs)} requests, {errors} errors, {shed} shed; "
+            f"client submit -> answer p50 / p99 {fmt_ms(cl['p50'])} / {fmt_ms(cl['p99'])} ms")
+
+        # (c) a rolling rollout to a byte-identical candidate under load
+        cand = shutil.copytree(ckpt, os.path.join(work, "cand"))
+        shed0 = fleet.stats()["shed"]
+        stop = open_load(fleet, V, seed + 2)
+        t0 = time.perf_counter()
+        rec = fleet.rollout(cand)
+        roll_s = time.perf_counter() - t0
+        reqs, errors = stop()
+        for r in fleet.replicas:
+            pids.add(r.proc.pid)
+        shed = fleet.stats()["shed"] - shed0
+        cl = serve_bench.client_latency_ms(reqs)
+        canary = rec.get("canary") or {}
+        rolled = fleet.registry.counter_get("fleet.rollout_restarts")
+        check("(c) rollout promoted", rec["verdict"] == "promoted"
+              and canary.get("disagreement") == 0.0 and rec["restarted"] == XH_REPLICAS
+              and rolled == XH_REPLICAS and errors == 0 and shed == 0,
+              f"{rec}, rollout restarts {rolled}, errors {errors}, shed {shed}")
+        log(f"(c) rollout to a byte-identical copy under {XH_RPS:.0f} requests/s: "
+            f"{rec['verdict']} in {roll_s:.1f} s, canary disagreement "
+            f"{canary.get('disagreement')} over {canary.get('batches')} batches "
+            f"({canary.get('seeds')} seeds, mirrored {canary.get('mirrored')}), "
+            f"{rec['restarted']} drains and restarts; {len(reqs)} requests, {errors} errors, "
+            f"{shed} shed; client submit -> answer p50 / p99 {fmt_ms(cl['p50'])} / "
+            f"{fmt_ms(cl['p99'])} ms")
+        rows = [r for r in ledger.read_rows(directory=ledger_dir) if r["kind"] == "fleet"]
+        p99 = [(r.get("hist_quantiles") or {}).get("serve.latency_ms", {}).get("p99")
+               for r in rows]
+        first = next((i for i, v in enumerate(p99) if v is not None), None)
+        unbroken = first is not None and all(v is not None for v in p99[first:])
+        check("(c) merged p99 unbroken in the kind=fleet rows", unbroken,
+              f"{p99[first:] if first is not None else p99}")
+        log(f"(c) {len(rows)} kind=fleet rows, merged p99 present from row {first} on: "
+            f"{unbroken} (last {p99[-1] if p99 else None} ms)")
+        # (d) the replay oracle: every replica against a fresh engine
+        t0 = time.perf_counter()
+        fresh = InferenceEngine.from_config(
+            InputInfo.read_from_cfg_file(cfg_path), base_dir=work, ckpt_dir=cand,
+            rng=np.random.default_rng(0), device=dev)
+        build_s = time.perf_counter() - t0
+        pick = np.random.default_rng(seed + 21)
+        same = []
+        for rseed, k in XH_PROBES:
+            ids = pick.choice(V, size=k, replace=False).tolist()
+            gen = fresh.sampler.rng
+            gen.bit_generator.state = np.random.default_rng(rseed).bit_generator.state
+            want = fresh.predict(np.asarray(ids, dtype=np.int64))
+            for r in fleet.replicas:
+                out = json.loads(httpc.fetch(r.predict_url, data=json.dumps(
+                    {"node_ids": ids, "replay_seed": rseed}).encode(), retries=0))
+                got = np.asarray(out["values"], dtype=np.dtype(out["dtype"]))
+                same.append(out["dtype"] == "float32" and np.array_equal(got, want))
+        check("(d) replay probes bitwise a fresh engine", all(same), f"{same}")
+        log(f"(d) {len(same)} replay probes ({len(XH_PROBES)} seeds x {XH_REPLICAS} replicas, "
+            f"{[k for _, k in XH_PROBES]} vertices) bitwise a fresh in-process engine built "
+            f"from the promoted checkpoint ({build_s:.1f} s): {same}")
+        del fresh, gen
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        try:
+            cli.wait(timeout=2 * XH_WAIT_S + 60)
+        except subprocess.TimeoutExpired:
+            stop_router(cli)
+        with open(cli_log) as fh:
+            err = fh.read()
+        verdict = [ln for ln in err.splitlines() if "serve_router: rollout " in ln]
+        closed = [ln for ln in err.splitlines() if "serve_router: closed: " in ln]
+        rec2 = json.loads(verdict[0].split(": ", 2)[2]) if verdict else {}
+        cstats = json.loads(closed[0].split("closed: ", 1)[1]) if closed else {}
+        check("(c) drifted candidate refused", cli.returncode == 3
+              and rec2.get("verdict") == "canary_reject" and rec2.get("restarted") == 0
+              and cstats.get("restarts") == 0,
+              f"rc {cli.returncode}, {rec2}, {cstats}, {err[-1500:]}")
+        started = [ln.split(" - ", 1)[-1] for ln in err.splitlines() if " startup on " in ln]
+        log(f"(c) tools/serve_router offered a drifted candidate (x * 1.5 + 0.25, valid "
+            f"digests): exit {cli.returncode}, {rec2.get('verdict')}, canary disagreement "
+            f"{(rec2.get('canary') or {}).get('disagreement')}, restarted "
+            f"{rec2.get('restarted')}; done {time.perf_counter() - t_cli:.1f} s after its "
+            f"start, beside (a) and (b); its child: {started}")
+
+        # (e) serve_bench --targets --trace against the live fleet; the trace
+        # join reads its router's stream and the serving children's (a
+        # stream's name carries its pid), not the streams of the children
+        # killed or rolled before
+        live = [os.path.join(children_dir, f) for f in sorted(os.listdir(children_dir))
+                if any(f.endswith(f"-{r.proc.pid}-p0.jsonl") for r in fleet.replicas)]
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        os.environ["NTS_METRICS_DIR"] = bench_dir  # serve_bench's router stream
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = serve_bench.main(
+                    ["--targets", ",".join(r.base_url for r in fleet.replicas), "--trace",
+                     "--trace-dirs", *live, bench_dir, "--v-num", str(V),
+                     "--clients", str(SERVE_CLIENTS), "--requests", str(XH_REQUESTS),
+                     "--seed", str(seed)])
+        finally:
+            os.environ.pop("NTS_METRICS_DIR")
+        bench_s = time.perf_counter() - t0
+        try:
+            extra = json.loads(out.getvalue().strip().splitlines()[-1])["extra"]
+        except (IndexError, ValueError, KeyError):
+            extra = {}
+        check("(e) serve_bench --targets --trace", rc == 0
+              and extra.get("served") == XH_REQUESTS and extra.get("shed") == 0
+              and extra.get("errors") == 0 and (extra.get("trace_complete_frac") or 0) >= 0.95,
+              f"rc {rc}, {extra}, {out.getvalue()[-1500:]}")
+        one = results.get("serve_fused_closed") or {}
+        fl = results.get("serve_fleet_latency") or {}
+        log(f"(e) serve_bench --targets ({XH_REPLICAS} processes, {SERVE_CLIENTS} closed-loop "
+            f"clients, {XH_REQUESTS} requests; its router in this process, beside the "
+            f"fleet's polling and supervision): client submit -> answer p50 "
+            f"{fmt_ms(extra.get('client_p50_ms'))} / p99 {fmt_ms(extra.get('client_p99_ms'))} ms, "
+            f"{fmt_ms(extra.get('throughput_rps'))} requests/s; the replicas' merged histograms "
+            f"p50 {fmt_ms(extra.get('p50_ms'))} / p99 {fmt_ms(extra.get('p99_ms'))} ms; trace "
+            f"complete_frac {extra.get('trace_complete_frac')} over "
+            f"{extra.get('trace_chains')} chains, router overhead p50 / p99 "
+            f"{fmt_ms(extra.get('router_overhead_p50_ms'))} / "
+            f"{fmt_ms(extra.get('router_overhead_p99_ms'))} ms; {bench_s:.1f} s. Phase 14, one "
+            f"process: fused closed p50 {fmt_ms(one.get('p50_ms'))} / p99 "
+            f"{fmt_ms(one.get('p99_ms'))} ms, {fmt_ms(one.get('throughput_rps'))} requests/s; "
+            f"its 3-replica fleet p50 "
+            f"{fmt_ms(fl.get('p50'))} / p99 {fmt_ms(fl.get('p99'))} ms")
+        t0 = time.perf_counter()
+        streams = trace_timeline.load_streams(expand_paths(live + [bench_dir]), fleet=True)
+        rep = trace_timeline.request_tracing_report(
+            [e for s in streams for e in s.events]) or {"chains": []}
+        ok = [c for c in rep["chains"] if c["status"] == "ok"]
+        lineage = [c for c in ok if c["complete"] and c["graph_seq"] == 0
+                   and c["model_seq"] == rec.get("ckpt_step")]
+        frac = len(lineage) / len(ok) if ok else 0.0
+        n_chrome = trace_timeline.validate_chrome_trace(trace_timeline.chrome_trace(streams))
+        check("(e) complete chains with lineage", frac >= 0.95 and n_chrome > 0,
+              f"{len(lineage)} of {len(ok)}, chrome events {n_chrome}")
+        log(f"(e) {len(lineage)} of {len(ok)} ok requests ({frac:.4f}) form complete chains "
+            f"carrying graph_seq 0 and model_seq {rec.get('ckpt_step')}; the merged Chrome "
+            f"trace of {len(streams)} streams validates ({n_chrome} events); "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # (f) a dropped connection is retried and answered
+        os.environ["NTS_FAULT_SPEC"] = "net_drop@target=1,times=1"
+        faults.reset()
+        rseed, k = XH_PROBES[0]
+        ids = np.random.default_rng(seed + 21).choice(V, size=k, replace=False).tolist()
+        r1 = fleet.replicas[1]
+        out = json.loads(httpc.fetch(r1.predict_url, data=json.dumps(
+            {"node_ids": ids, "replay_seed": rseed}).encode(), retries=1, target=1))
+        fired = [sp.fired for sp in faults.active_plan()]
+        shed0 = fleet.stats()["shed"]
+        faults.reset()  # armed again for the router's fetches
+        answers = [fleet.submit([v]) for v in range(0, V, V // 50)]
+        answered = sum(1 for a in answers if a.result(timeout=XH_WAIT_S) is not None)
+        fired2 = [sp.fired for sp in faults.active_plan()]
+        os.environ.pop("NTS_FAULT_SPEC")
+        faults.reset()
+        check("(f) net_drop retried and answered", fired == [1] and out.get("status") == "ok"
+              and answered == len(answers) and fleet.stats()["shed"] == shed0,
+              f"fired {fired} / {fired2}, {out.get('status')}, answered {answered}")
+        log(f"(f) net_drop@target=1,times=1: the dropped attempt retried and answered "
+            f"(fired {fired}); armed again under {len(answers)} routed requests: "
+            f"{answered} answered, 0 shed (fired {fired2})")
+
+        # (h) teardown: no child left on the card
+        t0 = time.perf_counter()
+        stats = fleet.close()
+        fleet = None
+        left = set(compute_apps()) & pids
+        while left and time.perf_counter() - t0 < 30:
+            time.sleep(0.5)
+            left = set(compute_apps()) & pids
+        apps = compute_apps()
+        freed = mib(apps) <= mib(apps0) + 256  # a child holds > 1 GiB
+        alive = []
+        for pid in pids:  # reaped: the pid is gone
+            try:
+                os.kill(pid, 0)
+                alive.append(pid)
+            except ProcessLookupError:
+                pass
+        check("(h) no child left", not left and not alive and freed
+              and set(apps) <= set(apps0) | {os.getpid()},
+              f"left {left}, alive {alive}, compute apps {apps} (before {apps0})")
+        log(f"(h) close() in {time.perf_counter() - t0:.1f} s: {stats}; children {sorted(pids)} "
+            f"gone, nvidia-smi compute apps {apps}")
+        recs = read_records(os.path.join(work, "router.jsonl"))
+        losses = [e for e in recs if e["event"] == "target_loss"]
+        restarts = [e for e in recs if e["event"] == "recovery" and e["action"] == "restart"]
+        rollouts = [e["verdict"] for e in recs if e["event"] == "rollout"]
+        check("(b) one target_loss, one restart, one promoted rollout",
+              len(losses) == 1 and len(restarts) == 1 and rollouts == ["promoted"],
+              f"{len(losses)} target_loss, {len(restarts)} restarts, rollouts {rollouts}")
+        log(f"(b)-(c) the router's stream: {len(losses)} target_loss, {len(restarts)} "
+            f"recovery action=restart ({restarts[0].get('seconds') if restarts else None} s), "
+            f"rollouts {rollouts}")
+        # (g) the router process ran no hand-written kernel
+        launches = kernel_launches()
+        check("(g) both kernels idle", not any(launches.values()), f"{launches}")
+        log(f"(g) both kernels' launch counts through phase 21: {launches}")
+    finally:
+        if cli is not None:
+            stop_router(cli)
+        if fleet is not None:
+            fleet.close()
+        for k, val in saved_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+        faults.reset()
+        shutil.rmtree(work, ignore_errors=True)
+        if ckpt is not None:
+            shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    log(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    results["failures"].extend(failures)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1, help="fraction of Reddit's V and E")
@@ -4905,11 +5450,12 @@ def main(argv=None) -> int:
     timed("13", phase_obs, dev, g, args.seed, results)
     timed("14", phase_serving, dev, g, args.seed, results)
     rows += timed("15", phase_dist, dev, g, args.seed, results)
-    timed("16", phase_ring, dev, g, args.seed, results)
+    timed("16", phase_ring, dev, args.scale, args.seed, results)
     timed("17", phase_mirror, dev, g, args.seed, results, ggcn_chain, args.scale)
     timed("18", phase_tune, dev, g, args.seed, results, args.scale)
-    timed("19", phase_elastic, dev, g, args.seed, results)
+    timed("19", phase_elastic, dev, g, args.seed, results, args.scale)
     timed("20", phase_live_graph, dev, g, args.seed, results)
+    timed("21", phase_crosshost, dev, g, args.seed, results)
     faulthandler.cancel_dump_traceback_later()
     log(f"seconds per phase: {dict(spent)}")
     if results["failures"]:

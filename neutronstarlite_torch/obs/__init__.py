@@ -25,11 +25,10 @@ variables, and records that validate under the reference's schema:
   provenance replay;
 - :mod:`exporter` — the ``NTS_METRICS_PORT`` scrape endpoint (``/metrics``,
   ``/healthz``, ``/slo``, ``/telemetry``; copied), started by the trainers
-  and the serving stack.
-
-Left for later slices: the telemetry hub and its HTTP client (cross-host
-serving), the clock-skew join (distributed), the report tools, and the
-wire quantization probe.
+  and the serving stack;
+- :mod:`skew` — the straggler detector (copied);
+- :mod:`httpc` — the shared retrying HTTP client (copied);
+- :mod:`hub` — the cross-host telemetry hub (copied).
 """
 
 from neutronstarlite_torch.obs.cost import capture_program_cost

@@ -34,6 +34,14 @@ slow_rank    epoch, partition           sleeps ms inside one partition's
                                         (it keeps beating), so the straggler
                                         detector (obs/skew) must name it;
                                         ``times=M`` outlasts its latch
+net_drop     target (optional), times   raises ConnectionRefusedError at
+                                        ``http_fetch`` (obs/httpc): one HTTP
+                                        attempt sees a refused connection;
+                                        ``target=k`` hits only fetches of
+                                        the caller's target k, ``times=M``
+                                        outlasts the client's retries
+slow_net     target (optional), ms,     sleeps ms at ``http_fetch`` before
+             times                      the socket opens: slow, not dead
 writer_crash seq (optional)             ``os._exit(41)`` at ``delta_commit``,
                                         between the two halves of that log
                                         entry's line (stream/log.py): the
@@ -49,13 +57,10 @@ producer, before each batch is staged), ``partition_step`` (the
 distributed trainers' per-partition step timing, once per epoch and live
 partition, with ``partition=`` the partition: an injected sleep lands in
 that partition's measured seconds alone), ``delta_commit`` (the delta log's
-tail append, with ``seq=`` the entry's sequence number) and
-``finetune_round`` (each fine-tune worker round, with ``epoch=`` the
-round).
-
-The kinds and the point of the cross-host serving slice parse as in the
-reference and are then refused, naming it (``UNPORTED``): ``net_drop`` and
-``slow_net`` at ``http_fetch``, the cross-host HTTP fetch.
+tail append, with ``seq=`` the entry's sequence number), ``finetune_round``
+(each fine-tune worker round, with ``epoch=`` the round) and ``http_fetch``
+(obs/httpc, once per HTTP attempt before the socket opens, with ``target=``
+the caller's index of the endpoint).
 
 The plan, its fired counts and the save counter are process-global on
 purpose: a supervised retry in the same process must see the fired counts.
@@ -94,14 +99,6 @@ DEFAULT_POINTS = {
     "net_drop": "http_fetch",
     "slow_net": "http_fetch",
     "writer_crash": "delta_commit",
-}
-
-_CROSS_HOST = "the cross-host serving slice (the cross-host HTTP fetch)"
-# the slice each unported kind or point waits for
-UNPORTED = {
-    "net_drop": _CROSS_HOST,
-    "slow_net": _CROSS_HOST,
-    "http_fetch": _CROSS_HOST,
 }
 
 # exit code of a simulated crash, told apart from a real failure's 1
@@ -180,18 +177,6 @@ def parse_fault_spec(text: str) -> List[FaultSpec]:
     return specs
 
 
-def check_ported(specs: List[FaultSpec]) -> None:
-    """Refuse a spec that the port cannot run yet, naming its slice."""
-    for spec in specs:
-        point = spec.point or DEFAULT_POINTS[spec.kind]
-        for name in (spec.kind, point):
-            if name in UNPORTED:
-                raise ValueError(
-                    f"fault {name!r} is not available in the torch port yet: it "
-                    f"comes with {UNPORTED[name]}"
-                )
-
-
 # ---- process-global plan ---------------------------------------------------
 
 _plan: Optional[List[FaultSpec]] = None
@@ -225,14 +210,12 @@ def reset() -> None:
 
 
 def active_plan() -> List[FaultSpec]:
-    """The plan of the current ``NTS_FAULT_SPEC``; parsed and checked anew,
+    """The plan of the current ``NTS_FAULT_SPEC``; parsed anew,
     with fresh fired counts, whenever the variable changes."""
     global _plan, _plan_src
     src = os.environ.get("NTS_FAULT_SPEC", "")
     if _plan is None or src != _plan_src:
-        plan = parse_fault_spec(src)
-        check_ported(plan)
-        _plan, _plan_src = plan, src
+        _plan, _plan_src = parse_fault_spec(src), src
         if _plan:
             log.warning("fault injection armed: %s", src)
     return _plan
@@ -258,13 +241,15 @@ def _epoch_matches(spec: FaultSpec, epoch: Optional[int]) -> bool:
 
 def fault_point(point: str, *, epoch: Optional[int] = None, value=None,
                 path: Optional[str] = None, partition: Optional[int] = None,
-                seq: Optional[int] = None):
+                target: Optional[int] = None, seq: Optional[int] = None):
     """Named injection hook: matching specs of the active plan fire (at
     most ``times`` each) and may replace ``value`` (the epoch loss), sleep,
     raise, corrupt ``path``, kill a sim partition or end the process.
     ``partition`` is the ``partition_step`` point's context (slow_rank
-    matches it); ``seq`` the ``delta_commit`` point's (writer_crash matches
-    it). Returns ``value`` unchanged when ``NTS_FAULT_SPEC`` is unset."""
+    matches it); ``target`` the ``http_fetch`` point's (net_drop and
+    slow_net match it); ``seq`` the ``delta_commit`` point's (writer_crash
+    matches it). Returns ``value`` unchanged when ``NTS_FAULT_SPEC`` is
+    unset."""
     plan = active_plan()
     if not plan:
         return value
@@ -294,6 +279,23 @@ def fault_point(point: str, *, epoch: Optional[int] = None, value=None,
             log.warning("injecting writer crash mid-commit of seq %s (exit %d)", seq,
                         CRASH_EXIT_CODE)
             os._exit(CRASH_EXIT_CODE)
+        if spec.kind in ("net_drop", "slow_net"):
+            if spec.target is not None and spec.target != target:
+                continue
+            spec.fired += 1
+            # the injection-site record; the detection records are the
+            # caller's (the hub's miss-K target_loss, the router's re-route)
+            events.emit_fault(spec.kind, point=point, target=target, injected=True,
+                              rank=process_index())
+            if spec.kind == "net_drop":
+                log.warning("injecting net drop: refusing HTTP fetch of target %s", target)
+                raise ConnectionRefusedError(
+                    f"injected fault: net_drop at point {point!r} (target {target})"
+                )
+            # slow, not dead: the fetch goes on after the sleep
+            log.warning("injecting %.0f ms scrape latency into target %s", spec.ms, target)
+            time.sleep(spec.ms / 1000.0)
+            continue
         if not _epoch_matches(spec, epoch):
             continue
         if spec.kind == "crash" and spec.rank is not None and spec.rank != process_index():

@@ -17,8 +17,12 @@ Entry points (the CUDA card by default, ``--device cpu`` for the CPU):
   python -m neutronstarlite_torch.tools.serve_bench <cfg> [<ckpt_dir>] [--train]
       [--replicas N] [--cb 0|1] [--delta-rate R] ...
 
-Left for the cross-host serving slice: replica processes behind a
-cross-host router (crosshost.py).
+crosshost.py runs replicas as separate processes behind an HTTP router
+(spawned, supervised and rolled one at a time behind a canary, or
+discovered from NTS_FLEET_TARGETS):
+  python -m neutronstarlite_torch.tools.serve_router <cfg> <ckpt> [--replicas N]
+      [--rollout CKPT] [--device cpu]
+  python -m neutronstarlite_torch.tools.serve_bench --targets host:port,... [--trace]
 """
 
 import importlib

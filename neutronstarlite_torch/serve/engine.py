@@ -361,10 +361,15 @@ class InferenceEngine:
         options: Optional[ServeOptions] = None,
         rng: Optional[np.random.Generator] = None,
         device=None,
+        timings: Optional[Dict[str, float]] = None,
     ) -> "InferenceEngine":
         """Full lifecycle from a cfg file's contents: load graph + datum,
         build the model, restore the checkpoint. ``device`` None is the CUDA
-        card (raises without one); ``"cpu"`` runs on the CPU."""
+        card (raises without one); ``"cpu"`` runs on the CPU. ``timings``,
+        when given, receives the seconds of each part: ``graph_s`` (read the
+        files, build the graph and its tables), ``model_s`` (the model's
+        parameters) and ``restore_s`` (the checkpoint and the serving
+        sampler)."""
         from neutronstarlite_torch.models import get_algorithm
 
         ckpt = ckpt_dir or cfg.checkpoint_dir
@@ -376,16 +381,23 @@ class InferenceEngine:
         # serving never consumes the training batch stream: no worker pool
         prev = os.environ.get("NTS_SAMPLE_WORKERS")
         os.environ["NTS_SAMPLE_WORKERS"] = "0"
+        t0 = time.perf_counter()
         try:
             toolkit = get_algorithm(cfg.algorithm)(cfg, base_dir=base_dir, device=device)
             toolkit.init_graph()
+            t1 = time.perf_counter()
             toolkit.init_nn()
         finally:
             if prev is None:
                 os.environ.pop("NTS_SAMPLE_WORKERS", None)
             else:
                 os.environ["NTS_SAMPLE_WORKERS"] = prev
-        return cls(toolkit, ckpt, options=options, rng=rng)
+        t2 = time.perf_counter()
+        engine = cls(toolkit, ckpt, options=options, rng=rng)
+        if timings is not None:
+            timings.update(graph_s=t1 - t0, model_s=t2 - t1,
+                           restore_s=time.perf_counter() - t2)
+        return engine
 
     def _restore(self, ckpt_dir: str) -> None:
         from neutronstarlite_torch.utils.checkpoint import have_checkpoint

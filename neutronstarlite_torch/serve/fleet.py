@@ -42,8 +42,8 @@ dropped (latency honestly keeps the original ``t_submit``).
 
 Live graph deltas (``apply_delta``): one plan, every replica's engine
 swapped under its graph gate, per-replica cache invalidation and records
-(serve/delta.py). The cross-host hub's per-replica telemetry targets come
-with the cross-host serving slice.
+(serve/delta.py). Replicas as separate processes, routed over HTTP from
+scraped telemetry, are serve/crosshost.py.
 
 Telemetry: each replica owns its own MetricsRegistry (stream file,
 histograms, SLO engine) labeled ``r0..rN-1``; the exporter merges them

@@ -152,6 +152,12 @@ class InferenceServer:
         self._t_last: Optional[float] = None
         self.request_count = 0
         self._closed = False
+        # freshness lineage: every request span carries the graph version
+        # (delta-log seq) and the model version (checkpoint step) that
+        # answered it. The cross-host replica child wires its stream
+        # ingestor's applied seq here (0 for a static graph); None leaves
+        # graph_seq None, as for a standalone server
+        self.graph_seq_source = None  # () -> int | None
 
     # ---- request API -----------------------------------------------------
     def submit(self, node_ids, ctx=None) -> ServeRequest:
@@ -487,11 +493,17 @@ class InferenceServer:
         self._record(requests, reason, bucket, n_seeds, exec_ms, flush_id)
 
     def _lineage(self):
-        """(graph_seq, model_seq) for the freshness-lineage span fields: the
-        delta-log seq (None: in the reference only the cross-host replica
-        child wires its ingestor's seq here, and that slice is not ported)
-        and the checkpoint step that answered."""
-        return None, int(self.engine.ckpt_step)
+        """(graph_seq, model_seq) for the freshness-lineage span fields:
+        which delta-log seq and which checkpoint step answered. Never
+        raises: lineage is best-effort telemetry."""
+        graph_seq = None
+        if self.graph_seq_source is not None:
+            try:
+                v = self.graph_seq_source()
+                graph_seq = int(v) if v is not None else None
+            except Exception:
+                graph_seq = None
+        return graph_seq, int(self.engine.ckpt_step)
 
     def _record(self, requests: List[ServeRequest], reason: str,
                 bucket: Optional[int], n_seeds: int, exec_ms: float,

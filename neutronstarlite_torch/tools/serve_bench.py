@@ -4,6 +4,7 @@
 ``python -m neutronstarlite_torch.tools.serve_bench <cfg> [<ckpt_dir>]
 [--train] [--mode closed|open] [--clients C | --rps R] [--requests N]
 [--replicas N] [--cb 0|1] [--delta-rate R [--delta-edges K]] [--device cpu]``
+or ``... serve_bench --targets host:port,... [--v-num V] [--trace]``
 
 Drives the in-process serving stack (serve/server.py — or the
 multi-replica fleet, serve/fleet.py, with ``--replicas N``) on the CUDA
@@ -45,9 +46,19 @@ shed rate, replica count, delta rate and deltas applied — keyed by cfg
 fingerprint + load shape + the PRE-delta graph digest) is appended to the
 cross-run perf ledger.
 
-Left for the cross-host serving slice: ``--targets`` (replica processes
-behind the cross-host router) and ``--trace`` (the cross-process request
-trace join); each refuses, naming it.
+``--targets host:port,...`` drives already-running replica PROCESSES
+(serve/crosshost, e.g. the children of tools/serve_router) through the
+cross-host router instead of building an in-process server; cfg and ckpt
+are unused, ``--v-num`` is the seed-id space, and the latency comes from
+the router's merged fleet histograms (the replicas' side), with the
+clients' own submit -> answer p50/p95/p99 beside it (``client_*_ms``: the
+router and the wire included). Its ``kind=serve`` ledger row is
+keyed ``targets{N}``. ``--trace`` (targets mode) then merges the router's
+and the replicas' span streams (tools/trace_timeline's ``--fleet`` join;
+``--trace-dirs`` names them, default NTS_METRICS_DIR) and reports the
+complete-chain fraction and the router overhead's p50/p95/p99 (client
+latency minus the replica's summed stage time per traced request); the
+replicas must run with NTS_TRACE on.
 """
 
 from __future__ import annotations
@@ -65,8 +76,6 @@ import numpy as np
 from neutronstarlite_torch.utils.logging import get_logger
 
 log = get_logger("serve_bench")
-
-CROSS_HOST_SLICE = "the cross-host serving slice of the torch port"
 
 
 def ensure_checkpoint(cfg, base_dir: str, ckpt_dir: str, train: bool, device=None) -> None:
@@ -97,8 +106,9 @@ def ensure_checkpoint(cfg, base_dir: str, ckpt_dir: str, train: bool, device=Non
 
 
 def run_closed_loop(server, v_num: int, n_requests: int, clients: int,
-                    seeds_per_request: int, seed: int) -> int:
-    """C clients, each with one request outstanding; returns error count."""
+                    seeds_per_request: int, seed: int, done=None) -> int:
+    """C clients, each with one request outstanding; returns error count.
+    ``done`` (a list), when given, receives every request submitted."""
     counter = {"next": 0, "errors": 0}
     lock = threading.Lock()
 
@@ -110,6 +120,8 @@ def run_closed_loop(server, v_num: int, n_requests: int, clients: int,
                     return
                 counter["next"] += 1
             req = server.submit(rng.integers(0, v_num, seeds_per_request))
+            if done is not None:
+                done.append(req)
             try:
                 req.result(timeout=120.0)
             except Exception:
@@ -128,13 +140,15 @@ def run_closed_loop(server, v_num: int, n_requests: int, clients: int,
 
 
 def run_open_loop(server, v_num: int, n_requests: int, rps: float,
-                  seeds_per_request: int, seed: int) -> int:
-    """Fixed arrival rate; sheds count as completed-with-error."""
+                  seeds_per_request: int, seed: int, done=None, stop=None) -> int:
+    """Fixed arrival rate; sheds count as completed-with-error. ``stop`` (a
+    threading.Event), when given, ends the arrivals once set instead of
+    after ``n_requests``; ``done`` (a list) receives every request."""
     rng = np.random.default_rng(seed + 2000)
     interval = 1.0 / max(rps, 1e-6)
     pending = []
     t_next = time.perf_counter()
-    for _ in range(n_requests):
+    while (not stop.is_set()) if stop is not None else len(pending) < n_requests:
         now = time.perf_counter()
         if now < t_next:
             time.sleep(t_next - now)
@@ -142,6 +156,8 @@ def run_open_loop(server, v_num: int, n_requests: int, rps: float,
         pending.append(
             server.submit(rng.integers(0, v_num, seeds_per_request))
         )
+        if done is not None:
+            done.append(pending[-1])
     errors = 0
     for req in pending:
         try:
@@ -367,13 +383,152 @@ def measure(engine, options=None, replicas: int = 1, mode: str = "closed",
     }
 
 
+def client_latency_ms(requests) -> Dict[str, Any]:
+    """p50/p95/p99 of submit -> answer over the answered requests, in ms:
+    what a client of the router sees (the fleet histograms are the
+    replicas' own, without the router and the wire)."""
+    ms = [1e3 * (r.t_done - r.t_submit) for r in requests
+          if r.error is None and r.t_done is not None]
+    if not ms:
+        return {"p50": None, "p95": None, "p99": None}
+    q = np.percentile(np.asarray(ms), [50, 95, 99])
+    return {"p50": float(q[0]), "p95": float(q[1]), "p99": float(q[2])}
+
+
+def _run_targets_mode(args) -> int:
+    """Drive already-running replica processes through the cross-host
+    router (serve/crosshost): the same load loops over the same front door
+    (``submit()`` -> future), the latency from the router's merged fleet
+    histograms (the exact bucket-addition view)."""
+    from neutronstarlite_torch.serve.crosshost import CrossHostFleet
+
+    targets = [t.strip() for t in args.targets.split(",") if t.strip()]
+    if args.trace and not os.environ.get("NTS_METRICS_DIR"):
+        # the router's span stream must land somewhere readable: the
+        # post-run merge joins it with the replicas' streams by trace_id
+        os.environ["NTS_METRICS_DIR"] = tempfile.mkdtemp(
+            prefix="nts_serve_bench_trace_"
+        )
+    fleet = CrossHostFleet.from_targets(targets)
+    done: list = []
+    t0 = time.perf_counter()
+    try:
+        if args.mode == "closed":
+            errors = run_closed_loop(
+                fleet, args.v_num, args.requests, args.clients,
+                args.seeds_per_request, args.seed, done=done,
+            )
+        else:
+            errors = run_open_loop(
+                fleet, args.v_num, args.requests, args.rps,
+                args.seeds_per_request, args.seed, done=done,
+            )
+        wall_s = time.perf_counter() - t0
+    finally:
+        stats = fleet.close()
+    client = client_latency_ms(done)
+    trace_view: Dict[str, Any] = {}
+    if args.trace:
+        # merge the router's and the replicas' span streams (all processes
+        # share NTS_METRICS_DIR, or pass --trace-dirs) and derive each
+        # request's chain as trace_timeline --fleet does
+        from neutronstarlite_torch.tools.metrics_report import (
+            expand_paths,
+            load_events,
+        )
+        from neutronstarlite_torch.tools.trace_timeline import (
+            request_tracing_report,
+        )
+
+        dirs = (args.trace_dirs or
+                [os.environ.get("NTS_METRICS_DIR", "")])
+        merged = []
+        for p in expand_paths([d for d in dirs if d]):
+            try:
+                merged.extend(load_events(p))
+            except OSError as e:
+                log.warning("serve_bench --trace: cannot read %s (%s)", p, e)
+        rep = request_tracing_report(merged)
+        if rep is None:
+            log.warning("serve_bench --trace: no request traces found "
+                        "(is NTS_TRACE on in the replicas?)")
+        else:
+            trace_view = {
+                "trace_complete_frac": rep["complete_frac"],
+                "trace_chains": rep["n_traces"],
+                "router_overhead_p50_ms": rep["router_overhead_p50_ms"],
+                "router_overhead_p95_ms": rep["router_overhead_p95_ms"],
+                "router_overhead_p99_ms": rep["router_overhead_p99_ms"],
+            }
+    lat = stats["latency_ms"]
+    served = stats["requests"]
+    throughput = served / wall_s if wall_s > 0 else None
+    result = {
+        "metric": "serve_p99_latency_ms",
+        "value": lat.get("p99"),
+        "unit": "ms",
+        "vs_baseline": None,
+        "extra": {
+            "mode": args.mode,
+            "clients": args.clients if args.mode == "closed" else None,
+            "rps_offered": args.rps if args.mode == "open" else None,
+            "requests": args.requests,
+            "seeds_per_request": args.seeds_per_request,
+            "p50_ms": lat.get("p50"),
+            "p95_ms": lat.get("p95"),
+            "p99_ms": lat.get("p99"),
+            "client_p50_ms": client["p50"],
+            "client_p95_ms": client["p95"],
+            "client_p99_ms": client["p99"],
+            "throughput_rps": throughput,
+            "latency_source": "fleet_hist",
+            "served": served,
+            "shed": stats["shed"],
+            "errors": errors,
+            "restarts": stats["restarts"],
+            "targets": targets,
+            "replicas": stats["replicas"],
+            "targets_lost": stats["targets_lost"],
+            "wall_s": wall_s,
+            **trace_view,
+        },
+    }
+    # one kind=serve row (NTS_LEDGER_DIR): targets-mode runs share the
+    # serve trajectory keyed by the target count; with --trace the row
+    # carries router_overhead_* and trace_complete_frac
+    from neutronstarlite_torch.obs import ledger
+
+    if ledger.ledger_dir():
+        shed = stats["shed"]
+        total = served + shed
+        ledger.append_row(ledger.serve_row(
+            latency_ms=lat,
+            shed_rate=(shed / total) if total > 0 else None,
+            throughput_rps=throughput,
+            requests=args.requests,
+            cfg_fingerprint=f"targets{len(targets)}",
+            graph_digest=None,
+            mode=args.mode,
+            replicas=stats["replicas"],
+            continuous_batching=False,
+            extra={
+                "clients": args.clients if args.mode == "closed" else None,
+                "rps_offered": args.rps if args.mode == "open" else None,
+                **trace_view,
+            },
+        ))
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m neutronstarlite_torch.tools.serve_bench",
         description="closed/open-loop serving benchmark over the serve/ "
         "stack; prints one JSON line"
     )
-    ap.add_argument("cfg", help="cfg file")
+    ap.add_argument("cfg", nargs="?", default="",
+                    help="cfg file (unused in --targets mode)")
     ap.add_argument("ckpt", nargs="?", default="",
                     help="checkpoint dir (default: cfg CHECKPOINT_DIR, "
                     "or a temp dir with --train)")
@@ -404,13 +559,26 @@ def main(argv=None) -> int:
                     help="edge inserts per delta batch (the previous "
                     "batch is removed)")
     ap.add_argument("--targets", default=None,
-                    help="cross-host replica addresses (not in this port yet)")
+                    help="drive a cross-host fleet (serve/crosshost) at "
+                    "these replica addresses instead of an in-process "
+                    "server; cfg/ckpt are ignored")
+    ap.add_argument("--v-num", type=int, default=2708,
+                    help="seed-id space for --targets mode (the remote "
+                    "graph is not introspectable)")
     ap.add_argument("--trace", action="store_true",
-                    help="cross-process request tracing (not in this port yet)")
+                    help="targets mode: after the load, merge the router's "
+                    "and the replicas' span streams (trace_timeline --fleet "
+                    "join) and report the complete-chain fraction and the "
+                    "router overhead's p50/p95/p99 (needs NTS_TRACE on in "
+                    "the replicas)")
+    ap.add_argument("--trace-dirs", nargs="+", default=None,
+                    help="metrics dirs/files holding the fleet's span "
+                    "streams (default: NTS_METRICS_DIR)")
     args = ap.parse_args(argv)
-    for flag, used in (("--targets", bool(args.targets)), ("--trace", args.trace)):
-        if used:
-            ap.error(f"{flag} comes with {CROSS_HOST_SLICE}")
+    if args.targets:
+        return _run_targets_mode(args)
+    if not args.cfg:
+        ap.error("cfg is required without --targets")
     if args.cb is not None:
         os.environ["NTS_SERVE_CB"] = args.cb
     if args.route is not None:

@@ -13,6 +13,11 @@ tool's verdicts.
 
 Exit codes: 0 every checkpoint found is intact; 1 corruption or an
 unreadable input; 2 no checkpoint found.
+
+``preflight_checkpoint(root)`` is the rolling rollout's first gate
+(serve/crosshost.py): it verifies the one step a restore from ``root``
+would trust, the newest, and raises :class:`PreflightError` where the
+reference's does.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-from typing import List
+from typing import List, Tuple
 
 from neutronstarlite_torch.utils.checkpoint import (
     CORRUPT_SUFFIX,
@@ -29,6 +34,49 @@ from neutronstarlite_torch.utils.checkpoint import (
     list_steps,
     verify_step_dir,
 )
+
+
+class PreflightError(RuntimeError):
+    """A checkpoint root failed rollout preflight; carries the digest and
+    manifest problems (empty for "no checkpoint at all")."""
+
+    def __init__(self, msg: str, problems: List[str] = ()):  # type: ignore[assignment]
+        super().__init__(msg)
+        self.problems = list(problems)
+
+
+def preflight_checkpoint(root: str) -> Tuple[str, int]:
+    """Verify the checkpoint a restore from ``root`` would trust: the
+    newest retained ``step-<n>/`` (or a legacy flat layout). Returns
+    ``(step_dir, step)`` when it verifies; raises :class:`PreflightError`
+    when ``root`` holds no checkpoint or the newest step fails manifest or
+    sha256 verification.
+
+    It is stricter than restore on purpose: restore quarantines a corrupt
+    newest step and falls back to an older one, which is right for crash
+    recovery and wrong for a rollout, where the operator named one model
+    and a fallback would canary (and promote) another."""
+    if not os.path.isdir(root):
+        raise PreflightError(f"{root}: not a directory")
+    steps = list_steps(root)
+    if steps:
+        step_dir = steps[-1][1]  # list_steps sorts ascending by step
+    elif os.path.exists(os.path.join(root, MANIFEST)):
+        step_dir = root  # legacy flat layout / direct step dir
+    else:
+        raise PreflightError(
+            f"{root}: no checkpoint found (no step-*/ dirs, no {MANIFEST})"
+        )
+    try:
+        manifest, _status, _arrays = verify_step_dir(step_dir)
+    except CheckpointCorruptError as e:
+        raise PreflightError(
+            f"{step_dir}: failed digest/manifest verification",
+            problems=e.problems,
+        ) from e
+    except OSError as e:
+        raise PreflightError(f"{step_dir}: unreadable ({e})") from e
+    return step_dir, int(manifest.get("step", 0))
 
 
 def _verify_one(step_dir: str, quiet: bool) -> bool:

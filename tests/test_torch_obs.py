@@ -267,7 +267,9 @@ FLIGHT_CHAIN = (
 
 
 # the copies outside obs/: the graph and delta-trace generator, the delta log
-COPIED_ELSEWHERE = {"graph_gen": "tools", "log": "stream"}
+COPIED_ELSEWHERE = {"graph_gen": "tools", "log": "stream", "telemetry_hub": "tools",
+                    "metrics_report": "tools", "trace_timeline": "tools",
+                    "trace_summary": "tools"}
 # the one difference the log copy carries: its removal mask is the delta
 # module's binary search, in place of two np.isin calls
 LOG_REMOVAL = (
@@ -280,7 +282,8 @@ LOG_REMOVAL = (
 
 
 @pytest.mark.parametrize("name", ["hist", "schema", "flight", "slo", "skew", "graph_gen",
-                                  "log"])
+                                  "log", "httpc", "hub", "telemetry_hub", "metrics_report",
+                                  "trace_timeline", "trace_summary"])
 def test_copied_module_code_equals_the_original(name):
     """The copies differ from the originals only in their docstring's port
     note and the import paths (and flight in its SIGUSR2 chaining,

@@ -136,7 +136,10 @@ def test_unported_faults_are_refused(monkeypatch, text, slice_):
     and tests/test_torch_skew.py). So are the stream slice's
     ``writer_crash`` and its ``delta_commit`` and ``finetune_round`` points:
     each package fires them alike (tests/test_torch_stream.py runs the log's
-    crash and the worker's deaths end to end)."""
+    crash and the worker's deaths end to end). So are the cross-host
+    ``net_drop`` and ``slow_net`` at the ``http_fetch`` point: each package
+    refuses, sleeps or passes the same fetches (tests/test_torch_hub.py runs
+    them through the HTTP client). No kind or point is left to refuse."""
     monkeypatch.setenv("NTS_FAULT_SPEC", text)
     j_faults.parse_fault_spec(text)  # the reference runs it
     if slice_ == "obs slice":
@@ -199,9 +202,27 @@ def test_unported_faults_are_refused(monkeypatch, text, slice_):
         got, want = fire(faults), fire(j_faults)
         assert got == want and any(got), got
         return
-    # the HTTP fetch comes with the cross-host serving slice
-    with pytest.raises(ValueError, match="cross-host serving"):
-        faults.fault_point("epoch_loss", epoch=0, value=1.0)
+    assert slice_ == "serving"
+    slept = []
+    monkeypatch.setattr(time, "sleep", slept.append)
+
+    def fire(mod):
+        """What each http_fetch attempt does in turn under the spec: None,
+        ('refused', text) or ('slept', seconds)."""
+        mod.reset()
+        out = []
+        for target in (0, 1, None, 1):
+            del slept[:]
+            try:
+                mod.fault_point("http_fetch", target=target)
+                out.append(("slept", slept[0]) if slept else None)
+            except ConnectionRefusedError as e:
+                out.append(("refused", str(e)))
+        return out
+
+    got, want = fire(faults), fire(j_faults)
+    assert got == want and any(got), got
+    assert not hasattr(faults, "UNPORTED")
 
 
 def test_fault_point_without_spec_and_events_without_sink():

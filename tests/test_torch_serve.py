@@ -684,13 +684,37 @@ def test_serve_bench_trains_and_the_server_cli_serves_on_cpu(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "served 50 requests (shed 0, errors 0)" in proc.stdout
-    for flag in (["--targets", "127.0.0.1:1"], ["--trace"]):
-        bad = subprocess.run(
-            [sys.executable, "-m", "neutronstarlite_torch.tools.serve_bench", cfg,
-             "--device", "cpu"] + flag,
-            cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    # --targets and --trace: the same checkpoint served by a replica child
+    # process, driven through the cross-host router, its request chains
+    # joined across the two processes' span streams
+    tenv = dict(env, NTS_TRACE="1", NTS_METRICS_DIR=str(tmp_path / "fleet"))
+    port_file = tmp_path / "r0.port.json"
+    child = subprocess.Popen(
+        [sys.executable, "-m", "neutronstarlite_torch.serve.crosshost", cfg,
+         "--device", "cpu", "--port-file", str(port_file)],
+        cwd=REPO, env=tenv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        from neutronstarlite_torch.serve import crosshost
+
+        info = crosshost._wait_port_file(str(port_file), child, time.monotonic() + 120)
+        bench = subprocess.run(
+            [sys.executable, "-m", "neutronstarlite_torch.tools.serve_bench",
+             "--targets", f"127.0.0.1:{info['port']}", "--trace", "--requests", "20",
+             "--clients", "2"],
+            cwd=REPO, env=tenv, capture_output=True, text=True, timeout=300,
         )
-        assert bad.returncode == 2 and "cross-host serving slice" in bad.stderr, flag
+    finally:
+        child.terminate()
+        child.wait(timeout=60)
+    assert bench.returncode == 0, bench.stderr[-2000:]
+    extra = json.loads(bench.stdout.strip().splitlines()[-1])["extra"]
+    assert extra["served"] == 20 and extra["shed"] == 0 and extra["errors"] == 0
+    assert extra["latency_source"] == "fleet_hist" and extra["trace_chains"] == 20
+    assert 0 < extra["client_p50_ms"] <= extra["client_p95_ms"] <= extra["client_p99_ms"]
+    assert extra["trace_complete_frac"] == 1.0
+    rows = [r for r in ledger.read_rows(str(tmp_path / "ledger")) if r["kind"] == "serve"]
+    assert rows[-1]["cfg"].startswith("targets1|closed")
 
 
 def test_server_cli_without_a_card_refuses(tmp_path, monkeypatch):
