@@ -267,7 +267,8 @@ Phases (each prints its lines; any failure exits non-zero):
 20. the live graph and the stream (serve/delta.py, stream/; plain PyTorch,
    no kernel: both kernels' launch counts stay 0 through the phase), on
    phase 14's sampled GCN 602-128-41 bf16, FANOUT 25-10, trained one fused
-   epoch on phase 4's graph into a checkpoint and served from it (buckets
+   epoch on phase 9's graph (0.2 x --scale, for the time limit) into a
+   checkpoint and served from it (buckets
    1-4-16-64; see phase_live_graph): (a) engines in the sync, device and
    fused modes over one toolkit, a 256-row vertex margin reserved before
    warm-up, then an edge-only delta (64 inserts, 16 removals of existing
@@ -318,7 +319,30 @@ Phases (each prints its lines; any failure exits non-zero):
    net_drop@target=1,times=1 the dropped fetch retried and answered, and
    routed requests all answered; (g) both kernels' counts 0; (h) after
    close() no child process left (reaped, off nvidia-smi's list and its
-   memory freed).
+   memory freed);
+22. the measurement and audit tools (neutronstarlite_torch/tools), each
+   through its entry point in this process: (a) micro_bench at its own
+   shapes (--scale MICRO_SCALE 1.0: V 116,482, E 5,730,794, bf16), each op
+   timed alone with both kernels' counts set to 0 before it and read after:
+   every op has its ms and no error, bsp_streamed_bf16 launches bsp_ell and
+   pallas_ell_resident_bf16 (f 128) and pallas_ell_fchunked_602_bf16 (f
+   602) launch ell_level, the other nine ops neither; then each kernel op's
+   output against its plain version on the same inputs (BF16_TOL), and each
+   op's ms beside its bound and, for the aggregations, one torch.sparse.mm
+   on the same graph and width; (b) bench_sample at --scale 0.1
+   (TOOLS_SAMPLE_BATCHES timed batches); (c) sample_bench at its default
+   scale, TOOLS_SAMPLE_EPOCHS epochs, in the modes sync, pipelined and fused: sync and pipelined give
+   the same losses, fused moves no batch bytes; (d) bench_matrix --epochs
+   2 --warmup 1 over copies of configs/ in a temporary directory, each
+   CHECKPOINT_DIR moved into it (NTS_DIST_SIMULATE=1 for the dist smoke cfgs,
+   NTS_TUNE=measure for the tune smoke cfg): every row measured but those
+   whose cfg names a data file by an absolute path that is missing here
+   (the reference checkout's data), which fail with FileNotFoundError
+   naming it; (e) drift_audit over phase 19's streams
+   (its verdict; with NTS_QUANT_TOL=1e-4 the bf16 ring's measured wire
+   error is drift: exit 3, wire_quant_rel_err); (f) perf_sentinel check and
+   list-keys over the ledger rows phases 13 and 21 wrote; (g) dashboard
+   renders phase 21's router stream (its hub polls) and ledger to HTML.
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -355,6 +379,7 @@ import json
 import logging
 import math
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -2172,6 +2197,22 @@ def read_stream(d: str) -> list:
         return [json.loads(line) for line in fh if line.strip()]
 
 
+def keep(results, name: str, *paths) -> None:
+    """Copy files or directories a phase made into the run's kept directory
+    (``results["kept"]``, which phase 22 reads), before the phase removes
+    its own work directory. Without a kept directory (a phase driven alone)
+    nothing is copied."""
+    if "kept" not in results:
+        return
+    dst = os.path.join(results["kept"], name)
+    os.makedirs(dst, exist_ok=True)
+    for p in paths:
+        if os.path.isdir(p):
+            shutil.copytree(p, os.path.join(dst, os.path.basename(p)), dirs_exist_ok=True)
+        elif os.path.exists(p):
+            shutil.copy2(p, dst)
+
+
 def span_tree(recs) -> list:
     spans = [r for r in recs if r["event"] == "span"]
     names = {s["span_id"]: s["name"] for s in spans}
@@ -2496,6 +2537,7 @@ def phase_obs(dev, g, seed: int, results) -> None:
             else:
                 os.environ[k] = val
         events.set_sink(None)
+        keep(results, "ledger13", f"{work}/ledger")
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
     if failures:
@@ -4520,6 +4562,7 @@ def phase_elastic(dev, g, seed: int, results, scale: float) -> None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = val
+        keep(results, "phase19", *(os.path.join(tmp, d) for d in ("a_obs", "c_obs", "d_obs")))
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
 
@@ -4558,7 +4601,7 @@ class _HeldServers:
             server.close()
 
 
-def phase_live_graph(dev, g, seed: int, results) -> None:
+def phase_live_graph(dev, seed: int, results, scale: float) -> None:
     """Phase 20: graph deltas under running engines, servers and a fleet,
     the delta log, stream ingest with its capacity margin and the fine-tune
     worker, on the card (see the module docstring, item 20). A failed check
@@ -4584,8 +4627,10 @@ def phase_live_graph(dev, g, seed: int, results) -> None:
     from neutronstarlite_torch.utils.config import InputInfo
 
     t_phase = time.perf_counter()
-    src, dst = results["edges"]
-    datum = results["datum"]
+    # on phase 9's graph (0.2 x --scale): at --scale each delta's host plan
+    # and apply take 6-9 s, and the script must stay inside its time limit
+    src, dst, datum = ggcn_graph(0.2 * scale, seed)
+    g = build_graph(src, dst, datum.feature.shape[0])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -5386,10 +5431,305 @@ def phase_crosshost(dev, g, seed: int, results) -> None:
             else:
                 os.environ[k] = val
         faults.reset()
+        keep(results, "ledger21", ledger_dir)
+        keep(results, "phase21", os.path.join(work, "router.jsonl"))
         shutil.rmtree(work, ignore_errors=True)
         if ckpt is not None:
             shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
     log(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    results["failures"].extend(failures)
+
+
+# phase 22: the measurement and audit tools (see the module docstring, item 22)
+MICRO_SCALE = 1.0  # micro_bench's own shapes: V 116,482, E 5,730,794
+MICRO_ITERS = 3
+TOOLS_SAMPLE_BATCHES = 2  # bench_sample's timed batches (its default 60)
+TOOLS_SAMPLE_EPOCHS = 2  # sample_bench's epochs per mode (its default 3)
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+
+
+def micro_bound_ms(name: str, v: int, e: int, c: int) -> tuple:
+    """(bytes ms, operations ms) of micro_bench op ``name`` at V=v, E=e:
+    each input read once and each output written once over 3.35 TB/s, the
+    operations over the card's peak for their type. Aggregations:
+    obs/cost.aggregation_cost; the edge ops (forward and the gradient with
+    respect to h, which is the transposed aggregation of 2 * out): ids E*8 B,
+    x, the two score inputs (c channels) and the gradient, against 4*E*f
+    multiply-adds plus 5*E*c for score and softmax, in f32."""
+    from neutronstarlite_torch.obs.cost import aggregation_cost
+    from neutronstarlite_torch.tools.micro_bench import F, F_WIDE
+
+    if name == "matmul_bf16_602x128":
+        moved, ops, peak = (v * F_WIDE + F_WIDE * F + v * F) * 2, 2.0 * v * F_WIDE * F, BF16_FLOPS
+    elif name == "hbm_stream_f32_64MB":
+        moved, ops, peak = 2 * (8 << 20) * 4, float(8 << 20), F32_FLOPS
+    elif name == "row_gather_bf16":
+        moved, ops, peak = v * F * 2 + e * 8 + e * F * 2, 0.0, F32_FLOPS
+    elif name.startswith("edge_"):
+        moved = e * 8 + 2 * v * F * 2 + 2 * v * c * (4 if c == 1 else 2)
+        ops, peak = 4.0 * e * F + 5.0 * e * c, F32_FLOPS
+    else:
+        ops, moved = aggregation_cost(e, v, F_WIDE if "602" in name else F, 2)
+        peak = F32_FLOPS
+    return moved / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+
+
+def run_tool(main_fn, argv, **env):
+    """A tool's entry point in this process with ``env`` set for the call:
+    (exit code, its last JSON line or None, seconds). Its stdout is kept
+    from the log; its stderr passes through. The whole environment is put
+    back afterwards, whatever the tool changed."""
+    saved = dict(os.environ)
+    os.environ.update(env)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main_fn(argv)
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    return rc, (json.loads(lines[-1]) if lines else None), time.perf_counter() - t0
+
+
+def phase_tools(dev, seed: int, results, micro_scale: float = MICRO_SCALE) -> None:
+    """Phase 22: the tools on the card (module docstring, item 22). On a CPU
+    ``dev`` (a dry run) every tool gets --device cpu. A failed check prints
+    FAILED and fails the run at the end."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch.ops.bsp_ell import bsp_tables_aggregate
+    from neutronstarlite_torch.tools import (bench_matrix, bench_sample, dashboard,
+                                             drift_audit, micro_bench, perf_sentinel,
+                                             sample_bench)
+
+    t_phase = time.perf_counter()
+    failures = []
+    cuda = dev.type == "cuda"
+    dev_args = [] if cuda else ["--device", "cpu"]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def check(name, ok, detail=""):
+        if not ok:
+            failures.append(f"phase 22 {name}: {detail}")
+            log(f"FAILED {failures[-1]}")
+
+    kept = results.get("kept", "")  # what phases 13, 19 and 21 kept
+    work = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        # ---- (a) micro_bench at its own shapes ----------------------------------------
+        t0 = time.perf_counter()
+        v, e = micro_bench.shapes(micro_scale)
+        bench = micro_bench.MicroBench(v, e, 7, dev)
+        ops, launches = {}, {}
+        for name, needs, _, _ in bench.ops():
+            for k in needs:  # the host builds stay outside the counted run
+                bench.need(k)
+            zero_launches()
+            out = micro_bench.run(bench, [name], MICRO_ITERS)
+            sync()
+            launches[name] = kernel_launches()
+            ops[name] = out["ops"][name]
+        check("(a) platform", out["platform"] == ("gpu" if cuda else "cpu"), out["platform"])
+        for name, rec in ops.items():
+            check(f"(a) {name} timed", "error" not in rec and rec.get("ms", 0) > 0, rec)
+            kernel = micro_bench.KERNEL_OPS.get(name)
+            want = {k: (k == kernel) for k in ("ell_level", "bsp_ell")}
+            got = {k: n > 0 for k, n in launches[name].items()}
+            check(f"(a) {name} launches", got == want, f"{launches[name]} (want {want})")
+        g = bench.need("g")
+        errs = {}
+        for name, kernel in micro_bench.KERNEL_OPS.items():
+            x = bench.need("xw" if "602" in name else "x")
+            got = bench.op(name)(1.0)
+            plain = (bsp_tables_aggregate(bench.need("bsp").fwd, x) if kernel == "bsp_ell"
+                     else bench.need("ell").fwd.plain(x))
+            sync()
+            try:
+                errs[name] = check_close(f"(a) {name}", got, plain, BF16_TOL)
+            except AssertionError as exc:
+                check(f"(a) {name} against its plain version", False, str(exc))
+            del got, plain
+        library = {}
+        if cuda:
+            a = torch.sparse_csr_tensor(
+                torch.from_numpy(g.column_offset).to(dev),
+                torch.from_numpy(g.row_indices.astype(np.int64)).to(dev),
+                torch.from_numpy(g.edge_weight_forward).to(dev, torch.bfloat16), size=(v, v))
+            for f, key in ((micro_bench.F, "x"), (micro_bench.F_WIDE, "xw")):
+                library[f] = cuda_ms(lambda: torch.sparse.mm(a, bench.need(key)))
+            del a
+        log(f"(a) micro_bench V={v} E={e} bf16, median of {MICRO_ITERS} after {micro_bench.WARMUP} warm-up "
+            f"(CUDA events), built and timed in {time.perf_counter() - t0:.1f} s:")
+        for name, rec in ops.items():
+            b_ms, o_ms = micro_bound_ms(name, v, e, micro_bench.F if "ggcn" in name else 1)
+            f = micro_bench.F_WIDE if "602" in name or name.startswith("matmul") else \
+                micro_bench.F
+            lib = library.get(f) if name in (
+                "ell_aggregate_xla_bf16", "sorted_scatter_bf16", "bsp_streamed_bf16",
+                "pallas_ell_resident_bf16", "pallas_ell_fchunked_602_bf16") else None
+            rate = (f"{rec['tflops']} TFLOP/s" if "tflops" in rec
+                    else f"apparent {rec.get('apparent_gbs')} GB/s")
+            log(f"(a)   {name:30s} {rec.get('ms', float('nan')):9.4f} ms  bound "
+                f"{max(b_ms, o_ms):.4f} ms ({'bytes' if b_ms >= o_ms else 'operations'}; "
+                f"bytes {b_ms:.4f}, ops {o_ms:.4f})  {rate}  torch.sparse.mm "
+                f"{'-' if lib is None else f'{lib:.4f} ms'}  launches {launches[name]}"
+                + (f"  max abs err vs plain {errs[name]:.3e}" if name in errs else ""))
+        results["micro_bench"] = ops
+        del bench, g
+        if cuda:
+            torch.cuda.empty_cache()
+
+        cache = os.path.join(work, "bench_cache")
+        # ---- (b) bench_sample at 0.1 ------------------------------------------------------
+        rc, out, secs = run_tool(bench_sample.main, ["--scale", "0.1", "--batches",
+                                                     str(TOOLS_SAMPLE_BATCHES), "--warmup", "1"]
+                                 + dev_args, NTS_BENCH_CACHE=cache)
+        ex = (out or {}).get("extra", {})
+        check("(b) bench_sample", rc == 0 and out is not None and out["value"] > 0
+              and math.isfinite(ex.get("final_loss", float("nan"))), (rc, out))
+        log(f"(b) bench_sample at 0.1 (V={ex.get('v_num')} E={ex.get('e_num')}, B 512, "
+            f"fanout 25-10, f32, {TOOLS_SAMPLE_BATCHES} batches) in {secs:.1f} s: median "
+            f"batch {(out or {}).get('value')} s (sample {ex.get('sample_s_median')} s, "
+            f"device+pad {ex.get('device_pad_s_median')} s), {ex.get('edge_slots_per_sec')} "
+            f"edge slots/s, epoch extrapolated {ex.get('epoch_s_extrapolated')} s, final "
+            f"loss {ex.get('final_loss')}; graph cache built in "
+            f"{ex.get('graph_cache_build_s')} s, trainer in {ex.get('build_s')} s")
+
+        # ---- (c) sample_bench, three modes -----------------------------------------------
+        rc, out, secs = run_tool(sample_bench.main, ["--modes", "sync,pipelined,fused",
+                                                     "--epochs", str(TOOLS_SAMPLE_EPOCHS)]
+                                 + dev_args, NTS_BENCH_CACHE=cache)
+        ex = (out or {}).get("extra", {})
+        modes = ex.get("modes", {})
+        check("(c) sample_bench", rc == 0 and set(modes) == {"sync", "pipelined", "fused"},
+              (rc, out))
+        check("(c) sync and pipelined losses equal",
+              ex.get("sync_pipelined_loss_parity") is True, ex)
+        check("(c) fused moves no batch bytes",
+              (modes.get("fused") or {}).get("sample_h2d_bytes_total") == 0.0, modes.get("fused"))
+        for m, r in modes.items():
+            check(f"(c) {m} finite", all(math.isfinite(x) for x in r["loss_history"])
+                  and (r["batches_per_sec"] or 0) > 0, r)
+            log(f"(c) sample_bench {m} at 0.02 (V={ex.get('v_num')}): warm epoch "
+                f"{r['warm_epoch_s']} s, {r['batches_per_sec']} batches/s, losses "
+                f"{[round(x, 6) for x in r['loss_history']]}, stall ms "
+                f"{r['sample_stall_ms_total']}, h2d bytes {r['sample_h2d_bytes_total']}, "
+                f"dispatches {r['dispatches']}")
+        log(f"(c) sample_bench in {secs:.1f} s: sync == pipelined "
+            f"{ex.get('sync_pipelined_loss_parity')}, fused vs sync max loss gap "
+            f"{ex.get('fused_sync_loss_maxdiff')}")
+
+        # ---- (d) bench_matrix over configs/ ----------------------------------------------
+        # over copies in the work dir, each CHECKPOINT_DIR (the elastic
+        # smoke's names a fixed path) moved into it; ../tests resolves to the
+        # repo's fixtures, and ../data to what prep makes in the work dir
+        cfgs = os.path.join(work, "configs")
+        os.makedirs(cfgs)
+        os.symlink(os.path.join(REPO, "tests"), os.path.join(work, "tests"))
+        for path in glob.glob(os.path.join(REPO, "configs", "*.cfg")):
+            with open(path) as fh:
+                text = re.sub(r"^CHECKPOINT_DIR:\S+", "CHECKPOINT_DIR:"
+                              + os.path.join(work, "ck", os.path.basename(path)), fh.read(),
+                              flags=re.M)
+            with open(os.path.join(cfgs, os.path.basename(path)), "w") as fh:
+                fh.write(text)
+        rc, out, secs = run_tool(bench_matrix.main, ["--configs", cfgs, "--epochs", "2",
+                                                     "--warmup", "1"] + dev_args,
+                                 NTS_DIST_SIMULATE="1", NTS_TUNE="measure",
+                                 NTS_TUNE_DIR=os.path.join(work, "tune"))
+        rows = (out or {}).get("rows", [])
+        check("(d) bench_matrix", rc == 0 and rows, (rc, out))
+        for r in rows:
+            # the cfgs that read the reference checkout's data name it by an
+            # absolute path; relative ones are the repo's or prep's
+            with open(os.path.join(cfgs, r["workload"] + ".cfg")) as fh:
+                missing = [p for p in re.findall(r"^\w+_FILE:(\S+)", fh.read(), re.M)
+                           if os.path.isabs(p) and not os.path.exists(p)]
+            if missing:
+                check(f"(d) {r['workload']} fails on its missing data",
+                      str(r.get("error", "")).startswith("FileNotFoundError")
+                      and any(p in r["error"] for p in missing), r)
+            else:
+                check(f"(d) {r['workload']} measured", r.get("epoch_s") is not None
+                      and r.get("loss") is not None and math.isfinite(r["loss"]), r)
+            log(f"(d) {r['workload']:26s} " + (
+                f"{r['algorithm']:16s} epoch {r['epoch_s'] * 1e3:9.3f} ms, first "
+                f"{r['first_epoch_s']} s, build {r['build_s']} s, loss {r['loss']:.6f}"
+                if r.get("epoch_s") is not None else f"error {r.get('error')}"))
+        log(f"(d) bench_matrix: {sum(r.get('epoch_s') is not None for r in rows)} of "
+            f"{len(rows)} rows measured in {secs:.1f} s")
+
+        # ---- (e) drift_audit over phase 19's streams ---------------------------------------
+        streams = sorted(glob.glob(os.path.join(kept, "phase19", "*_obs")))
+        check("(e) phase 19's streams", len(streams) == 3, streams)
+        if streams:
+            rc, _, _ = run_tool(drift_audit.main, streams + ["--no-flag", "--json"])
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                drift_audit.main(streams + ["--no-flag"])
+            check("(e) drift_audit verdict", rc in (0, 3), rc)
+            drift_recs = 0
+            for path in glob.glob(os.path.join(kept, "phase19", "*_obs", "*.jsonl")):
+                with open(path) as fh:
+                    drift_recs += sum('"model_drift"' in line for line in fh)
+            log(f"(e) drift_audit over phase 19's streams: exit {rc}: "
+                f"{buf.getvalue().strip()} ({drift_recs} model_drift records in the streams)")
+            quant = [s_ for s_ in streams if s_.endswith("d_obs")]
+            rc, out, _ = run_tool(drift_audit.main, quant + ["--no-flag", "--json"],
+                                  NTS_QUANT_TOL="1e-4")
+            qd = [d for d in (out or {}).get("drift", []) if d["source"] == "wire_quant"]
+            check("(e) NTS_QUANT_TOL=1e-4 finds the bf16 wire's error", rc == 3 and qd
+                  and qd[0]["metric"] == "wire_quant_rel_err", (rc, out))
+            log(f"(e) with NTS_QUANT_TOL=1e-4 over phase 19 (d): exit {rc}, measured wire "
+                f"quant error {qd[0]['observed'] if qd else None}")
+
+        # ---- (f) perf_sentinel over phases 13 and 21's ledger rows ---------------------------
+        led = os.path.join(work, "ledger")
+        os.makedirs(led)
+        parts = sorted(glob.glob(os.path.join(kept, "ledger13", "*", "*.jsonl"))
+                       + glob.glob(os.path.join(kept, "ledger21", "*", "*.jsonl")))
+        with open(os.path.join(led, "ledger.jsonl"), "w") as fh:
+            for part in parts:
+                with open(part) as src_fh:
+                    fh.write(src_fh.read())
+        check("(f) ledger rows kept", parts, kept)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc_check, _, _ = run_tool(perf_sentinel.main, ["check", "--ledger", led])
+            rc_fleet, _, _ = run_tool(perf_sentinel.main, ["check", "--ledger", led,
+                                                           "--kind", "fleet"])
+        rc_keys, keys, _ = run_tool(perf_sentinel.main, ["list-keys", "--ledger", led,
+                                                         "--json"])
+        check("(f) perf_sentinel", rc_check in (0, 2) and rc_fleet in (0, 2) and rc_keys == 0,
+              (rc_check, rc_fleet, rc_keys, err.getvalue()[-500:]))
+        log(f"(f) perf_sentinel over {len(parts)} ledger files: check (run) exit {rc_check}, "
+            f"(fleet) exit {rc_fleet}; list-keys "
+            f"{[(k['kind'], k['rows']) for k in (keys or {}).get('keys', [])]}; "
+            + " | ".join(ln for ln in err.getvalue().splitlines() if ln.strip())[-600:])
+
+        # ---- (g) the dashboard over phase 21's hub stream ------------------------------------
+        hub = glob.glob(os.path.join(kept, "phase21", "router.jsonl"))
+        check("(g) phase 21's router stream", hub, kept)
+        if hub:
+            html_path = os.path.join(work, "dashboard.html")
+            rc, _, _ = run_tool(dashboard.main, ["--stream", hub[0], "--ledger", led, "--out",
+                                                 html_path])
+            doc = open(html_path).read() if os.path.exists(html_path) else ""
+            model = dashboard.fabric_model(dashboard.load_stream_events(hub))
+            check("(g) dashboard", rc == 0 and doc.startswith("<!doctype html>")
+                  and "fleet topology" in doc and model["polls"] > 0, (rc, len(doc)))
+            log(f"(g) dashboard: exit {rc}, {len(doc)} bytes of HTML from phase 21's router "
+                f"stream ({model['polls']} hub polls, {len(model['targets'])} targets); "
+                f"{dashboard.watch_line(model)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
     results["failures"].extend(failures)
 
 
@@ -5434,6 +5774,8 @@ def main(argv=None) -> int:
 
     check_errs = timed("3", phase_kernel_checks, dev, args.seed)
     g, results = timed("4", phase_main_path, dev, args.scale, args.epochs, args.seed)
+    # what phases 13, 19 and 21 leave for phase 22 (their streams and ledger rows)
+    results["kept"] = tempfile.mkdtemp(prefix="chip_smoke_kept_")
     timed("5", phase_cora_cli, dev)
     rows = timed("6", phase_timing, dev, g, results, check_errs, args.seed)
     for route in ("bsp", "ell"):  # free the GCN trainers' tables
@@ -5454,8 +5796,10 @@ def main(argv=None) -> int:
     timed("17", phase_mirror, dev, g, args.seed, results, ggcn_chain, args.scale)
     timed("18", phase_tune, dev, g, args.seed, results, args.scale)
     timed("19", phase_elastic, dev, g, args.seed, results, args.scale)
-    timed("20", phase_live_graph, dev, g, args.seed, results)
+    timed("20", phase_live_graph, dev, args.seed, results, args.scale)
     timed("21", phase_crosshost, dev, g, args.seed, results)
+    timed("22", phase_tools, dev, args.seed, results)
+    shutil.rmtree(results.pop("kept"), ignore_errors=True)
     faulthandler.cancel_dump_traceback_later()
     log(f"seconds per phase: {dict(spent)}")
     if results["failures"]:

@@ -35,6 +35,19 @@ class GNNDatum:
     mask: np.ndarray  # [V] int32 in {0=train, 1=val, 2=test}
 
     @staticmethod
+    def random_generate(
+        v_num: int, feature_size: int, label_num: int, seed: int = 0
+    ) -> "GNNDatum":
+        """Deterministic stand-in data (reference: random_generate): the JAX
+        loader's ``default_rng(seed)`` draws in its order, so the arrays are
+        bitwise the reference's."""
+        rng = np.random.default_rng(seed)
+        feature = rng.standard_normal((v_num, feature_size), dtype=np.float32) * 0.1
+        label = rng.integers(0, label_num, size=v_num, dtype=np.int32)
+        mask = (np.arange(v_num) % 3).astype(np.int32)
+        return GNNDatum(feature=feature, label=label, mask=mask)
+
+    @staticmethod
     def read_feature_label_mask(
         feature_file: str,
         label_file: str,

@@ -553,6 +553,13 @@ class ToolkitBase:
                 "acc": result.get("acc"),
                 "avg_epoch_s": result.get("avg_epoch_s"),
             }
+        # the prediction-drift audit (tools/drift_audit): the wire pricing
+        # against the live counters and the measured wire quant error
+        # against NTS_QUANT_TOL, as model_drift records before the summary
+        # (NTS_DRIFT_AUDIT=0 disables; never raises)
+        from neutronstarlite_torch.tools.drift_audit import audit_registry
+
+        audit_registry(self.metrics, len(self.epoch_times))
         self.run_summary_record = self.metrics.run_summary(**fields)
         self._append_ledger_row()
         self.metrics.close()

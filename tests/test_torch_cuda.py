@@ -855,3 +855,51 @@ def test_cuda_tuner_measures_and_replays_on_the_card(cuda_device, monkeypatch, t
             assert gauges["tune.trial_peak_bytes"] > 0
         assert np.isfinite(tr.run()["loss"])
     assert picks[0][1] == "measured" and picks[1] == (picks[0][0], "cached")
+
+
+@pytest.mark.parametrize("name", ["bsp_streamed_bf16", "pallas_ell_resident_bf16",
+                                  "pallas_ell_fchunked_602_bf16"])
+def test_cuda_micro_bench_kernel_ops_launch_and_match_plain(cuda_device, name):
+    """micro_bench's three kernel ops at a small shape: each launches its
+    kernel (its wrapper's counter rises) and equals its plain version on the
+    same card at the bf16 tolerance."""
+    from neutronstarlite_torch.tools import micro_bench
+
+    bench = micro_bench.MicroBench(3000, 60000, 7, cuda_device)
+    counter = {"bsp_ell": t_bsp.bsp_aggregate, "ell_level": t_ellk.ell_level_aggregate}[
+        micro_bench.KERNEL_OPS[name]]
+    before = counter.launches
+    got = bench.op(name)(1.0)
+    torch.cuda.synchronize()
+    assert counter.launches > before
+    x = bench.need("xw" if "602" in name else "x")
+    if name.startswith("bsp"):
+        want = t_bsp.bsp_tables_aggregate(bench.need("bsp").fwd, x)
+    else:
+        want = bench.need("ell").fwd.plain(x)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    out = micro_bench.run(bench, [name], iters=2)
+    assert out["platform"] == "gpu" and out["ops"][name]["ms"] > 0
+
+
+def test_cuda_bitmap_and_nbr_table_equal_the_cpu(cuda_device):
+    from neutronstarlite_torch.ops.aggregate import ScatterGraph
+    from neutronstarlite_torch.ops.edge_tensor import NbrTable
+    from neutronstarlite_torch.utils.bitmap import VertexSubset, process_vertices
+
+    rng = np.random.default_rng(3)
+    src = rng.integers(0, V, 2000).astype(np.uint32)
+    dst = rng.integers(0, V, 2000).astype(np.uint32)
+    g = build_graph(src, dst, V)
+    x = torch.from_numpy(rng.standard_normal((V, 8)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        tab = NbrTable.build(g, cap=6, device=dev)
+        blocks = tab.vertex_view(ScatterGraph.from_host(g, device=dev), x.to(dev))
+        active = VertexSubset.of(V, [1, 5, 7, 200], device=dev).union(
+            VertexSubset.of(V, [9], device=dev))
+        out[str(dev)] = (tab.reduce_sum(blocks).cpu(),
+                         process_vertices(lambda i: x.to(dev)[i, 0], active, "max").cpu())
+    a, b = out.values()
+    torch.testing.assert_close(a[0], b[0], **F32_TOL)
+    assert a[1].item() == b[1].item()

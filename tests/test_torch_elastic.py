@@ -224,6 +224,28 @@ def test_rank_loss_replans_to_survivors_and_finishes_as_jax(rig, jax_e2e, tmp_pa
     assert any(s["name"] == "replan" for s in _of(evs, "span"))
 
 
+def test_replanned_run_leaves_jax_model_drift_record(rig, jax_e2e, tmp_path, monkeypatch):
+    """The drift audit in ``finalize_metrics``: after the 4 -> 3 replan the
+    wire gauge prices the last plan while the counter sums both plans'
+    epochs, so JAX's run leaves a ``wire_accounting`` model_drift record
+    before its run_summary; the port's run leaves the same record, field by
+    field."""
+    _e2e_env(monkeypatch, tmp_path / "obs")
+    cfg = _cfg(InputInfo, checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=1)
+    supervised_run(_port(cfg, rig, jax_e2e["params0"]))
+    keys = ("metric", "source", "predicted", "observed", "drift", "threshold")
+
+    def drifts(evs):
+        kinds = [e["event"] for e in evs]
+        for e in _of(evs, "model_drift"):
+            assert "run_summary" in kinds[kinds.index("model_drift"):]
+        return [{k: e[k] for k in keys} for e in _of(evs, "model_drift")]
+
+    want = drifts(jax_e2e["evs"])
+    assert [d["source"] for d in want] == ["wire_accounting"]
+    assert drifts(_stream(tmp_path / "obs")) == want
+
+
 def test_replan_equivalence_oracle_bitwise(rig, tmp_path):
     """``test_elastic.py:172``: a 4-partition trainer replanned to 3 and
     resumed from the step-3 checkpoint against a fresh P'=3 run from a copy

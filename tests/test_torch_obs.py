@@ -269,7 +269,8 @@ FLIGHT_CHAIN = (
 # the copies outside obs/: the graph and delta-trace generator, the delta log
 COPIED_ELSEWHERE = {"graph_gen": "tools", "log": "stream", "telemetry_hub": "tools",
                     "metrics_report": "tools", "trace_timeline": "tools",
-                    "trace_summary": "tools"}
+                    "trace_summary": "tools", "drift_audit": "tools",
+                    "perf_sentinel": "tools", "dashboard": "tools"}
 # the one difference the log copy carries: its removal mask is the delta
 # module's binary search, in place of two np.isin calls
 LOG_REMOVAL = (
@@ -279,15 +280,22 @@ LOG_REMOVAL = (
      "            )\n        mask = ~np.isin(keys, rm)\n"
      "    src = np.concatenate([old_src[mask], delta.add_src])"),
 )
+# the one difference the sentinel copy carries: the close of one comment,
+# where the reference's names its tracker entry
+with open(os.path.join(REPO, "neutronstarlite_tpu", "tools", "perf_sentinel.py")) as _fh:
+    SENTINEL_NOTE = (("        # instead of gating (the sentinel's contract for this leg)\n",
+                      next(ln for ln in _fh if ln.startswith("        # instead of gating ("))),)
 
 
 @pytest.mark.parametrize("name", ["hist", "schema", "flight", "slo", "skew", "graph_gen",
                                   "log", "httpc", "hub", "telemetry_hub", "metrics_report",
-                                  "trace_timeline", "trace_summary"])
+                                  "trace_timeline", "trace_summary", "drift_audit",
+                                  "perf_sentinel", "dashboard"])
 def test_copied_module_code_equals_the_original(name):
     """The copies differ from the originals only in their docstring's port
     note and the import paths (and flight in its SIGUSR2 chaining,
-    ``FLIGHT_CHAIN``, the log in its removal mask, ``LOG_REMOVAL``)."""
+    ``FLIGHT_CHAIN``, the log in its removal mask, ``LOG_REMOVAL``, the
+    sentinel in one comment, ``SENTINEL_NOTE``)."""
     sub = COPIED_ELSEWHERE.get(name, "obs")
     def body(path, pkg, diffs=()):
         with open(path) as fh:
@@ -300,7 +308,8 @@ def test_copied_module_code_equals_the_original(name):
 
     t = body(os.path.join(REPO, "neutronstarlite_torch", sub, f"{name}.py"),
              "neutronstarlite_torch",
-             {"flight": FLIGHT_CHAIN, "log": LOG_REMOVAL}.get(name, ()))
+             {"flight": FLIGHT_CHAIN, "log": LOG_REMOVAL,
+              "perf_sentinel": SENTINEL_NOTE}.get(name, ()))
     j = body(os.path.join(REPO, "neutronstarlite_tpu", sub, f"{name}.py"),
              "neutronstarlite_tpu")
     assert t == j
