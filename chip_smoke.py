@@ -96,7 +96,7 @@ Phases (each prints its lines; any failure exits non-zero):
    final train accuracy (the sync sampler's evaluation pass) must sit
    within SAMPLED_ACC_ATOL of sync's; (a) sync, its batch count, epoch
    times and stage split (sample_wait, step_dispatch, step_device); (b)
-   pipelined with 4 spawned sampling workers, its losses and parameters
+   pipelined with 4 sampling threads, its losses and parameters
    against (a)'s bitwise (else against the spread of two sync runs) and its
    sample_wait against (a)'s; (c) device, its first-epoch loss within
    SAMPLED_LOSS_ATOL of (a)'s, epoch times and peak memory; (d) fused, 3
@@ -342,7 +342,25 @@ Phases (each prints its lines; any failure exits non-zero):
    (its verdict; with NTS_QUANT_TOL=1e-4 the bf16 ring's measured wire
    error is drift: exit 3, wire_quant_rel_err); (f) perf_sentinel check and
    list-keys over the ledger rows phases 13 and 21 wrote; (g) dashboard
-   renders phase 21's router stream (its hub polls) and ledger to HTML.
+   renders phase 21's router stream (its hub polls) and ledger to HTML;
+23. the native host runtime and the capacity tools: (a) the native library
+   (built at the run's start with the host compiler; its seconds); (b) at
+   --scale, phase 4's edge list built natively and with NumPy (their
+   seconds, graph_digest equal, the native weights bitwise the float32
+   formula and within NATIVE_WEIGHT_ULPS of the NumPy build's), the ELL,
+   bsp and blocked tables from the native graph both ways (their seconds,
+   bitwise equal), ell_level and bsp_ell once each at f PHASE23_F bf16 on
+   the native tables against their plain versions (BF16_TOL), and a GCN
+   epoch-0 loss on the native graph within 1e-3 of the NumPy graph's; (c)
+   phase 22 (b)'s bench_sample, whose batches must have been drawn by the
+   native sample_hop (its call count), beside PR 18's NumPy sampler; (d)
+   tools/aot_check on phase 4's cfg for both kernel routes, trainers built
+   on the CPU: the predicted step peak within PHASE23_PEAK_BAND of the
+   route's own peak in phase 4, every launch check passed; and one rank of
+   phase 15's GCNDIST (P=DIST_P, ELL) on the bench graph, which must fit;
+   (e) tools/aot_bsp_scale --scale 10 with its launch on the card,
+   and tools/roofline through tools/tpu_plan's runner (--list, then the
+   roofline step, which leaves its .ok marker) against phase 4's epochs.
 
 The bound of one aggregation is the same for both kernels, taken from the
 graph: the bytes it must move (E int32 indices and f32 weights, V+1 int32
@@ -665,6 +683,8 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
         log(f"FAILED {msg} (the later phases still run; the script fails at the end)")
 
     for route in ("bsp", "ell"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # before this route's tables
         tr = trainer(route, epochs)
         first = tr.eval_logits()
         old_gap = float((first - plain_logits).abs().max())
@@ -705,6 +725,9 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
             "launches_per_epoch": per_epoch, "epoch_times": list(tr.epoch_times),
             "build_s": tr.build_model_s,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            # the route's own: its trainer's rise over what was allocated
+            # before it was built (phase 23 (d) holds aot_check to it)
+            "own_peak_bytes": torch.cuda.max_memory_allocated() - base,
         }
         log(f"route {route}: first logits max abs err {logits_err:.3e} against the "
             f"f32 plain route's (their rms {rms:.3e}; against the bf16 plain route's, "
@@ -716,7 +739,8 @@ def phase_main_path(dev, scale: float, epochs: int, seed: int):
             f"{[round(t, 4) for t in tr.epoch_times]}, {epochs}-epoch wall "
             f"{sum(tr.epoch_times):.3f} s; host table build "
             f"{results[route]['build_s']:.1f} s; peak device memory "
-            f"{results[route]['peak_gib']:.2f} GiB")
+            f"{results[route]['peak_gib']:.2f} GiB (the route's own "
+            f"{results[route]['own_peak_bytes'] / 2 ** 30:.3f} GiB)")
     return g, results
 
 
@@ -1937,7 +1961,7 @@ def phase_sampled(dev, g, seed: int, results) -> None:
     BATCH_SIZE 512, FANOUT 25-10, DROP_RATE 0, on a planted-label graph at
     phase 4's V, the trainers' own accuracy pass off (NTS_FINAL_EVAL=0;
     the train accuracy is taken once per mode). Every mode trains
-    SAMPLED_EPOCHS: (a) sync; (b) pipelined, with spawned sampling workers;
+    SAMPLED_EPOCHS: (a) sync; (b) pipelined, with 4 sampling threads;
     (c) device; (d) fused, twice, then its per-batch step time, one
     profiled epoch, and one batch's subgraph on the card against the CPU;
     (e) the two Cora sampled smoke cfgs through the CLI. Every mode's loss
@@ -1981,6 +2005,7 @@ def phase_sampled(dev, g, seed: int, results) -> None:
         "NTS_FINAL_EVAL", "NTS_SAMPLE_WORKERS", "NTS_SAMPLE_CTX", "NTS_SAMPLE_PIPELINE")}
     os.environ["NTS_FINAL_EVAL"] = "0"
     os.environ.pop("NTS_SAMPLE_PIPELINE", None)
+    os.environ.pop("NTS_SAMPLE_CTX", None)
 
     def trainer(mode, epochs):
         cfg = InputInfo(
@@ -2035,17 +2060,20 @@ def phase_sampled(dev, g, seed: int, results) -> None:
             f"sample_wait {wait:.3f} s = {wait / sync.epoch_times[0]:.1%} of the epoch "
             f"(host-bound share); trainer build {build_s:.1f} s")
 
-        # (b) pipelined, 4 spawned workers (a fork after the CUDA context
-        # exists is refused)
+        # (b) pipelined, 4 workers: with the native sampler they are threads
+        # of this process (a fork after the CUDA context exists is refused)
         os.environ["NTS_SAMPLE_WORKERS"] = "4"
-        os.environ["NTS_SAMPLE_CTX"] = "spawn"
         pipe, build_s = trainer("pipelined", SAMPLED_EPOCHS)
+        pool = pipe.par_sampler.ctx_method
         drive(pipe, "b pipelined")
         os.environ["NTS_SAMPLE_WORKERS"] = "0"
         bitwise = pipe.loss_history == sync.loss_history and params_equal(pipe, sync)
         pwait = pipe.stage_history[0]["sample_wait"]
-        log(f"(b) pipelined ({pipe.sample_workers} spawned workers, build {build_s:.1f} s): "
-            f"epoch {pipe.epoch_times[0]:.3f} s vs sync {sync.epoch_times[0]:.3f} s; "
+        check("b pipelined workers are threads", pool == "thread", f"ctx {pool}")
+        later = (np.mean(pipe.epoch_times[1:]), np.mean(sync.epoch_times[1:]))
+        log(f"(b) pipelined ({pipe.sample_workers} {pool} workers, build {build_s:.1f} s): "
+            f"epoch {pipe.epoch_times[0]:.3f} s vs sync {sync.epoch_times[0]:.3f} s, later "
+            f"epochs {later[0]:.3f} s vs {later[1]:.3f}; "
             f"sample_wait {pwait:.3f} s vs sync {wait:.3f} s; losses and parameters bitwise "
             f"equal to sync: {bitwise}")
         if not bitwise:
@@ -2150,7 +2178,6 @@ def phase_sampled(dev, g, seed: int, results) -> None:
         # (e) the Cora sampled smoke cfgs through the CLI on the card
         os.environ.pop("NTS_FINAL_EVAL", None)
         os.environ.pop("NTS_SAMPLE_WORKERS", None)
-        os.environ.pop("NTS_SAMPLE_CTX", None)
         for name in ("gcn_sample_pipeline_smoke", "gcn_sample_fused_smoke"):
             lines = []
 
@@ -2382,22 +2409,35 @@ def phase_obs(dev, g, seed: int, results) -> None:
               tstages)
         # the kernels and the ELL launches of one step with numerics off (no
         # sink, defaults) and on
-        kernels, launches, profs = {}, {}, {}
-        for name in ("no sink", "defaults", "numerics"):
+        variants = ("no sink", "defaults", "numerics")
+        kernels, launches, profs, counts = {}, {}, {}, {n: {} for n in variants}
+        for name in variants:
             tr = runs[name]["tr"]
             zero_launches()
             tr._epoch_step(False)
             torch.cuda.synchronize()
             launches[name] = kernel_launches()["ell_level"]
-            profs[name] = profile_step(lambda: tr._epoch_step(False))
-            kernels[name] = profs[name].get("kernels")
-        # library kernels: the trace's count less the hand-written ones it
-        # caught (those are held by the launch counters instead)
-        library = {n: (p.get("kernels") or 0) - (p.get("own") or 0) for n, p in profs.items()}
+        # CUPTI drops records at times (once all but the last 10 of a step's
+        # 126 kernels) and never adds one, so each kernel name counts the
+        # most that any of up to three traces of the same step caught;
+        # library kernels are those counts less the hand-written ones (held
+        # by the launch counters instead)
+        for _ in range(3):
+            for name in variants:
+                p = profile_step(lambda tr=runs[name]["tr"]: tr._epoch_step(False))
+                profs.setdefault(name, p)
+                for k, c in (p.get("counts") or {}).items():
+                    counts[name][k] = max(counts[name].get(k, 0), c)
+            kernels = {n: sum(counts[n].values()) for n in variants}
+            library = {n: sum(c for k, c in counts[n].items()
+                              if not any(o in k for o in OWN_KERNELS)) for n in variants}
+            if library["no sink"] == library["defaults"] < library["numerics"]:
+                break
         check("(a) no extra kernels without numerics", library["no sink"] == library["defaults"]
               and launches["no sink"] == launches["defaults"] == launches["numerics"],
               f"library kernels {library} (traced {kernels}), ELL launches {launches}; "
-              f"names counted apart: {kernel_name_diff(profs['no sink'], profs['defaults'])}")
+              f"names counted apart: "
+              f"{kernel_name_diff({'counts': counts['no sink']}, {'counts': counts['defaults']})}")
         check("(a) numerics adds its reductions", library["numerics"] > library["defaults"],
               library)
         p4 = steady_ms(results["ell"]["epoch_times"])
@@ -4694,7 +4734,9 @@ def phase_live_graph(dev, seed: int, results, scale: float) -> None:
                 d = GNNDatum(feature=np.concatenate([datum.feature, *rows]),
                              label=np.concatenate([datum.label, np.zeros(k, np.int32)]),
                              mask=np.concatenate([datum.mask, np.full(k, 2, np.int32)]))
-            g2 = build_graph(plan.src, plan.dst, plan.v_num)
+            # a delta rebuilds its graph with NumPy, as JAX's does: the
+            # oracle is the NumPy build of the same edge list
+            g2 = build_graph(plan.src, plan.dst, plan.v_num, use_native=False)
             tk = GCNSampleTrainer.from_arrays(make_cfg(plan.v_num), plan.src, plan.dst, d,
                                               seed=seed, device=dev, host_graph=g2)
             return {m: InferenceEngine(tk, ckpt, options=opts(m),
@@ -5500,6 +5542,7 @@ def phase_tools(dev, seed: int, results, micro_scale: float = MICRO_SCALE) -> No
     import numpy as np
     import torch
 
+    from neutronstarlite_torch import native
     from neutronstarlite_torch.ops.bsp_ell import bsp_tables_aggregate
     from neutronstarlite_torch.tools import (bench_matrix, bench_sample, dashboard,
                                              drift_audit, micro_bench, perf_sentinel,
@@ -5587,10 +5630,14 @@ def phase_tools(dev, seed: int, results, micro_scale: float = MICRO_SCALE) -> No
 
         cache = os.path.join(work, "bench_cache")
         # ---- (b) bench_sample at 0.1 ------------------------------------------------------
+        hops0 = native.sample_hop.calls
         rc, out, secs = run_tool(bench_sample.main, ["--scale", "0.1", "--batches",
                                                      str(TOOLS_SAMPLE_BATCHES), "--warmup", "1"]
                                  + dev_args, NTS_BENCH_CACHE=cache)
         ex = (out or {}).get("extra", {})
+        # phase 23 (c) reads it, and how many hops its samplers drew natively
+        results["bench_sample"] = out
+        results["bench_sample_native_hops"] = native.sample_hop.calls - hops0
         check("(b) bench_sample", rc == 0 and out is not None and out["value"] > 0
               and math.isfinite(ex.get("final_loss", float("nan"))), (rc, out))
         log(f"(b) bench_sample at 0.1 (V={ex.get('v_num')} E={ex.get('e_num')}, B 512, "
@@ -5733,6 +5780,242 @@ def phase_tools(dev, seed: int, results, micro_scale: float = MICRO_SCALE) -> No
     results["failures"].extend(failures)
 
 
+PHASE23_PEAK_BAND = 0.25  # aot_check's predicted peak against phase 4's, relative
+# native against NumPy GCN weights: a product, a square root and a
+# reciprocal each rounded in float32 (relative error up to ~2.5 * 2^-24)
+# against one rounding of the float64 value (2^-25)
+NATIVE_WEIGHT_ULPS = 3
+PHASE23_F = 128  # the width of (b)'s kernel checks on the native tables
+PR18_SAMPLE_BATCH_S = (2.20, 2.28)  # bench_sample at 0.1 with the NumPy sampler
+
+
+def phase_native_capacity(dev, g, seed: int, results, scale: float) -> None:
+    """Phase 23 (module docstring, item 23): the native host runtime and the
+    capacity tools. A failed check prints FAILED and fails the run at the
+    end."""
+    import numpy as np
+    import torch
+
+    from neutronstarlite_torch import native
+    from neutronstarlite_torch.graph.digest import graph_digest
+    from neutronstarlite_torch.graph.storage import build_graph, gcn_norm_weights
+    from neutronstarlite_torch.models.gcn import GCNTrainer
+    from neutronstarlite_torch.ops.blocked_ell import BlockedEllPair
+    from neutronstarlite_torch.ops.bsp_ell import BspEllPair, bsp_aggregate, bsp_tables_aggregate
+    from neutronstarlite_torch.ops.ell import EllPair
+    from neutronstarlite_torch.ops.ell_kernel import ell_level_aggregate
+    from neutronstarlite_torch.tools import aot_bsp_scale, aot_check, tpu_plan
+    from neutronstarlite_torch.utils.config import InputInfo
+
+    t_phase = time.perf_counter()
+    failures = results["failures"]
+    src, dst = results["edges"]
+    datum = results["datum"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_p23_")
+
+    def check(name, ok, detail=""):
+        if not ok:
+            failures.append(f"phase 23 {name}: {detail}")
+            log(f"FAILED {failures[-1]}")
+
+    def numpy_build(fn):
+        os.environ["NTS_NO_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            return out, time.perf_counter() - t0
+        finally:
+            os.environ.pop("NTS_NO_NATIVE")
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    try:
+        # (a) the native library, built at the start of the run
+        check("(a) native runtime available", native.available(), "available() is False")
+        log(f"(a) native runtime: {native.SO}, built in {native.build_seconds:.2f} s by "
+            f"{native.built_with} (compilers tried in order: {native.compilers()}), version "
+            f"{native.get_lib().nts_native_version()}")
+
+        # (b) host builds, native against NumPy, and the kernels on native tables
+        v = g.v_num
+        gn, t_gn = timed(lambda: build_graph(src, dst, v))
+        gp, t_gp = numpy_build(lambda: build_graph(src, dst, v, use_native=False))
+        same = graph_digest(gn) == graph_digest(gp)
+        # the native weight is float32 arithmetic, 1 / sqrt(f32(d_out) *
+        # f32(d_in)), three roundings; the NumPy build's rounds the float64
+        # value once, so the two may sit up to NATIVE_WEIGHT_ULPS apart
+        d_out = np.maximum(gn.out_degree[gn.row_indices], 1).astype(np.float32)
+        d_in = np.maximum(gn.in_degree[gn.dst_of_edge], 1).astype(np.float32)
+        f32_w = np.float32(1.0) / np.sqrt(d_out * d_in)
+        ref_w = gcn_norm_weights(gn.row_indices.astype(np.uint32),
+                                 gn.dst_of_edge.astype(np.uint32), gn.out_degree, gn.in_degree)
+        ulps = float((np.abs(gn.edge_weight_forward - ref_w) / np.spacing(np.abs(ref_w))).max())
+        bitwise = gn.edge_weight_forward.tobytes() == f32_w.tobytes()
+        check("(b) graph digest", same, "native and NumPy graphs differ")
+        check("(b) weights bitwise the float32 formula", bitwise, "native weights differ")
+        check("(b) weights against the NumPy build", ulps <= NATIVE_WEIGHT_ULPS, f"{ulps} ulp")
+        log(f"(b) build_graph at {scale} (V={v} E={gn.e_num}): native {t_gn:.3f} s, NumPy "
+            f"{t_gp:.3f} s; graph_digest equal {same}; native weights bitwise the float32 "
+            f"formula {bitwise}, at most {ulps:.0f} ulp from the NumPy build's")
+        builds = {}
+        tables = {}
+        for name, make in (("ell", lambda: EllPair.from_host(gn, device=dev)),
+                           ("bsp", lambda: BspEllPair.from_host(gn, device=dev)),
+                           ("blocked", lambda: BlockedEllPair.from_host(gn, vt=4096,
+                                                                        device=dev))):
+            a, t_a = timed(make)
+            b, t_b = numpy_build(make)
+            torch.cuda.synchronize()
+            ta = [x for x in aot_check.tensors_in(a)]
+            tb = [x for x in aot_check.tensors_in(b)]
+            eq = len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb))
+            check(f"(b) {name} tables native == NumPy", eq, "tables differ")
+            builds[name] = (t_a, t_b)
+            tables[name] = a
+            del b
+        log("(b) table builds from the native graph (host build + copy to the card), "
+            "native / NumPy s: " + ", ".join(f"{k} {a:.3f} / {b:.3f}"
+                                              for k, (a, b) in builds.items())
+            + "; native tables bitwise the NumPy ones")
+        gen = torch.Generator(device=dev).manual_seed(seed + 23)
+        x = (torch.randn((v, PHASE23_F), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        e_ell = check_close("(b) ell_level on native tables", ell_level_aggregate(
+            tables["ell"].fwd, x), tables["ell"].fwd.plain(x), BF16_TOL)
+        e_bsp = check_close("(b) bsp_ell on native tables", bsp_aggregate(
+            tables["bsp"].fwd, x), bsp_tables_aggregate(tables["bsp"].fwd, x), BF16_TOL)
+        log(f"(b) on the native tables at f {PHASE23_F} bf16: ell_level max abs err "
+            f"{e_ell:.3e}, bsp_ell {e_bsp:.3e} against their plain versions (BF16_TOL)")
+        del tables, x
+        torch.cuda.empty_cache()
+        losses = {}
+        for name, host in (("native", gn), ("numpy", gp)):
+            cfg = InputInfo(algorithm="GCN", vertices=v, layer_string="602-128-41", epochs=1,
+                            drop_rate=0.0, precision="bfloat16", learn_rate=0.01,
+                            weight_decay=1e-4, decay_rate=0.97, decay_epoch=100,
+                            optim_kernel=True, pallas_kernel=True)
+            os.environ["NTS_PALLAS_RESIDENT"] = "1"
+            tr = GCNTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device=dev,
+                                        host_graph=host)
+            tr.run()
+            losses[name] = tr.loss_history[0]
+            del tr
+        torch.cuda.empty_cache()
+        gap = abs(losses["native"] - losses["numpy"])
+        check("(b) epoch-0 loss native vs NumPy graph", gap <= 1e-3, f"{losses}")
+        log(f"(b) GCN bf16 ELL epoch-0 loss on the native graph {losses['native']:.6f}, on the "
+            f"NumPy graph {losses['numpy']:.6f} (|d| {gap:.2e}, limit 1e-3)")
+        del gp
+
+        # (c) bench_sample at 0.1 with the native sampler (phase 22 (b)'s run)
+        out = results.get("bench_sample") or {}
+        ex = out.get("extra", {})
+        hops = results.get("bench_sample_native_hops", 0)
+        # 2 hops per batch of TOOLS_SAMPLE_BATCHES + 1 warm-up
+        check("(c) bench_sample native", hops >= 2 * (TOOLS_SAMPLE_BATCHES + 1),
+              f"{hops} native sample_hop calls")
+        if out:
+            log(f"(c) bench_sample at 0.1 with the native sampler ({hops} native sample_hop "
+                f"calls; phase 22 (b)): "
+                f"{out['value']} s per batch, of it sampling {ex.get('sample_s_median')} s "
+                f"(host share {ex.get('sample_s_median', 0) / out['value']:.3f}); PR 18's "
+                f"NumPy sampler {PR18_SAMPLE_BATCH_S[0]}-{PR18_SAMPLE_BATCH_S[1]} s per batch")
+
+        # (d) aot_check on phase 4's cfg and routes against phase 4's peaks
+        for route in ("bsp", "ell"):
+            cfg = InputInfo(algorithm="GCN", vertices=v, layer_string="602-128-41",
+                            epochs=1, drop_rate=0.0, precision="bfloat16", learn_rate=0.01,
+                            weight_decay=1e-4, decay_rate=0.97, decay_epoch=100,
+                            optim_kernel=True, pallas_kernel=True)
+            os.environ["NTS_PALLAS_RESIDENT"] = "1" if route == "ell" else "0"
+            cpu_tr = GCNTrainer.from_arrays(cfg, src, dst, datum, seed=seed, device="cpu",
+                                            host_graph=g)
+            rep = aot_check.check(cfg, trainer=cpu_tr)
+            del cpu_tr
+            got = results[route]["own_peak_bytes"]
+            rel = rep["step_peak_bytes"] / got - 1.0
+            check(f"(d) {route} predicted peak", abs(rel) <= PHASE23_PEAK_BAND and rep["fits"],
+                  f"predicted {rep['step_peak_bytes']} vs measured {got} ({rel:+.3f})")
+            worst = min((c["limit"] - c["value"], c["name"]) for c in rep["checks"])
+            log(f"(d) aot_check {route} (phase 4's cfg, {scale}): static "
+                f"{rep['static_bytes']} B ({rep['static']}), kernel caches "
+                f"{rep['kernel_cache']} B, transient {rep['transient']} B, step peak "
+                f"{rep['step_peak_bytes']} B against phase 4's own peak {got} B "
+                f"({rel:+.3f}, band {PHASE23_PEAK_BAND}); with the cuBLAS workspaces "
+                f"{rep['peak_bytes']} B of {rep['memory_bytes']:.0f} ({rep['memory_source']}); "
+                f"{len(rep['checks'])} launch checks, refused {rep['refused']}, least headroom "
+                f"{worst[0]} ({worst[1]}); {rep['check_s']:.1f} s")
+
+        # one rank of phase 15's GCNDIST (P=DIST_P, ELL) on the bench graph at this
+        # scale: a rank's peak has no card of its own here (phase 15 runs the
+        # twin); the dry rank is held to a real gloo rank on the CPU
+        # (tests/test_torch_capacity.py)
+        os.environ.pop("NTS_PALLAS_RESIDENT", None)  # a single-device switch
+        dcfg = InputInfo(algorithm="GCNDIST", vertices=v, layer_string="602-128-41",
+                         epochs=1, drop_rate=0.0, precision="bfloat16", learn_rate=0.01,
+                         weight_decay=1e-4, decay_rate=0.97, decay_epoch=100,
+                         partitions=DIST_P, optim_kernel=True)
+        rep = aot_check.check(dcfg, synthetic_scale=scale)
+        check("(d) GCNDIST rank fits", rep["fits"] and rep["case"] == "dist",
+              f"{rep.get('refused')}, peak {rep['peak_bytes']}")
+        log(f"(d) aot_check GCNDIST P={DIST_P} ELL at --synthetic-scale {scale}: rank "
+            f"{rep['rank']} of in-edges {rep['rank_in_edges']} (vp {rep['vp']}): static "
+            f"{rep['static_bytes']} B ({rep['static']}), kernel caches {rep['kernel_cache']} "
+            f"B, transient {rep['transient']} B, step peak {rep['step_peak_bytes']} B; "
+            f"{len(rep['checks'])} launch checks, refused {rep['refused']}; "
+            f"{rep['check_s']:.1f} s")
+
+        # (e) aot_bsp_scale at 10x with its launch, roofline through the plan runner
+        rc, out, secs = run_tool(aot_bsp_scale.main, ["--scale", "10", "--f", "602"])
+        geo = (out or {}).get("geometry", {})
+        launch = (out or {}).get("launch", {})
+        check("(e) aot_bsp_scale", rc == 0 and out is not None and launch.get("ok")
+              and launch.get("launches") == 2, f"rc {rc}, launch {launch}")
+        if out:
+            tight = min(geo["ints"].items(), key=lambda kv: kv[1]["headroom"])
+            log(f"(e) aot_bsp_scale --scale 10 (V={out['v_num']} E={out['e_num']}, f 602) in "
+                f"{secs:.1f} s: blocks {geo['blocks']} (estimate; bound {geo['blocks_bound']}), "
+                f"grid {geo['ints']['grid_ctas']['value']} CTAs, least int headroom "
+                f"{tight[1]['headroom']} ({tight[0]}), slots {geo['slots']} (headroom to 2^31 "
+                f"{geo['slots_vs_2_31']['headroom']}; {geo['slots_vs_2_31']['note']}), device "
+                f"bytes {geo['device_bytes']} (fits {geo['fits']}); launch over "
+                f"{launch.get('blocks')} blocks at key {launch.get('key')}: "
+                f"{launch.get('launches')} launches, max abs err {launch.get('max_abs_err')} "
+                f"(limit {launch.get('tol')}), {launch.get('seconds')} s")
+        plan_dir = os.path.join(work, "plan")
+        os.makedirs(plan_dir)
+        for route in ("ell", "bsp"):
+            times = results[route]["epoch_times"]
+            with open(os.path.join(plan_dir, f"phase4_{route}.json"), "w") as fh:
+                json.dump({"metric": f"gcn_epoch_standard_{route}",
+                           "value": float(np.mean(times[1:] or times)), "unit": "s",
+                           "extra": {"order": "standard", "path": route, "scale": scale}}, fh)
+        rc, _, secs = run_tool(tpu_plan.main, ["--out", plan_dir, "--list"])
+        check("(e) tpu_plan --list", rc == 0, f"rc {rc}")
+        rc, _, secs = run_tool(tpu_plan.main, ["--out", plan_dir, "--scale", str(scale),
+                                               "--only", "roofline", "--max-wall-s", "300"])
+        ok_marker = os.path.exists(os.path.join(plan_dir, "roofline.ok"))
+        rows = []
+        if os.path.exists(os.path.join(plan_dir, "roofline.json")):
+            with open(os.path.join(plan_dir, "roofline.json")) as fh:
+                rows = json.load(fh)["rows"]
+        check("(e) tpu_plan roofline step", rc == 0 and ok_marker, f"rc {rc}, ok {ok_marker}")
+        for r in rows:
+            if r["measured_s"] is not None:
+                log(f"(e) roofline --scale {scale}: {r['order']} {r['path']} bound "
+                    f"{r['bound_s'] * 1e3:.4f} ms against phase 4's epoch "
+                    f"{r['measured_s'] * 1e3:.4f} ms: achieved {r['achieved']:.4f}")
+        check("(e) roofline read phase 4", sum(r["measured_s"] is not None for r in rows) == 2,
+              f"{rows}")
+        log(f"(e) tpu_plan --only roofline through the runner in {secs:.1f} s, marker "
+            f"{ok_marker}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 23 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1, help="fraction of Reddit's V and E")
@@ -5763,6 +6046,13 @@ def main(argv=None) -> int:
     for name in _build.KERNELS:
         _build.load(name)
     log(f"built {', '.join(_build.KERNELS)} for sm_90a in {build_s:.1f} s")
+    from neutronstarlite_torch import native
+
+    if not native.available():  # phase 23 requires it; the host builds use it
+        print("chip_smoke: the native host runtime is unavailable", file=sys.stderr)
+        return 1
+    log(f"built the native host runtime in {native.build_seconds:.2f} s by "
+        f"{native.built_with}")
 
     spent = []  # (phase, seconds) in the order they ran
 
@@ -5799,6 +6089,7 @@ def main(argv=None) -> int:
     timed("20", phase_live_graph, dev, args.seed, results, args.scale)
     timed("21", phase_crosshost, dev, g, args.seed, results)
     timed("22", phase_tools, dev, args.seed, results)
+    timed("23", phase_native_capacity, dev, g, args.seed, results, args.scale)
     shutil.rmtree(results.pop("kept"), ignore_errors=True)
     faulthandler.cancel_dump_traceback_later()
     log(f"seconds per phase: {dict(spent)}")

@@ -7,8 +7,10 @@ sort in place of the reference's two-key lexsort.
 canonicalized neighbour multisets — into one sha256 hex string.
 
 The reference's native OpenMP CSC construction orders tied edges (same
-destination) differently from one build to the next, so two identical
-edge files can give CSC arrays that differ in within-segment edge order.
+destination) differently from one build to the next, and the port's
+native and NumPy builds order them differently from each other, so two
+identical edge files can give CSC arrays that differ in within-segment
+edge order.
 Sorting each destination segment by source id (a stable lexsort over
 (dst, src)) makes the digest a function of the neighbour multiset only:
 duplicate edges keep their multiplicity, order wobble disappears, and

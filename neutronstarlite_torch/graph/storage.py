@@ -1,11 +1,14 @@
 """Host-side graph storage — port of ``neutronstarlite_tpu/graph/storage.py``.
 
 Edge-list loading (Gemini binary or text, sniffed), the GCN norm weights
-and the dual CSC/CSR build. This is the NumPy path of the JAX module
-(``build_graph(..., use_native=False)``): the JAX package's native OpenMP
-builder orders tied edges differently from build to build, and the port
-keeps no native code of its own, so its arrays are bitwise those of the
-JAX NumPy path.
+and the dual CSC/CSR build. As in JAX, ``build_graph`` builds through the
+native OpenMP counting sort (``neutronstarlite_torch/native``) when it is
+available and the weights are ``gcn_norm`` or ``ones``, else in NumPy. The
+native build sorts each destination's edges by source id (and each
+source's by destination id), so every build of one edge list gives the same
+arrays, in any process; the NumPy build (``use_native=False``) keeps the
+input order within a segment and is bitwise the JAX NumPy path. Both give
+the same graph by ``graph/digest.py``.
 
 Conventions: edges are directed src -> dst; the forward aggregation pulls
 from in-neighbours (CSC, edges stable-sorted by dst), the backward pushes
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -116,11 +119,12 @@ def _stable_order(ids: np.ndarray, v_num: int) -> np.ndarray:
 
 def build_graph(
     src: np.ndarray, dst: np.ndarray, v_num: int, weight: str = "gcn_norm",
-    use_native: bool = False,
+    use_native: Optional[bool] = None,
 ) -> CSCGraph:
     """Dual CSC/CSR from an edge list. ``weight``: "gcn_norm" (the GCN
-    toolkits' 1/sqrt(dd)) or "ones". The port builds in NumPy only;
-    ``use_native`` is the reference's call signature and changes nothing."""
+    toolkits' 1/sqrt(dd)) or "ones". ``use_native``: None = the native
+    counting sort when it is available, False = the stable NumPy build,
+    True = native or raise."""
     src = np.asarray(src, dtype=np.uint32)
     dst = np.asarray(dst, dtype=np.uint32)
     e_num = src.shape[0]
@@ -129,6 +133,27 @@ def build_graph(
             f"edge list references vertex {max(int(src.max()), int(dst.max()))} "
             f">= VERTICES {v_num}"
         )
+    if use_native is not False and weight in ("gcn_norm", "ones"):
+        from neutronstarlite_torch import native
+
+        if native.resolve(use_native):
+            (column_offset, csc_src, csc_dst, csc_w, row_offset, csr_src, csr_dst,
+             csr_w, out_degree, in_degree) = native.build_adjacency(
+                src, dst, v_num, 0 if weight == "gcn_norm" else 1)
+            return CSCGraph(
+                v_num=v_num,
+                e_num=e_num,
+                column_offset=column_offset,
+                row_indices=csc_src,
+                dst_of_edge=csc_dst,
+                edge_weight_forward=csc_w,
+                row_offset=row_offset,
+                column_indices=csr_dst,
+                src_of_edge=csr_src,
+                edge_weight_backward=csr_w,
+                out_degree=out_degree,
+                in_degree=in_degree,
+            )
     out_degree = np.bincount(src, minlength=v_num).astype(np.int32)
     in_degree = np.bincount(dst, minlength=v_num).astype(np.int32)
     if weight == "gcn_norm":

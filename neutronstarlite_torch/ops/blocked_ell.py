@@ -17,10 +17,11 @@ to multiples of 4, never more slots than pow2: ``_binned_row_k``). The JAX
 module's ``NTS_ELL_LEVELS`` fallback is not ported: the cfg key
 ``ELL_LEVELS`` sets the fused tables' ladder.
 
-The tables are filled by the JAX module's NumPy branch, so they are bitwise
-the JAX tables (the native branch gives the same: its counting sort by tile
-is stable, and the edges arrive grouped by destination); they are built on
-the host and moved to the device.
+The tables are built on the host, by the native runtime's counting sort
+by tile and level fill when it is available (``native/``), else by the JAX
+module's NumPy branch, and moved to the device. From one host graph both
+give the same tables, bitwise the JAX tables: the counting sort is stable
+and the edges arrive grouped by destination.
 
 Aggregation (``aggregate``): an f32 accumulator, tiles outer and levels
 inner, as in JAX, cast once at the end, so a destination whose in-edges
@@ -55,6 +56,7 @@ from typing import Iterator, List, Tuple
 import numpy as np
 import torch
 
+from neutronstarlite_torch import native as native_rt
 from neutronstarlite_torch.graph.storage import CSCGraph
 from neutronstarlite_torch.ops import ell as _ell
 from neutronstarlite_torch.utils.logging import get_logger
@@ -153,8 +155,12 @@ class BlockedEll:
             # edges arrive grouped by destination, so one stable sort by
             # (tile, dst) gives the (tile, row) order
             tile_of_edge = adj // np.asarray(vt, idx_t)
-            key = tile_of_edge * np.asarray(v_num, idx_t) + dst_of_edge
-            order = np.argsort(key, kind="stable")
+            use_native = native_rt.available()
+            if use_native:
+                order = native_rt.sort_by_tile(tile_of_edge.astype(np.int32, copy=False), n_tiles)
+            else:
+                key = tile_of_edge * np.asarray(v_num, idx_t) + dst_of_edge
+                order = np.argsort(key, kind="stable")
             tile_sorted = tile_of_edge[order]
             dst_sorted = dst_of_edge[order]
             change = (tile_sorted[1:] != tile_sorted[:-1]) | (dst_sorted[1:] != dst_sorted[:-1])
@@ -170,6 +176,9 @@ class BlockedEll:
                 )
             src_local = (adj - tile_of_edge * np.asarray(vt, idx_t))[order]
             w_sorted = weights[order]
+            if use_native:
+                src_local = src_local.astype(np.int32, copy=False)
+                w_sorted = np.ascontiguousarray(w_sorted, np.float32)
             pad_slots = real_slots = 0
             for K in sorted(int(k) for k in np.unique(row_k)):
                 sel = np.nonzero(row_k == K)[0]
@@ -185,15 +194,21 @@ class BlockedEll:
                 slot = np.arange(len(sel)) - starts[t_sel]
                 d = row_len[sel]
                 lo = row_start[sel]
-                k = np.arange(K)
-                valid = k[None, :] < d[:, None]
-                flat_idx = (lo[:, None] + k[None, :])[valid]
-                ti = np.broadcast_to(t_sel[:, None], (len(sel), K))[valid]
-                si = np.broadcast_to(slot[:, None], (len(sel), K))[valid]
-                ki = np.broadcast_to(k, (len(sel), K))[valid]
-                nbr[ti, si, ki] = src_local[flat_idx]
-                wgt[ti, si, ki] = w_sorted[flat_idx]
-                dstr[t_sel, slot] = row_dst[sel]
+                if use_native:
+                    native_rt.fill_blocked_level(
+                        lo, d, t_sel.astype(np.int32), row_dst[sel].astype(np.int32),
+                        slot, n_l, K, src_local, w_sorted, nbr, wgt, dstr,
+                    )
+                else:
+                    k = np.arange(K)
+                    valid = k[None, :] < d[:, None]
+                    flat_idx = (lo[:, None] + k[None, :])[valid]
+                    ti = np.broadcast_to(t_sel[:, None], (len(sel), K))[valid]
+                    si = np.broadcast_to(slot[:, None], (len(sel), K))[valid]
+                    ki = np.broadcast_to(k, (len(sel), K))[valid]
+                    nbr[ti, si, ki] = src_local[flat_idx]
+                    wgt[ti, si, ki] = w_sorted[flat_idx]
+                    dstr[t_sel, slot] = row_dst[sel]
                 nbrs.append(nbr)
                 wgts.append(wgt)
                 dsts.append(dstr)

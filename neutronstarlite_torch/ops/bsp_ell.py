@@ -13,7 +13,9 @@ first, grouped per dst tile in tile order; then one zero-weight filler block
 per empty tile; then zero-weight padding to a multiple of 8 blocks. Apart
 from ``tile_ptr`` (the [t_dst+1] range of each tile's data blocks) the
 tables are bitwise those of the JAX module's NumPy fill in its unsegmented
-form (one segment: ``b_seg`` = all blocks, ``t_seg = t_dst``).
+form (one segment: ``b_seg`` = all blocks, ``t_seg = t_dst``). When the
+native runtime is available (``native/``) its counting sort and run fill
+build them, the same tables from one host graph.
 
 The CUDA kernel does not walk whole tiles: ``bsp_pieces`` cuts the data
 blocks into pieces (contiguous block ranges inside one dst tile), a tile
@@ -47,6 +49,7 @@ import functools
 import numpy as np
 import torch
 
+from neutronstarlite_torch import native as native_rt
 from neutronstarlite_torch.graph.storage import CSCGraph
 from neutronstarlite_torch.obs import cost
 from neutronstarlite_torch.ops import _build
@@ -117,7 +120,14 @@ class BspEll:
             # group edges by (dst tile, src tile); a stable sort keeps each
             # group's edges dst-ascending
             key = (dst_of_edge // dt) * t_src + adj // vt
-            order = np.argsort(key, kind="stable")
+            # the native counting sort keeps an int64 histogram of
+            # t_dst * t_src keys: past 2**24 of them argsort is the better
+            # trade (JAX's bound)
+            use_native = native_rt.available()
+            if use_native and t_dst * t_src < 2 ** 24:
+                order = native_rt.sort_by_tile(key.astype(np.int32, copy=False), t_dst * t_src)
+            else:
+                order = np.argsort(key, kind="stable")
             ks, ds = key[order], dst_of_edge[order]
             ss, ws = adj[order], weights[order]
             # (group, dst) runs -> packed rows of <= K slots
@@ -164,16 +174,24 @@ class BspEll:
         ldst = np.zeros((n_blocks, R), dtype=np.int32)
         blk_key = np.zeros(n_blocks, dtype=np.int32)
         if e_num:
-            # per-edge placement: row-relative slot position
             src_local = (ss - (ss // vt) * vt).astype(np.int32)
             run_ldst = (run_dst - (run_dst // dt) * dt).astype(np.int32)
-            run_of_edge = np.repeat(np.arange(len(run_start)), run_len)
-            off = np.arange(e_num) - run_start[run_of_edge]
-            e_row = row_of_first[run_of_edge] + off // K
-            b_e, s_e = row_block[e_row], row_slot[e_row]
-            nbr[b_e, off % K, s_e] = src_local
-            wgt[b_e, off % K, s_e] = ws
-            ldst[row_block, row_slot] = run_ldst[row_run]
+            if use_native:
+                # one OpenMP pass over the runs; the data blocks come first,
+                # so the [n_blocks, K, R] tables take them in place
+                native_rt.fill_bsp(
+                    run_start, run_len, row_of_first, run_ldst, row_block, row_slot,
+                    src_local, ws, K, R, nbr, wgt, ldst,
+                )
+            else:
+                # per-edge placement: row-relative slot position
+                run_of_edge = np.repeat(np.arange(len(run_start)), run_len)
+                off = np.arange(e_num) - run_start[run_of_edge]
+                e_row = row_of_first[run_of_edge] + off // K
+                b_e, s_e = row_block[e_row], row_slot[e_row]
+                nbr[b_e, off % K, s_e] = src_local
+                wgt[b_e, off % K, s_e] = ws
+                ldst[row_block, row_slot] = run_ldst[row_run]
             blk_key[:n_data] = data_bd * t_src + data_bs
         blk_key[n_data:used] = empty_tiles * t_src
         if used:

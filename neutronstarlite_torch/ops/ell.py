@@ -10,8 +10,10 @@ put back in vertex order by ``inv_perm``. ``EllPair`` holds the forward
 (in-edge, CSC) and backward (out-edge, CSR) tables: the backward of the
 aggregation is the same operation over the transposed adjacency.
 
-The tables are filled by the JAX module's NumPy branch, so they are bitwise
-the JAX tables. The tables may be rectangular (``src_num``): the
+The tables are filled by the native runtime's level fill when it is
+available (``native/``), else by the JAX module's NumPy branch; both fill
+the same slots from one host graph, bitwise the JAX tables. The tables
+may be rectangular (``src_num``): the
 distributed trainer's per-shard tables have one shard's ``vp`` rows and
 index the whole gathered ``[P*vp, f]`` source slab
 (``parallel/dist_ell.py``); ``src_num = 0`` is the square form.
@@ -33,6 +35,7 @@ from typing import List
 import numpy as np
 import torch
 
+from neutronstarlite_torch import native as native_rt
 from neutronstarlite_torch.graph.storage import CSCGraph
 
 _MIN_K = 4
@@ -129,6 +132,10 @@ class EllBuckets:
             perm_parts.append(order[:j0])
             degs.append(np.zeros(j0, dtype=np.int32))
             i = j0
+        use_native = native_rt.available()
+        if use_native:
+            adj32 = np.ascontiguousarray(adj, np.int32)
+            w32 = np.ascontiguousarray(weights, np.float32)
         while i < v_num:
             K = max(_next_pow2(max(int(sdeg[i]), 1)), _MIN_K)
             j = max(int(np.searchsorted(sdeg, K, side="right")), i + 1)
@@ -136,11 +143,22 @@ class EllBuckets:
             nbr = np.zeros((len(ids), K), dtype=np.int32)
             wgt = np.zeros((len(ids), K), dtype=np.float32)
             lo, d = offsets[ids], deg[ids]
-            k = np.arange(K)
-            valid = k[None, :] < d[:, None]
-            flat_idx = (lo[:, None] + k[None, :])[valid]
-            nbr[valid] = adj[flat_idx]
-            wgt[valid] = weights[flat_idx]
+            if use_native:
+                # the blocked level fill with one tile: row r of the level
+                # takes the run of vertex ids[r]
+                nk = len(ids)
+                native_rt.fill_blocked_level(
+                    lo, d, np.zeros(nk, np.int32), ids.astype(np.int32),
+                    np.arange(nk, dtype=np.int64), nk, K, adj32, w32,
+                    nbr.reshape(1, nk, K), wgt.reshape(1, nk, K),
+                    np.empty((1, nk), np.int32),
+                )
+            else:
+                k = np.arange(K)
+                valid = k[None, :] < d[:, None]
+                flat_idx = (lo[:, None] + k[None, :])[valid]
+                nbr[valid] = adj[flat_idx]
+                wgt[valid] = weights[flat_idx]
             nbrs.append(nbr)
             wgts.append(wgt)
             perm_parts.append(ids)

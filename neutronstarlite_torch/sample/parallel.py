@@ -1,6 +1,6 @@
 """Multi-worker epoch sampling — port of ``neutronstarlite_tpu/sample/parallel.py``.
 
-The epoch's batches are sharded over worker processes:
+The epoch's batches are sharded over workers:
 
 - batch i of epoch e is sampled with a Generator seeded by
   ``SeedSequence((seed, e, 0, i))`` (the shuffle by ``(seed, e, 1, 0)``),
@@ -13,11 +13,17 @@ The epoch's batches are sharded over worker processes:
   initialised in the process a fork pool is refused and sampling runs
   inline, with a warning. ``NTS_SAMPLE_CTX=spawn`` starts the workers from
   a fresh interpreter instead, which pickles the graph once per worker;
+- when the batches are drawn by the native sampler (``native/``, the
+  default), the workers are threads of this process instead of forked
+  children: GNU OpenMP's thread pool does not survive a fork (a forked
+  child that enters a parallel region after its parent built the graph
+  natively waits forever), and the native calls release the GIL, so the
+  threads draw at once with no graph copied;
 - results stream back through a queue and a reorder buffer, so the batches
   reach the trainer in epoch order.
 
 Workers: ``NTS_SAMPLE_WORKERS`` wins; the default is min(4, cpu_count - 1).
-The workers run NumPy only: this module imports no torch.
+The workers run NumPy and the native runtime only: this module imports no torch.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import List, Sequence
 
 import numpy as np
 
+from neutronstarlite_torch import native
 from neutronstarlite_torch.graph.storage import CSCGraph
 from neutronstarlite_torch.sample.sampler import SampledBatch, Sampler
 from neutronstarlite_torch.utils.logging import get_logger
@@ -119,6 +126,9 @@ class ParallelEpochSampler:
             )
             self.workers = 0
         self.ctx_method = ctx_method or os.environ.get("NTS_SAMPLE_CTX") or "fork"
+        if self.workers > 1 and self.ctx_method == "fork" and hop_sampler is None \
+                and native.available():
+            self.ctx_method = "thread"
         self._procs: list = []
         self._in_q = self._out_q = None
         if self.workers > 1 and self.ctx_method == "fork" and cuda_initialized():
@@ -133,6 +143,16 @@ class ParallelEpochSampler:
             self._start_pool()
 
     def _start_pool(self):
+        if self.ctx_method == "thread":
+            import threading
+
+            self._in_q, self._out_q = queue.Queue(), queue.Queue(maxsize=2 * self.workers)
+            self._procs = [threading.Thread(target=_serve, daemon=True,
+                                            args=(self._make_one, self._in_q, self._out_q))
+                           for _ in range(self.workers)]
+            for t in self._procs:
+                t.start()
+            return
         import multiprocessing as mp
 
         ctx = mp.get_context(self.ctx_method)
@@ -167,7 +187,7 @@ class ParallelEpochSampler:
                 self._in_q.put(None)
             for p in self._procs:
                 p.join(timeout=5)
-                if p.is_alive():
+                if p.is_alive() and hasattr(p, "terminate"):  # a thread ends by itself
                     p.terminate()
             self._procs = []
             self._in_q = self._out_q = None
@@ -206,7 +226,8 @@ class ParallelEpochSampler:
                 try:
                     e, i, b = self._out_q.get(timeout=60.0)
                 except queue.Empty:
-                    dead = [p.pid for p in self._procs if not p.is_alive()]
+                    dead = [getattr(p, "pid", p.name) for p in self._procs
+                            if not p.is_alive()]
                     raise RuntimeError(
                         f"sampling workers stalled (dead pids: {dead}); epoch {epoch} "
                         f"batch {nxt} never arrived"

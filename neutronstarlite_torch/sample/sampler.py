@@ -15,11 +15,17 @@ the last hop, and ``nodes[0]`` are the input vertices whose features feed
 the network. Edges of a hop come grouped by destination, ascending, at most
 ``fanout`` per destination: ``ops/minibatch.py`` relies on it.
 
-The JAX sampler also has a native reservoir sampler that seeds its own
-PRNG; the port has no native code, so its draws are those of the JAX
-sampler with ``use_native=False``, bitwise, from the same seed or the same
-injected Generator. ``hop_sampler`` (``sample/device_sampler.py``) replaces
-the per-hop draw only (``SAMPLE_PIPELINE:device``).
+As in JAX, the draw is native by default (``native/``: one xorshift64*
+stream per (seed, destination), reservoir or Floyd per degree, and the
+hash dedup), bitwise the JAX native sampler on the same host graph and
+seed whatever the thread count. ``use_native=False``, an injected
+Generator or a ``hop_sampler`` take the NumPy draw, bitwise the JAX sampler
+with ``use_native=False`` from the same seed or Generator; ``use_native=True``
+refuses an injected Generator or a ``hop_sampler`` (JAX's two refusals).
+``hop_sampler`` (``sample/device_sampler.py``) replaces the per-hop draw
+only (``SAMPLE_PIPELINE:device``). Either draw reads a destination's
+edges in the host graph's order: a native graph and a NumPy graph of one
+edge list draw differently from one seed (``graph/storage.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from neutronstarlite_torch import native
 from neutronstarlite_torch.graph.storage import CSCGraph
 
 
@@ -72,11 +79,29 @@ class Sampler:
         batch_size: int,
         fanouts: Sequence[int],
         seed: int = 0,
+        use_native: Optional[bool] = None,
         rng: Optional[np.random.Generator] = None,
         hop_sampler=None,
     ):
         self.graph = graph
         self.hop_sampler = hop_sampler
+        if hop_sampler is not None:
+            if use_native:
+                raise ValueError(
+                    "use_native=True cannot combine with a device hop_sampler; "
+                    "pass one or the other"
+                )
+            use_native = False
+        if use_native and rng is not None:
+            # the native sampler seeds its own streams from ``seed`` and
+            # would ignore the injected Generator
+            raise ValueError(
+                "use_native=True cannot honor an injected rng; pass one or the other"
+            )
+        if use_native is None:
+            use_native = native.available() if rng is None else False
+        self.use_native = native.resolve(use_native)
+        self._native_seed = seed
         self.seed_nids = np.asarray(seed_nids, dtype=np.int64)
         self.batch_size = batch_size
         # fanouts listed as in the cfg; hop h (input -> output) uses
@@ -93,6 +118,12 @@ class Sampler:
         if self.hop_sampler is not None:
             return self.hop_sampler.sample_neighbors(
                 np.asarray(dsts, np.int64), fanout, self.rng, cap=cap
+            )
+        if self.use_native:
+            self._native_seed += 1
+            return native.sample_hop(
+                g.column_offset, g.row_indices, np.asarray(dsts, np.int64),
+                fanout, self._native_seed,
             )
         deg = g.in_degree[dsts].astype(np.int64)
         starts = g.column_offset[dsts]
@@ -130,8 +161,13 @@ class Sampler:
             src, dst_idx = self._sample_neighbors(
                 cur_nodes, fanout, cap=self.node_caps[h + 1]
             )
-            uniq = np.unique(src)
-            src_local = np.searchsorted(uniq, src)
+            # dedup + batch-local remap: the same sorted-unique result
+            # either way
+            if self.use_native:
+                uniq, src_local = native.dedup_remap(src)
+            else:
+                uniq = np.unique(src)
+                src_local = np.searchsorted(uniq, src)
             # per-edge weight: the full-graph GCN norm over the original degrees
             d_out = np.maximum(g.out_degree[src], 1).astype(np.float64)
             d_in = np.maximum(g.in_degree[cur_nodes[dst_idx]], 1).astype(np.float64)

@@ -220,7 +220,7 @@ def plan_delta(graph: CSCGraph, delta: GraphDelta, hops: int,
     # bitwise identical (the oracle's ground)
     g2 = build_graph(
         src.astype(np.uint32), dst.astype(np.uint32), new_v,
-        weight="gcn_norm",
+        weight="gcn_norm", use_native=False,
     )
 
     changed_dst = np.unique(np.concatenate([delta.remove_dst, delta.add_dst]))

@@ -7,11 +7,13 @@ host graph cache (``bench.py``'s ``_CACHE_FIELDS``, ``cache_dir_for``,
 ``build_and_cache_graph``, ``load_cached_graph``). The graph is
 ``graph/synthetic.synthetic_power_law_graph`` at Reddit's V and E times
 ``scale``, seed 7, GCN-normalised weights, built once by
-``graph/storage.build_graph`` (NumPy) and written as ``.npy`` files.
+``graph/storage.build_graph`` (native when ``native/`` is available, else
+NumPy) and written as ``.npy`` files.
 
-The cache key ends in ``_torch``: the reference builds with its native
-sort, whose tied-edge order differs from the port's NumPy build, so
-neither package reads graph files that the other built. The cache lives
+The cache key names the builder (``native`` or ``numpy``: a native build
+sorts a destination's edges by source, the NumPy one keeps their input
+order) and ends in ``_torch``, so neither package, nor either builder,
+reads graph files that the other built. The cache lives
 under ``NTS_BENCH_CACHE``, else ``nts_bench_cache`` in the temporary
 directory (``TMPDIR``).
 """
@@ -69,14 +71,22 @@ def cache_root() -> str:
         tempfile.gettempdir(), "nts_bench_cache")
 
 
-def _key_suffix(v_num: int, e_num: int) -> str:
-    return f"V{v_num}_E{e_num}_seed{SEED}_gcnnorm_torch"
+def builder() -> str:
+    """The host graph builder this process uses: ``native`` or ``numpy``."""
+    from neutronstarlite_torch import native
+
+    return "native" if native.available() else "numpy"
+
+
+def _key_suffix(v_num: int, e_num: int, built_by: str) -> str:
+    return f"V{v_num}_E{e_num}_seed{SEED}_gcnnorm_{built_by}_torch"
 
 
 def cache_dir_for(scale: float, v_num: int, e_num: int) -> str:
     """The key encodes everything the cached bytes depend on (size,
-    generator seed, weight scheme, the building package)."""
-    return os.path.join(cache_root(), f"scale_{scale:g}_{_key_suffix(v_num, e_num)}")
+    generator seed, weight scheme, the builder, the building package)."""
+    return os.path.join(cache_root(),
+                        f"scale_{scale:g}_{_key_suffix(v_num, e_num, builder())}")
 
 
 def build_and_cache_graph(scale: float):
@@ -94,7 +104,8 @@ def build_and_cache_graph(scale: float):
     t0 = time.time()
     os.makedirs(d, exist_ok=True)
     src, dst = synthetic_power_law_graph(v_num, e_num, seed=SEED)
-    g = build_graph(src, dst, v_num, weight="gcn_norm")
+    g = build_graph(src, dst, v_num, weight="gcn_norm",
+                    use_native=os.path.basename(d).endswith("_native_torch"))
     np.save(os.path.join(d, "src.npy"), src)
     np.save(os.path.join(d, "dst.npy"), dst)
     for name in _CACHE_FIELDS:
@@ -113,7 +124,9 @@ def load_cached_graph(d: str):
 
     with open(os.path.join(d, "meta.json")) as fh:
         meta = json.load(fh)
-    if not os.path.basename(d).endswith(_key_suffix(meta["v_num"], meta["e_num"])):
+    name = os.path.basename(d)
+    if not any(name.endswith(_key_suffix(meta["v_num"], meta["e_num"], b))
+               for b in ("native", "numpy")):
         raise ValueError(f"stale graph cache {d}: meta {meta}")
     fields = {name: np.load(os.path.join(d, name + ".npy")) for name in _CACHE_FIELDS}
     g = CSCGraph(v_num=meta["v_num"], e_num=meta["e_num"], **fields)

@@ -1027,8 +1027,10 @@ def test_port_router_serves_through_a_jax_exporter(jax_ckpt, tmp_path, monkeypat
 def test_two_real_replicas_replay_bitwise_and_respawn(jax_ckpt, tmp_path):
     """CrossHostFleet.spawn starts 2 port children with --device cpu on
     configs/serve_fleet_smoke.cfg from the reference's checkpoint. Each
-    child's replay probe is bitwise the in-process port engine's and within
-    1e-5 of the reference engine's on the same replay seed (sync mode); a
+    child's replay probe is bitwise the in-process port engine's (each
+    process builds its own native graph); the port engine over the NumPy
+    graph is within 1e-5 of the reference engine's on the same replay seed
+    (sync mode); a
     SIGKILL costs one target_loss and one supervised respawn."""
     from neutronstarlite_torch.obs import httpc as t_httpc
     from neutronstarlite_tpu.serve.engine import InferenceEngine as JEngine
@@ -1046,8 +1048,11 @@ def test_two_real_replicas_replay_bitwise_and_respawn(jax_ckpt, tmp_path):
     try:
         assert all(set(r.startup) >= {"import_s", "cuda_init_s", "graph_s", "restore_s",
                                       "capture_s"} for r in fleet.replicas)
-        engine = _port_engine(cfg_path, ckpt)
+        engine = _port_engine(cfg_path, ckpt)  # the children's default graph build
         with pytest.MonkeyPatch.context() as mp:
+            # the reference side draws over its NumPy graph: so does this one
+            mp.setenv("NTS_NO_NATIVE", "1")
+            np_engine = _port_engine(cfg_path, ckpt)
             mp.setattr(jax_native, "available", lambda: False)
             j_engine = JEngine.from_config(JInfo.read_from_cfg_file(cfg_path),
                                            base_dir=os.path.dirname(cfg_path),
@@ -1055,7 +1060,8 @@ def test_two_real_replicas_replay_bitwise_and_respawn(jax_ckpt, tmp_path):
         for seed in (3, 4):
             want = _pinned(engine, IDS, seed)
             j_want = np.asarray(_pinned(j_engine, IDS, seed), dtype=np.float32)
-            np.testing.assert_allclose(want, j_want, rtol=0, atol=1e-5)
+            np.testing.assert_allclose(_pinned(np_engine, IDS, seed), j_want, rtol=0,
+                                       atol=1e-5)
             for r in fleet.replicas:
                 out = _post(t_httpc, r.predict_url, {"node_ids": IDS, "replay_seed": seed})
                 np.testing.assert_array_equal(np.asarray(out["values"], np.float32), want)

@@ -93,7 +93,7 @@ def _rand_graphs(v=50, e=300, seed=0):
     rng = np.random.default_rng(seed)
     src = rng.integers(0, v, e).astype(np.uint32)
     dst = rng.integers(0, v, e).astype(np.uint32)
-    return src, dst, build_graph(src, dst, v), j_build_graph(src, dst, v, use_native=False)
+    return src, dst, build_graph(src, dst, v, use_native=False), j_build_graph(src, dst, v, use_native=False)
 
 
 def _deltas(src, dst, v):
@@ -132,7 +132,7 @@ def test_plan_is_bitwise_jax(name, hops):
     assert (t.v_num, t.added_edges, t.removed_edges, t.added_vertices, t.hops) == \
         (j.v_num, j.added_edges, j.removed_edges, j.added_vertices, j.hops)
     # the oracle's ground: the plan's graph is a fresh build of its edge list
-    _assert_graphs_equal(t.graph, build_graph(t.src, t.dst, t.v_num))
+    _assert_graphs_equal(t.graph, build_graph(t.src, t.dst, t.v_num, use_native=False))
 
 
 @pytest.mark.parametrize("n_rm", [1, 50, 500])
@@ -180,7 +180,7 @@ def test_dirty_sets_on_a_ring():
 @pytest.mark.parametrize("case", ["missing", "outside", "no_features", "mismatch"])
 def test_refusals_equal_jax(case):
     ring = np.arange(4, dtype=np.uint32)
-    g, jg = build_graph(ring, np.roll(ring, -1), 4), \
+    g, jg = build_graph(ring, np.roll(ring, -1), 4, use_native=False), \
         j_build_graph(ring, np.roll(ring, -1), 4, use_native=False)
 
     def outcome(mod, graph):
@@ -231,7 +231,7 @@ def _table_case(case, monkeypatch):
 @pytest.mark.parametrize("case", ["patch", "append_rebuild", "width", "margin", "thinned"])
 def test_patched_table_is_a_fresh_table_and_jax(case, monkeypatch):
     src, dst, v, deltas, margin = _table_case(case, monkeypatch)
-    g, jg = build_graph(src, dst, v), j_build_graph(src, dst, v, use_native=False)
+    g, jg = build_graph(src, dst, v, use_native=False), j_build_graph(src, dst, v, use_native=False)
     ts = t_device_sampler.DeviceUniformSampler.from_host(g)
     js = j_device_sampler.DeviceUniformSampler.from_host(jg)
     ts.reserve_capacity(margin)
@@ -284,7 +284,7 @@ def _fresh_engine(plan, datum, ckpt, mode, seed=123, feature_rows=None):
         datum = GNNDatum(feature=np.concatenate([datum.feature, feature_rows]),
                          label=np.concatenate([datum.label, np.zeros(k, np.int32)]),
                          mask=np.concatenate([datum.mask, np.full(k, 2, np.int32)]))
-    g = build_graph(plan.src, plan.dst, plan.v_num)
+    g = build_graph(plan.src, plan.dst, plan.v_num, use_native=False)
     cfg = _serve_cfg(InputInfo, ckpt)
     cfg.sample_pipeline = mode
     cfg.vertices = plan.v_num

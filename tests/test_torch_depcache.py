@@ -90,7 +90,7 @@ def _env(monkeypatch):
 @pytest.fixture(scope="module")
 def cora():
     src, dst = j_load_edges(EDGES)
-    return (src, dst, j_build_graph(src, dst, V, use_native=False), build_graph(src, dst, V))
+    return (src, dst, j_build_graph(src, dst, V, use_native=False), build_graph(src, dst, V, use_native=False))
 
 
 @pytest.fixture(scope="module")
@@ -104,7 +104,7 @@ def tiny():
     loops = np.arange(v_num, dtype=np.uint32)
     src = np.concatenate([src, np.full(120, 5, np.uint32), loops])
     dst = np.concatenate([dst, many, loops])
-    return j_build_graph(src, dst, v_num, use_native=False), build_graph(src, dst, v_num)
+    return j_build_graph(src, dst, v_num, use_native=False), build_graph(src, dst, v_num, use_native=False)
 
 
 # ---- tables, bitwise --------------------------------------------------------------

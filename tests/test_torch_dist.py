@@ -112,7 +112,7 @@ def _tiny_graph(seed=3, v_num=300, e_num=2400):
     src = np.concatenate([src, many, np.full(200, 5, np.uint32), loops])
     dst = np.concatenate([dst, np.full(200, 5, np.uint32), many, loops])
     return (j_build_graph(src, dst, v_num, use_native=False),
-            build_graph(src, dst, v_num))
+            build_graph(src, dst, v_num, use_native=False))
 
 
 @pytest.fixture(scope="module")
@@ -123,7 +123,7 @@ def tiny():
 @pytest.fixture(scope="module")
 def cora():
     src, dst = j_load_edges(EDGES)
-    return src, dst, j_build_graph(src, dst, V, use_native=False), build_graph(src, dst, V)
+    return src, dst, j_build_graph(src, dst, V, use_native=False), build_graph(src, dst, V, use_native=False)
 
 
 # ---- DistGraph and the per-shard tables, bitwise ---------------------------------

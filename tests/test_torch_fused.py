@@ -126,7 +126,7 @@ def _graphs(name, weight):
     if key not in _GRAPHS:
         src, dst, v = _edges(name)
         _GRAPHS[key] = (j_build_graph(src, dst, v, weight=weight, use_native=False),
-                        build_graph(src, dst, v, weight))
+                        build_graph(src, dst, v, weight, use_native=False))
     return _GRAPHS[key]
 
 
@@ -293,7 +293,7 @@ def test_fused_empty_destinations_give_exact_zeros():
     src = np.arange(v, dtype=np.uint32) % hub + np.uint32(hub)
     dst = np.arange(v, dtype=np.uint32) % hub
     jg = j_build_graph(src % v, dst, v, weight="ones", use_native=False)
-    tg = build_graph(src % v, dst, v, "ones")
+    tg = build_graph(src % v, dst, v, "ones", use_native=False)
     ins = _fused_inputs(v, 5, 1, seed=0)
     want = _jax_fused(j_fused.FusedEdgePair.from_host(jg, vt=8), *ins, GAT_SLOPE)
     got = _torch_fused(t_fused.FusedEdgePair.from_host(tg, vt=8), *ins, GAT_SLOPE)

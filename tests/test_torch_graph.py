@@ -177,7 +177,7 @@ def _assert_graph_equal(a, b):
 def test_build_graph_bitwise(weight):
     src, dst = _random_graph(3, 211, 1900, hub=300)
     _assert_graph_equal(
-        t_storage.build_graph(src, dst, 211, weight=weight),
+        t_storage.build_graph(src, dst, 211, weight=weight, use_native=False),
         jax_storage.build_graph(src, dst, 211, weight=weight, use_native=False),
     )
 
@@ -189,7 +189,7 @@ def test_cora_fixture_load_and_build_bitwise():
     np.testing.assert_array_equal(s1, s2)
     np.testing.assert_array_equal(d1, d2)
     _assert_graph_equal(
-        t_storage.build_graph(s1, d1, 2708),
+        t_storage.build_graph(s1, d1, 2708, use_native=False),
         jax_storage.build_graph(s2, d2, 2708, use_native=False),
     )
     np.testing.assert_array_equal(
@@ -231,7 +231,7 @@ def _ell_cases():
 def test_ell_tables_bitwise(case, no_native):
     src, dst = dict(_ell_cases())[case]
     v = {"hub": 300, "isolated": 120, "edgeless": 17}[case]
-    g = t_storage.build_graph(src, dst, v)
+    g = t_storage.build_graph(src, dst, v, use_native=False)
     ours = t_ell.EllPair.from_host(g)
     ref = jax_ell.EllPair.from_host(jax_storage.build_graph(src, dst, v, use_native=False))
     for side in ("fwd", "bwd"):
@@ -254,7 +254,7 @@ def test_ell_tables_bitwise(case, no_native):
 def test_bsp_tables_bitwise(geom, no_native):
     dt, vt, K, R = geom
     src, dst = _random_graph(9, 173, 1400, hub=90)
-    g = t_storage.build_graph(src, dst, 173)
+    g = t_storage.build_graph(src, dst, 173, use_native=False)
     ours = t_bsp.BspEllPair.from_host(g, dt=dt, vt=vt, k_slots=K, r_rows=R)
     ref = jax_bsp.BspEllPair.from_host(
         jax_storage.build_graph(src, dst, 173, use_native=False),
@@ -277,7 +277,7 @@ def test_bsp_tables_bitwise(geom, no_native):
 
 def test_bsp_tables_edgeless(no_native):
     empty = np.zeros(0, np.uint32)
-    g = t_storage.build_graph(empty, empty, 13, weight="ones")
+    g = t_storage.build_graph(empty, empty, 13, weight="ones", use_native=False)
     ours = t_bsp.BspEll.build(13, g.column_offset, g.row_indices,
                               g.edge_weight_forward, dt=4, vt=4, k_slots=4, r_rows=8)
     ref = jax_bsp.BspEll.build(13, g.column_offset, g.row_indices,

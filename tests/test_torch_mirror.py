@@ -131,7 +131,7 @@ def _env(monkeypatch, background):
 
 def _graphs(src, dst, v_num, weight="ones"):
     return (j_build_graph(src, dst, v_num, weight=weight, use_native=False),
-            build_graph(src, dst, v_num, weight=weight))
+            build_graph(src, dst, v_num, weight=weight, use_native=False))
 
 
 @pytest.fixture(scope="module")

@@ -626,7 +626,7 @@ def _sample_cfg(cls, epochs, mode="", **kw):
 @pytest.fixture(scope="module")
 def sample_graph():
     src, dst = load_edges(EDGES)
-    return src, dst, build_graph(src, dst, V)
+    return src, dst, build_graph(src, dst, V, use_native=False)
 
 
 def _port_sampled(tmp, mode, graph, epochs=2, p0=None, **env):
@@ -690,7 +690,8 @@ def jax_sync(tmp_path_factory):
     return p0, list(tr.loss_history), _stream(tmp)
 
 
-def test_sampled_sync_counters_match_reference(jax_sync, sample_graph, tmp_path):
+def test_sampled_sync_counters_match_reference(jax_sync, sample_graph, tmp_path, monkeypatch):
+    monkeypatch.setenv("NTS_NO_NATIVE", "1")  # JAX's side draws with NumPy
     p0, j_losses, jrecs = jax_sync
     tr, recs = _port_sampled(tmp_path, "sync", sample_graph, p0=p0)
     np.testing.assert_allclose(tr.loss_history, j_losses, rtol=0, atol=1e-4)
@@ -795,7 +796,7 @@ def _dist_run(tmp, jax_side, p0=None, supervised=False, **env):
         else:
             tr = get_algorithm("GCNDIST").from_arrays(
                 _dist_cfg(InputInfo), src, dst, datum, device="cpu",
-                host_graph=build_graph(src, dst, DIST_V))
+                host_graph=build_graph(src, dst, DIST_V, use_native=False))
             if p0 is not None:
                 tr.load_params(p0)
             supervised_run(tr) if supervised else tr.run()

@@ -145,7 +145,7 @@ def _env(monkeypatch, background):
 
 
 def _graph(src, dst, v_num):
-    return j_build_graph(src, dst, v_num, use_native=False), build_graph(src, dst, v_num)
+    return j_build_graph(src, dst, v_num, use_native=False), build_graph(src, dst, v_num, use_native=False)
 
 
 @pytest.fixture(scope="module")

@@ -108,7 +108,7 @@ def one_thread():
 @pytest.fixture(scope="module")
 def graphs():
     src, dst = load_edges(EDGES)
-    return src, dst, build_graph(src, dst, V), j_build_graph(src, dst, V, use_native=False)
+    return src, dst, build_graph(src, dst, V, use_native=False), j_build_graph(src, dst, V, use_native=False)
 
 
 @pytest.fixture
@@ -126,7 +126,7 @@ def test_sampler_batches_bitwise_jax(graphs, how, fanouts):
     _, _, g, jg = graphs
     nids = np.arange(0, V, 7)
     if how == "seed":
-        t = t_sampler.Sampler(g, nids, 32, fanouts, seed=11)
+        t = t_sampler.Sampler(g, nids, 32, fanouts, seed=11, use_native=False)
         j = j_sampler.Sampler(jg, nids, 32, fanouts, seed=11, use_native=False)
     else:
         t = t_sampler.Sampler(g, nids, 32, fanouts, rng=np.random.default_rng(5))
@@ -142,6 +142,7 @@ def test_sampler_batches_bitwise_jax(graphs, how, fanouts):
 def test_parallel_sampler_bitwise_jax(graphs, monkeypatch):
     _, _, g, jg = graphs
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setenv("NTS_NO_NATIVE", "1")  # the port's NumPy draws
     nids = np.arange(0, V, 5)
     port = t_parallel.ParallelEpochSampler(g, nids, 32, [3, 3], seed=4, workers=0)
     ref = j_parallel.ParallelEpochSampler(jg, nids, 32, [3, 3], seed=4, workers=0)
@@ -160,7 +161,7 @@ from neutronstarlite_torch.sample.parallel import ParallelEpochSampler
 
 def main():
     src, dst = load_edges(sys.argv[1])
-    g = build_graph(src, dst, 2708)
+    g = build_graph(src, dst, 2708, use_native=False)
     nids = np.arange(0, 2708, 5)
     inline = ParallelEpochSampler(g, nids, 32, [3, 3], seed=4, workers=0)
     pool = ParallelEpochSampler(g, nids, 32, [3, 3], seed=4, workers=2, ctx_method=sys.argv[2])
@@ -201,6 +202,7 @@ def test_port_pool_matches_inline_bitwise(tmp_path, ctx):
 
 
 def test_fork_pool_refused_once_cuda_is_initialised(graphs, monkeypatch):
+    monkeypatch.setenv("NTS_NO_NATIVE", "1")  # a NumPy pool forks; a native one spawns
     monkeypatch.setattr(t_parallel, "cuda_initialized", lambda: True)
     s = t_parallel.ParallelEpochSampler(graphs[2], np.arange(64), 32, [3, 3], workers=2,
                                         ctx_method="fork")
@@ -282,7 +284,8 @@ def _port(mode, p0=None, epochs=EPOCHS, host_graph=None, **kw):
     return tr
 
 
-def test_sync_trainer_loss_curve_and_accuracy_match_jax(jax_sync, workers0):
+def test_sync_trainer_loss_curve_and_accuracy_match_jax(jax_sync, workers0, monkeypatch):
+    monkeypatch.setenv("NTS_NO_NATIVE", "1")  # JAX's side draws with NumPy
     p0, want, want_acc = jax_sync
     tr = _port("sync", p0)
     result = tr.run()
@@ -322,7 +325,7 @@ def test_pipelined_losses_equal_sync_bitwise(graphs, workers0, monkeypatch, mode
 def _toy_graph(seed, v_num=60, e_num=600):
     rng = np.random.default_rng(seed)
     pairs = np.unique(rng.integers(0, v_num, size=(e_num, 2)), axis=0)
-    return build_graph(pairs[:, 0], pairs[:, 1], v_num)
+    return build_graph(pairs[:, 0], pairs[:, 1], v_num, use_native=False)
 
 
 def test_device_sampler_exact_when_fanout_covers_degree():

@@ -93,7 +93,8 @@ def one_thread():
 @pytest.fixture(scope="module")
 def graphs():
     src, dst = load_edges(EDGES)
-    return src, dst, build_graph(src, dst, V), j_build_graph(src, dst, V, use_native=False)
+    return (src, dst, build_graph(src, dst, V, use_native=False),
+            j_build_graph(src, dst, V, use_native=False))
 
 
 @pytest.fixture(autouse=True)
@@ -168,7 +169,8 @@ def _toy(seed=0, v_num=60, e_num=600):
     rng = np.random.default_rng(seed)
     src = rng.integers(0, v_num, size=e_num)
     dst = rng.integers(0, v_num, size=e_num)
-    return build_graph(src, dst, v_num), j_build_graph(src, dst, v_num, use_native=False)
+    return (build_graph(src, dst, v_num, use_native=False),
+            j_build_graph(src, dst, v_num, use_native=False))
 
 
 @pytest.mark.parametrize("max_width", [None, 6])

@@ -260,7 +260,7 @@ def planted():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_native, "available", lambda: False)
         jg = j_build_graph(src, dst, V, use_native=False)
-    return src, dst, datum, build_graph(src, dst, V), jg
+    return src, dst, datum, build_graph(src, dst, V, use_native=False), jg
 
 
 def test_hot_vertex_mask_and_sample_batch_equal_jax(planted):

@@ -108,7 +108,7 @@ def _base(v=40, e=160, seed=3):
     rng = np.random.default_rng(seed)
     src = rng.integers(0, v, e).astype(np.uint32)
     dst = rng.integers(0, v, e).astype(np.uint32)
-    return src, dst, build_graph(src, dst, v), j_build_graph(src, dst, v, use_native=False)
+    return src, dst, build_graph(src, dst, v, use_native=False), j_build_graph(src, dst, v, use_native=False)
 
 
 def _writer_deltas(v, writer_seed):
@@ -303,7 +303,7 @@ def test_graph_gen_equals_jax(kind, tmp_path):
     tr = graph_gen.delta_trace(t[0], t[1], 300, 16, rounds=6, writers=2, vertex_every=3, seed=5)
     jr = j_graph_gen.delta_trace(j[0], j[1], 300, 16, rounds=6, writers=2, vertex_every=3,
                                  seed=5)
-    graph = build_graph(t[0], t[1], 300)
+    graph = build_graph(t[0], t[1], 300, use_native=False)
     tl = graph_gen.write_trace_log(str(tmp_path / "t"), graph, tr)
     jl = j_graph_gen.write_trace_log(str(tmp_path / "j"), j_build_graph(j[0], j[1], 300,
                                                                          use_native=False), jr)
@@ -509,6 +509,7 @@ def test_a_round_matches_jax_s_worker(planted, jax_trained, tmp_path, monkeypatc
     jtr, ckpt = jax_trained
     src, dst, d0, _, jg = planted
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setenv("NTS_NO_NATIVE", "1")  # the port's NumPy draws
     cfg = _serve_cfg(JInfo, ckpt)
     cfg.drop_rate = 0.0
     jtk = JSample.from_arrays(cfg, src, dst, JDatum(feature=d0.feature, label=d0.label,

@@ -958,6 +958,9 @@ def test_bench_sample_prints_the_reference_keys(capsys):
 
 
 def test_sample_bench_modes_parity_and_ledger_rows(tmp_path, monkeypatch, capsys):
+    # the tool sets NTS_FINAL_EVAL=0 for its process: set here, it is
+    # restored afterwards (a later test in this process trains with it unset)
+    monkeypatch.setenv("NTS_FINAL_EVAL", "0")
     monkeypatch.setenv("NTS_LEDGER_DIR", str(tmp_path / "ledger"))
     monkeypatch.setenv("NTS_SAMPLE_PIPELINE", "sync")  # ignored: each leg picks its mode
     epochs = 2
