@@ -54,7 +54,10 @@ Observability, as in the reference:
 - one step, counted and then undone, gives the ``program_cost`` records
   once per trainer before the first epoch (``obs/cost``);
 - ``NTS_PROFILE_DIR`` records a ``torch.profiler`` trace of the epochs from
-  the second one on;
+  the second one on; under any recording profiler the step's phases are the
+  scopes ``nts.step.forward``/``backward``/``optim``, and their host
+  seconds always add to the counters ``step.forward_s``/``backward_s``/
+  ``optim_s``;
 - ``NTS_DEBUGINFO=1`` prints the forward / backward / update report after
   training (``models/debuginfo.py``; a trainer with an nn-only forward,
   ``nn_only_forward``, adds the nn / graph split: the distributed ones);
@@ -92,7 +95,7 @@ from neutronstarlite_torch.ops.fused_edge import FusedEdgePair
 from neutronstarlite_torch.resilience.faults import fault_point
 from neutronstarlite_torch.utils.config import check_supported
 from neutronstarlite_torch.utils.logging import get_logger
-from neutronstarlite_torch.utils.profiling import maybe_trace
+from neutronstarlite_torch.utils.profiling import annotate, maybe_trace
 from neutronstarlite_torch.utils.timing import get_time
 
 log = get_logger("fullbatch")
@@ -188,7 +191,8 @@ class FullBatchTrainer(ToolkitBase):
                 pair.fwd.vt, len(pair.fwd.nbr), pair.fwd.slot_count(),
             )
         else:
-            pair = EllPair.from_host(g, device=dev)
+            with self.timers.phase("ell_tables"):
+                pair = EllPair.from_host(g, device=dev)
             log.info(
                 "OPTIM_KERNEL: ELL-level aggregation kernel (%d fwd buckets)",
                 len(pair.fwd.nbr),
@@ -276,7 +280,7 @@ class FullBatchTrainer(ToolkitBase):
 
         loss, logits = self._forward_backward(tap)
         grads = [p.grad for p in self.flat_params]
-        adam_update(self.flat_params, grads, self.opt_state, self.adam_cfg)
+        self._optim_step()
         # a narrowed wire (the distributed ring's WIRE_DTYPE) adds its
         # layer-0 payload at the wire dtype and its quantisation error
         wire_dtype = getattr(self, "wire_dtype", None)
@@ -291,21 +295,39 @@ class FullBatchTrainer(ToolkitBase):
         """Forward, loss and backward of one epoch, the gradients left on
         the parameters; returns (loss, logits), detached. The step's first
         half (``NTS_TRACE_STEP`` and DEBUGINFO time it alone). ``tap``
-        runs ``forward_taped`` (the stats step's activations)."""
+        runs ``forward_taped`` (the stats step's activations).
+
+        The phases are the profiler scopes ``nts.step.forward`` and
+        ``nts.step.backward``; their host seconds add to the counters
+        ``step.forward_s`` and ``step.backward_s`` (the backward's is the
+        calling thread's wall time in ``loss.backward()``). The gradients'
+        reset and the detaches lie outside both: they launch nothing."""
         for p in self.flat_params:
             p.grad = None
-        logits = None
-        if tap is not None:
-            logits = self.forward_taped(self.params, self.compute_graph, self.feature, tap)
-        if logits is None:
-            logits = self.model_forward(self.params, self.compute_graph, self.feature, True)
-        loss = self.masked_nll_loss(logits, self.label, self.train01)
-        loss.backward()
+        t0 = get_time()
+        with annotate("nts.step.forward"):
+            logits = None
+            if tap is not None:
+                logits = self.forward_taped(self.params, self.compute_graph, self.feature, tap)
+            if logits is None:
+                logits = self.model_forward(self.params, self.compute_graph, self.feature, True)
+            loss = self.masked_nll_loss(logits, self.label, self.train01)
+        t1 = get_time()
+        with annotate("nts.step.backward"):
+            loss.backward()
+        t2 = get_time()
+        self.metrics.counter_add("step.forward_s", t1 - t0)
+        self.metrics.counter_add("step.backward_s", t2 - t1)
         return loss.detach(), logits.detach()
 
     def _optim_step(self) -> None:
-        adam_update(self.flat_params, [p.grad for p in self.flat_params],
-                    self.opt_state, self.adam_cfg)
+        """Adam in place: the scope ``nts.step.optim``; its host seconds add
+        to the counter ``step.optim_s``."""
+        t0 = get_time()
+        with annotate("nts.step.optim"):
+            adam_update(self.flat_params, [p.grad for p in self.flat_params],
+                        self.opt_state, self.adam_cfg)
+        self.metrics.counter_add("step.optim_s", get_time() - t0)
 
     @torch.no_grad()
     def eval_logits(self) -> torch.Tensor:

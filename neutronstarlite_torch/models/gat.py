@@ -38,6 +38,7 @@ from neutronstarlite_torch.ops.ell import EllPair
 from neutronstarlite_torch.ops.ell_gat import GatEllPair, gat_ell_attention_aggregate
 from neutronstarlite_torch.ops.fused_edge import FusedEdgePair, fused_edge_attention_aggregate
 from neutronstarlite_torch.utils.config import GAT_ALGORITHMS
+from neutronstarlite_torch.utils.profiling import annotate
 
 LEAKY_SLOPE = 0.01  # torch::leaky_relu's default, as the reference's edge NN
 
@@ -65,8 +66,9 @@ def gat_layer(graph, W, a, x, last: bool) -> torch.Tensor:
 def gat_layer_ell(gep: GatEllPair, W, a, x, last: bool) -> torch.Tensor:
     h = x @ W
     f = h.shape[1]
-    al = (h @ a[:f])[:, 0]
-    ar = (h @ a[f:])[:, 0]
+    with annotate("nts.gat.project"):
+        al = (h @ a[:f])[:, 0]
+        ar = (h @ a[f:])[:, 0]
     out = gat_ell_attention_aggregate(gep, h, al, ar, LEAKY_SLOPE)
     return out if last else torch.relu(out)
 
@@ -112,7 +114,8 @@ class GATTrainer(FullBatchTrainer):
                 f"layouts ({type(compute_graph).__name__}) are not supported with "
                 f"ALGORITHM:{self.cfg.algorithm}"
             )
-        return GatEllPair.from_pair(compute_graph, self.host_graph)
+        with self.timers.phase("slot_maps"):
+            return GatEllPair.from_pair(compute_graph, self.host_graph)
 
     def model_forward(self, params, graph, x, train: bool):
         return gat_forward(graph, params, x, self.cfg.drop_rate if train else 0.0,

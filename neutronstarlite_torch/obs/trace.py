@@ -24,8 +24,9 @@ Clock model (documented in docs/OBSERVABILITY.md):
   spans (every rank ends epoch e at the same collective barrier), again
   in tools/trace_timeline — the tracer itself never talks to other ranks.
 
-While an ``NTS_PROFILE_DIR`` trace records (``utils/profiling.maybe_trace``),
-LIVE spans (context-manager or ``begin()``/``end()``) additionally open a
+While a torch profiler records in this process (``NTS_PROFILE_DIR``'s
+``utils/profiling.maybe_trace``, a benchmark's or an operator's own), LIVE
+spans (context-manager or ``begin()``/``end()``) additionally open a
 ``torch.profiler.record_function`` scope so the same names appear inside
 the device trace — host causality and device ops land in one Perfetto
 view. Spans emitted retroactively via ``complete()`` (epoch/stage/request/

@@ -23,6 +23,11 @@ src-half gather ``al[nbr]`` with a scatter-free transpose over the
 backward tables: each backward row collects one vertex's forward slots,
 so the sum is a row reduction in a fixed order (autograd's indexed
 backward would add with atomics in a varying order).
+
+Profiler scopes (``utils/profiling.annotate``, open while a profiler
+records): ``nts.gat.scores``, ``nts.gat.softmax``, ``nts.gat.transpose``
+(both slot-map transposes) and ``nts.gat.grad_alpha``; the aggregation's
+own is ``nts.ell.aggregate``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from neutronstarlite_torch.graph.storage import CSCGraph
 from neutronstarlite_torch.ops.ell import _PLAIN_CHUNK_ELEMS, EllBuckets, EllPair
 from neutronstarlite_torch.ops.ell_kernel import EllWeightedAggregate
+from neutronstarlite_torch.utils.profiling import annotate
 
 NEG_INF = -1e30  # masked-slot score (a finite sentinel, not inf)
 
@@ -148,25 +154,27 @@ class GatEllPair:
         bwd = self.pair.bwd
         if not alphas:
             return []
-        alpha_flat = torch.cat([a.reshape(-1) for a in alphas])
-        if alpha_flat.numel():
-            vals = alpha_flat.index_select(0, self.bwd_idx_flat)
-            flat = torch.where(self.bwd_real_flat, vals, torch.zeros_like(vals))
-        else:
-            flat = alpha_flat.new_zeros(self.bwd_idx_flat.shape)
-        return [part.view(n.shape) for part, n in
-                zip(torch.split(flat, [n.numel() for n in bwd.nbr]), bwd.nbr)]
+        with annotate("nts.gat.transpose"):
+            alpha_flat = torch.cat([a.reshape(-1) for a in alphas])
+            if alpha_flat.numel():
+                vals = alpha_flat.index_select(0, self.bwd_idx_flat)
+                flat = torch.where(self.bwd_real_flat, vals, torch.zeros_like(vals))
+            else:
+                flat = alpha_flat.new_zeros(self.bwd_idx_flat.shape)
+            return [part.view(n.shape) for part, n in
+                    zip(torch.split(flat, [n.numel() for n in bwd.nbr]), bwd.nbr)]
 
     def grad_alphas(self, g: torch.Tensor, h: torch.Tensor) -> List[torch.Tensor]:
         """grad_alpha[r, k] = g[row_vertex[r]] . h[nbr[r, k]] per forward
         level, 0 on padding (f32 products, cast to g's dtype)."""
         fwd = self.pair.fwd
-        g_rows = g[self.fwd_row_vertex]
-        starts = self.row_starts()
-        return [
-            grad_alpha_level(g_rows[starts[i]:starts[i + 1]], h, nbr, real).to(g.dtype)
-            for i, (nbr, real) in enumerate(zip(fwd.nbr, self.fwd_real))
-        ]
+        with annotate("nts.gat.grad_alpha"):
+            g_rows = g[self.fwd_row_vertex]
+            starts = self.row_starts()
+            return [
+                grad_alpha_level(g_rows[starts[i]:starts[i + 1]], h, nbr, real).to(g.dtype)
+                for i, (nbr, real) in enumerate(zip(fwd.nbr, self.fwd_real))
+            ]
 
 
 class GatherAlLevels(torch.autograd.Function):
@@ -183,40 +191,50 @@ class GatherAlLevels(torch.autograd.Function):
         gep = ctx.gep
         fwd, bwd = gep.pair.fwd, gep.pair.bwd
         dtype, dev = next((g.dtype, g.device) for g in grads if g is not None)
-        g_flat = torch.cat([
-            (g if g is not None else torch.zeros(n.shape, dtype=dtype, device=dev)).reshape(-1)
-            for g, n in zip(grads, fwd.nbr)
-        ])
-        if g_flat.numel():
-            vals = g_flat.index_select(0, gep.bwd_idx_flat)
-            vals = torch.where(gep.bwd_real_flat, vals, torch.zeros_like(vals))
-        else:
-            vals = g_flat.new_zeros(gep.bwd_idx_flat.shape)
-        parts = [
-            part.view(n.shape).sum(dim=1)
-            for part, n in zip(torch.split(vals, [n.numel() for n in bwd.nbr]), bwd.nbr)
-        ]
-        return torch.cat(parts)[bwd.inv_perm], None
+        with annotate("nts.gat.transpose"):
+            g_flat = torch.cat([
+                (g if g is not None else torch.zeros(n.shape, dtype=dtype, device=dev)
+                 ).reshape(-1)
+                for g, n in zip(grads, fwd.nbr)
+            ])
+            if g_flat.numel():
+                vals = g_flat.index_select(0, gep.bwd_idx_flat)
+                vals = torch.where(gep.bwd_real_flat, vals, torch.zeros_like(vals))
+            else:
+                vals = g_flat.new_zeros(gep.bwd_idx_flat.shape)
+            parts = [
+                part.view(n.shape).sum(dim=1)
+                for part, n in zip(torch.split(vals, [n.numel() for n in bwd.nbr]), bwd.nbr)
+            ]
+            return torch.cat(parts)[bwd.inv_perm], None
 
 
 def gat_ell_alpha(gep: GatEllPair, al: torch.Tensor, ar: torch.Tensor, slope: float):
     """Per-level attention weights: the masked softmax of
     leaky_relu(al[src] + ar[dst]) over each destination row's live slots,
-    stabilised by the detached row max; a row with no live slot is 0."""
+    stabilised by the detached row max; a row with no live slot is 0.
+
+    The gathers and each level's scores are the profiler scope
+    ``nts.gat.scores``, each level's softmax (an empty level's zeros too)
+    ``nts.gat.softmax``: one scope of each per level."""
     fwd = gep.pair.fwd
     starts = gep.row_starts()
-    al_levels = GatherAlLevels.apply(al, gep)
+    with annotate("nts.gat.scores"):
+        al_levels = GatherAlLevels.apply(al, gep)
     alphas = []
     for i, (nbr, real) in enumerate(zip(fwd.nbr, gep.fwd_real)):
         if nbr.shape[1] == 0:
-            alphas.append(torch.zeros(nbr.shape, dtype=al.dtype, device=al.device))
+            with annotate("nts.gat.softmax"):
+                alphas.append(torch.zeros(nbr.shape, dtype=al.dtype, device=al.device))
             continue
-        dst_v = gep.fwd_row_vertex[starts[i]:starts[i + 1]]
-        e = torch.nn.functional.leaky_relu(al_levels[i] + ar[dst_v][:, None], slope)
-        e = e.masked_fill(~real, NEG_INF)
-        e = e - e.amax(dim=1, keepdim=True).detach()
-        ex = torch.exp(e).masked_fill(~real, 0.0)
-        alphas.append(ex / ex.sum(dim=1, keepdim=True).clamp_min(1e-20))
+        with annotate("nts.gat.scores"):
+            dst_v = gep.fwd_row_vertex[starts[i]:starts[i + 1]]
+            e = torch.nn.functional.leaky_relu(al_levels[i] + ar[dst_v][:, None], slope)
+            e = e.masked_fill(~real, NEG_INF)
+        with annotate("nts.gat.softmax"):
+            e = e - e.amax(dim=1, keepdim=True).detach()
+            ex = torch.exp(e).masked_fill(~real, 0.0)
+            alphas.append(ex / ex.sum(dim=1, keepdim=True).clamp_min(1e-20))
     return alphas
 
 

@@ -41,6 +41,7 @@ import torch
 from neutronstarlite_torch.obs import cost
 from neutronstarlite_torch.ops import _build
 from neutronstarlite_torch.ops.ell import EllBuckets, ell_tables_aggregate
+from neutronstarlite_torch.utils.profiling import annotate
 
 _MAX_CTAS = 2 ** 31 - 1  # CUDA's limit on gridDim.x
 
@@ -219,7 +220,15 @@ def ell_level_aggregate(
 
     ``weights``: per-level weights computed at run time (same shapes as
     ``buckets.wgt``, float32, contiguous, on x's device) in place of the
-    tables' own; only the live slots ``[:deg]`` of a row are read."""
+    tables' own; only the live slots ``[:deg]`` of a row are read.
+
+    The whole call is the profiler scope ``nts.ell.aggregate``: on CUDA the
+    level pointers' copy, the output's allocation and the launches."""
+    with annotate("nts.ell.aggregate"):
+        return _aggregate(buckets, x, weights)
+
+
+def _aggregate(buckets: EllBuckets, x: torch.Tensor, weights) -> torch.Tensor:
     if x.device.type == "cpu":
         if weights is None:
             return buckets.plain(x)

@@ -4,10 +4,12 @@
 ``maybe_trace(label)`` records the enclosed region with ``torch.profiler``
 (host and, on a CUDA device, the card's kernels) when ``NTS_PROFILE_DIR``
 is set, and writes it as a Chrome trace under ``NTS_PROFILE_DIR/<label>/``.
-While such a trace records, ``annotate(name)`` is a
-``torch.profiler.record_function`` scope, so the tracer's live spans land
-inside the device trace under their own names; otherwise it is a no-op, and
-a run without ``NTS_PROFILE_DIR`` opens no profiler scope at all.
+While any torch profiler records in this process (``maybe_trace``'s, a
+benchmark's, an operator's own), ``annotate(name)`` is a
+``torch.profiler.record_function`` scope, so the tracer's live spans and the
+step's ``nts.*`` scopes land inside the trace under their own names, on the
+clock of the device's kernels; otherwise it is a shared no-op, and opens no
+profiler scope at all.
 """
 
 from __future__ import annotations
@@ -17,12 +19,14 @@ import os
 from contextlib import contextmanager, nullcontext
 from typing import Iterator, Optional
 
+import torch.autograd.profiler as _autograd_profiler
+
 from neutronstarlite_torch.utils.logging import get_logger
 
 log = get_logger("profiling")
 
-_recording = 0  # maybe_trace regions open in this process
 _trace_seq = itertools.count()  # one file name per trace of this process
+_NO_SCOPE = nullcontext()
 
 
 def profile_dir() -> Optional[str]:
@@ -30,8 +34,8 @@ def profile_dir() -> Optional[str]:
 
 
 def recording() -> bool:
-    """True while a ``maybe_trace`` region records."""
-    return _recording > 0
+    """True while a torch profiler records in this process, whoever opened it."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 @contextmanager
@@ -40,7 +44,6 @@ def maybe_trace(label: str = "nts", device=None) -> Iterator[None]:
     ``NTS_PROFILE_DIR`` is set (CUDA activity too when ``device`` is a CUDA
     device); no-op otherwise. The Chrome trace is written when the region
     ends normally."""
-    global _recording
     d = profile_dir()
     if not d:
         yield
@@ -54,11 +57,7 @@ def maybe_trace(label: str = "nts", device=None) -> Iterator[None]:
     if device is not None and torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        _recording += 1
-        try:
-            yield
-        finally:
-            _recording -= 1
+        yield
     out = os.path.join(path, f"trace-{os.getpid()}-{next(_trace_seq)}.json")
     try:
         prof.export_chrome_trace(out)
@@ -68,9 +67,8 @@ def maybe_trace(label: str = "nts", device=None) -> Iterator[None]:
 
 
 def annotate(name: str):
-    """A named profiler scope while a trace records, else a no-op."""
-    if not _recording:
-        return nullcontext()
-    import torch
-
-    return torch.profiler.record_function(name)
+    """A named profiler scope while a profiler records, else a shared no-op
+    (a ``record_function`` costs ~10 us even with no profiler running)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SCOPE
+    return _autograd_profiler.record_function(name)

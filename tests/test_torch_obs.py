@@ -16,6 +16,7 @@ cached at module scope, and torch runs on one intra-op thread.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -46,6 +47,7 @@ from neutronstarlite_torch.graph.storage import build_graph, load_edges
 from neutronstarlite_torch.models import get_algorithm
 from neutronstarlite_torch.models.gcn import GCNTrainer
 from neutronstarlite_torch.models.gcn_sample import GCNSampleTrainer
+from neutronstarlite_torch.nn.param import adam_update
 from neutronstarlite_torch.obs import hist as t_hist
 from neutronstarlite_torch.obs import ledger as t_ledger
 from neutronstarlite_torch.obs import numerics as t_numerics
@@ -54,6 +56,7 @@ from neutronstarlite_torch.obs import schema as t_schema
 from neutronstarlite_torch.obs import slo as t_slo
 from neutronstarlite_torch.resilience import events, faults
 from neutronstarlite_torch.resilience.supervisor import supervised_run
+from neutronstarlite_torch.utils import profiling
 from neutronstarlite_torch.utils.config import InputInfo
 from neutronstarlite_torch.utils.convert import gcn_params_from_jax, params_from_jax
 
@@ -753,6 +756,133 @@ def test_debuginfo_reports_and_leaves_the_model(jax_gcn, tmp_path, monkeypatch):
     for p, q in zip(a.flat_params, b.flat_params):
         assert torch.equal(p, q)
     assert a.run_summary_record["result"]["acc"] == b.run_summary_record["result"]["acc"]
+
+
+# ---- the training step's profiler scopes and phase counters -----------------------
+
+STEP_SCOPES = {"nts.step.forward", "nts.step.backward", "nts.step.optim", "nts.ell.aggregate"}
+GAT_SCOPES = {"nts.gat.project", "nts.gat.scores", "nts.gat.softmax", "nts.gat.transpose",
+              "nts.gat.grad_alpha"}
+
+
+def _kernel_trainer(algorithm, **kw):
+    """A 16-8-7 trainer on the Cora fixture over the ELL tables (OPTIM_KERNEL:1)."""
+    src, dst = load_edges(EDGES)
+    cfg = _cfg(InputInfo, 2, algorithm, "16-8-7", optim_kernel=True, **kw)
+    return get_algorithm(algorithm).from_arrays(cfg, src, dst, _data(GNNDatum, 16),
+                                                device="cpu")
+
+
+def _cpu_profile():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+@pytest.mark.parametrize("algorithm", ["GCNCPU", "GATCPU"])
+def test_step_scopes_open_under_any_profiler(algorithm):
+    """A profiler opened outside ``maybe_trace`` (as the benchmark's is)
+    records every scope of one ``train_step()``: GAT's scores and softmax
+    once per level and layer, never per chunk."""
+    tr = _kernel_trainer(algorithm)
+    assert not profiling.recording()
+    with _cpu_profile() as prof:
+        assert profiling.recording()
+        tr.train_step()
+    assert not profiling.recording()
+    seen = {}
+    for e in prof.events():
+        if e.name.startswith("nts."):
+            seen[e.name] = seen.get(e.name, 0) + 1
+    assert set(seen) == STEP_SCOPES | (GAT_SCOPES if algorithm == "GATCPU" else set())
+    assert seen["nts.step.forward"] == seen["nts.step.backward"] == seen["nts.step.optim"] == 1
+    if algorithm == "GATCPU":
+        levels = tr.compute_graph.pair.fwd.nbr
+        live = sum(n.shape[1] > 0 for n in levels)
+        # two layers: per layer the gathers and each live level's scores,
+        # each level's softmax, both transposes, the forward and backward
+        # aggregation
+        assert (seen["nts.gat.scores"], seen["nts.gat.softmax"]) == (2 * (1 + live),
+                                                                     2 * len(levels))
+        assert (seen["nts.gat.project"], seen["nts.gat.grad_alpha"]) == (2, 2)
+        assert (seen["nts.gat.transpose"], seen["nts.ell.aggregate"]) == (4, 4)
+    else:
+        # forward at both layers, backward at the second (the first's input
+        # takes no gradient)
+        assert seen["nts.ell.aggregate"] == 3
+
+
+def test_annotate_builds_no_record_function_without_a_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler recording")
+
+    monkeypatch.setattr(profiling._autograd_profiler, "record_function", refuse)
+    assert profiling.annotate("nts.a") is profiling.annotate("nts.b")
+    tr = _kernel_trainer("GATCPU")
+    loss, _ = tr.train_step()
+    assert torch.isfinite(loss)
+    with tr.tracer.span("unit"):
+        pass
+
+
+def test_step_counters_rise_once_per_step(monkeypatch):
+    tr = _kernel_trainer("GATCPU")
+    adds = []
+    add = tr.metrics.counter_add
+
+    def spy(name, value=1.0):
+        adds.append((name, value))
+        add(name, value)
+
+    monkeypatch.setattr(tr.metrics, "counter_add", spy)
+    for n in (1, 2):
+        tr.train_step()
+        step = [(k, v) for k, v in adds if k.startswith("step.")]
+        assert [k for k, _ in step] == ["step.forward_s", "step.backward_s", "step.optim_s"] * n
+        assert all(v > 0 for _, v in step)
+    counters = tr.metrics.snapshot(include_hists=False)["counters"]
+    for name in ("step.forward_s", "step.backward_s", "step.optim_s"):
+        assert counters[name] == pytest.approx(sum(v for k, v in adds if k == name))
+
+
+def _unscoped_step(tr):
+    """The step as the trainer ran it before its scopes and counters:
+    forward, loss, backward, Adam; returns the loss and the gradients."""
+    for p in tr.flat_params:
+        p.grad = None
+    logits = tr.model_forward(tr.params, tr.compute_graph, tr.feature, True)
+    loss = tr.masked_nll_loss(logits, tr.label, tr.train01)
+    loss.backward()
+    grads = [p.grad.clone() for p in tr.flat_params]
+    adam_update(tr.flat_params, [p.grad for p in tr.flat_params], tr.opt_state, tr.adam_cfg)
+    return loss.detach(), grads
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+@pytest.mark.parametrize("algorithm", ["GCNCPU", "GATCPU"])
+def test_train_step_is_bitwise_the_unscoped_step(algorithm, profiled):
+    """Scopes and counters leave the loss, the gradients and the update
+    bitwise as they were, with dropout on and with a profiler recording."""
+    new = _kernel_trainer(algorithm, drop_rate=0.5)
+    old = _kernel_trainer(algorithm, drop_rate=0.5)
+    for _ in range(2):
+        with (_cpu_profile() if profiled else contextlib.nullcontext()):
+            loss, _ = new.train_step()
+        ref_loss, ref_grads = _unscoped_step(old)
+        assert torch.equal(loss, ref_loss)
+        for p, g in zip(new.flat_params, ref_grads):
+            assert torch.equal(p.grad, g)
+        for p, q in zip(new.flat_params, old.flat_params):
+            assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("algorithm,phases", [("GCNCPU", ["ell_tables"]),
+                                              ("GATCPU", ["ell_tables", "slot_maps"])])
+def test_set_up_phases_in_the_phase_report(algorithm, phases):
+    tr = _kernel_trainer(algorithm)
+    snap, report = tr.timers.snapshot(), tr.timers.report()
+    for name in phases:
+        assert snap[name]["count"] == 1 and snap[name]["total_s"] > 0
+        assert f"#{name}_time=" in report
+    assert ("slot_maps" in snap) == (algorithm == "GATCPU")
 
 
 # ---- the distributed trainers' numerics plane (JAX test_numerics.py) ---------------
