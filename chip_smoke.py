@@ -43,9 +43,11 @@ Phases (each prints its lines; any failure exits non-zero):
    be at most 8; then each of an epoch's four ELL calls on runtime
    weights (fwd 128, fwd 41, bwd 41, bwd 128) on the trainer's own tables
    against its plain version, timed beside it, one torch.sparse.mm with
-   the alpha values and the bound; the plain grad_alpha pass and the row
-   softmax of an epoch timed; one epoch under torch.profiler (device busy
-   time, idle share, time by kernel);
+   the alpha values and the bound; the grad_alpha kernel at both layers
+   against its plain version, timed beside it, one
+   torch.sparse.sampled_addmm (the same SDDMM) and its bound, one launch
+   per call; the row softmax of an epoch timed; one epoch under
+   torch.profiler (device busy time, idle share, time by kernel);
 8. GIN and CommNet 602-128-41 f32: one epoch on the scatter route, then 2
    on the ELL route and 2 on the bsp route, each kernel route's
    first-epoch loss held against the scatter route's, 3 more epochs timed
@@ -371,7 +373,9 @@ trainers' program_cost records. In the
 {"kernels": [...]} line, ms, plain_ms, library_ms and bound_ms are those of
 one training epoch's aggregation calls: the sums over the pairs above
 (phase 6 for ell_level and bsp_ell, phase 7 for ell_level_gat, the same
-kernel on runtime weights; phase 15 (a) for ell_level_dist and
+kernel on runtime weights, and for gat_grad_alpha, csrc/ell_gat.cu at both
+GAT layers, whose bound is its own: 2*E*f f32 operations against g and h
+read once, the slot indices and the output's slots; phase 15 (a) for ell_level_dist and
 bsp_ell_dist, the kernels on the rectangular per-shard tables, whose
 launches are those of phase 15 (b)'s ELL and bsp runs).
 
@@ -935,7 +939,8 @@ def gat_sparse(g, gep, alphas, direction: str):
     )
 
 
-OWN_KERNELS = ("ell_work_kernel", "ell_split_reduce", "bsp_ell_kernel", "::cast_kernel<")
+OWN_KERNELS = ("ell_work_kernel", "ell_split_reduce", "bsp_ell_kernel", "::cast_kernel<",
+               "gat_grad_alpha_kernel")
 
 
 def profile_step(step, top: int = 8, host: bool = True) -> dict:
@@ -1068,8 +1073,11 @@ def phase_gat(dev, epochs: int, seed: int, results, failures):
     first logits and first-epoch loss against the chain's. Then, on the
     ELL trainer's own tables, each of an epoch's four runtime-weight
     kernel calls against its plain version, timed beside the plain
-    version, one torch.sparse.mm with the alpha values and the bound; and
-    the plain grad_alpha passes and the row softmax of an epoch."""
+    version, one torch.sparse.mm with the alpha values and the bound; the
+    grad_alpha kernel at both layers against its plain version, timed
+    beside it, one torch.sparse.sampled_addmm and its bound; and the row
+    softmax of an epoch. Returns the
+    {"kernels": ...} rows ell_level_gat and gat_grad_alpha."""
     import numpy as np
     import torch
 
@@ -1124,14 +1132,16 @@ def phase_gat(dev, epochs: int, seed: int, results, failures):
     del chain_logits
     torch.cuda.reset_peak_memory_stats()
     ell_level_aggregate.launches = bsp_aggregate.launches = 0
+    tr.compute_graph.grad_alpha_launches = 0
     tr.run()
     torch.cuda.synchronize()
     launches, stray = ell_level_aggregate.launches, bsp_aggregate.launches
+    ga_launches = tr.compute_graph.grad_alpha_launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    ell_level_aggregate.launches = 0
+    ell_level_aggregate.launches = tr.compute_graph.grad_alpha_launches = 0
     tr.train_step()
     torch.cuda.synchronize()
-    per_epoch = ell_level_aggregate.launches
+    per_epoch, ga_per_epoch = ell_level_aggregate.launches, tr.compute_graph.grad_alpha_launches
     losses = tr.loss_history
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"GAT ELL: non-finite loss {losses}")
@@ -1139,6 +1149,8 @@ def phase_gat(dev, epochs: int, seed: int, results, failures):
         raise AssertionError(f"GAT ELL: {launches} ell_level launches, {stray} bsp launches")
     if per_epoch > 8:
         raise AssertionError(f"GAT ELL: {per_epoch} ell_level launches per epoch (> 8)")
+    if ga_per_epoch != len(tr.params):  # one grad_alpha launch per layer
+        raise AssertionError(f"GAT ELL: {ga_per_epoch} grad_alpha launches per epoch")
     if abs(losses[0] - ref) > GAT_LOSS_RTOL * abs(ref):
         failures.append(f"GAT ELL: epoch-0 loss {losses[0]} vs edge chain {ref}")
         log(f"FAILED {failures[-1]}")
@@ -1147,7 +1159,8 @@ def phase_gat(dev, epochs: int, seed: int, results, failures):
         f"{abs(losses[0] - ref) / abs(ref):.2e})")
     results["gat"]["ell_epochs"] = list(tr.epoch_times)
     log(f"GAT ELL: losses {[round(x, 6) for x in losses]}; {launches} ell_level launches "
-        f"in {epochs} epochs + eval, {per_epoch} per training epoch; epochs (s) "
+        f"in {epochs} epochs + eval, {per_epoch} per training epoch; {ga_launches} grad_alpha "
+        f"launches in {epochs} epochs, {ga_per_epoch} per training epoch; epochs (s) "
         f"{[round(t, 4) for t in tr.epoch_times]}; host table build "
         f"{tr.build_model_s:.1f} s; peak device memory {peak:.2f} GiB")
 
@@ -1185,14 +1198,47 @@ def phase_gat(dev, epochs: int, seed: int, results, failures):
             f"torch.sparse.mm {lib_ms:.4f} ms (max abs deviation from the kernel "
             f"{lib_dev:.3e}), bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
             f"f32 ops {t_ops:.4f})")
-    # the plain pieces of a GAT epoch: grad_alpha at both layers, and the
-    # row softmax (forward and backward) at both layers
+    # grad_alpha at both layers: the kernel (one launch per call) against
+    # its plain version, each timed, beside the bound (2*E*f f32 operations
+    # against g and h read once, 8*V*f bytes, the slot indices, 4*E, and the
+    # output, 4 B per slot, zero fill included) and one
+    # torch.sparse.sampled_addmm, the same SDDMM over the edges
     gens = torch.Generator(device=dev).manual_seed(seed + 6)
     grads = [torch.randn(h.shape, generator=gens, device=dev) for _, h, _, _, _ in layers]
-    grad_alpha_ms = sum(
-        cuda_ms(lambda: gep.grad_alphas(gr, h), n=3, warmup=1)
-        for gr, (_, h, _, _, _) in zip(grads, layers)
-    )
+    ga = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+          "ops_ms": 0.0}
+    ga_err = 0.0
+    for gr, (f, h, _, _, _) in zip(grads, layers):
+        before = gep.grad_alpha_launches
+        got = torch.cat([a.reshape(-1) for a in gep.grad_alphas(gr, h)])
+        torch.cuda.synchronize()
+        if gep.grad_alpha_launches - before != 1:
+            raise AssertionError(f"GAT grad_alpha f={f}: "
+                                 f"{gep.grad_alpha_launches - before} launches in one call")
+        want = torch.cat([a.reshape(-1) for a in gep.plain_grad_alphas(gr, h)])
+        abs_sum = torch.cat([a.reshape(-1) for a in gep.plain_grad_alphas(gr.abs(), h.abs())])
+        e = check_close(f"GAT grad_alpha f={f}", got, want, F32_TOL, abs_sum)
+        del got, want, abs_sum
+        ga_err = max(ga_err, e)
+        ms = cuda_ms(lambda: gep.grad_alphas(gr, h))
+        plain_ms = cuda_ms(lambda: gep.plain_grad_alphas(gr, h), n=3, warmup=1)
+        a = gat_sparse(g1, gep, gep.grad_alphas(gr, h), "fwd")  # the kernel's values, A[dst, src]
+        lib_ms = cuda_ms(lambda: torch.sparse.sampled_addmm(a, gr, h.t(), beta=0.0))
+        lib_dev = float((torch.sparse.sampled_addmm(a, gr, h.t(), beta=0.0).values()
+                         - a.values()).abs().max())
+        del a
+        slots = sum(n.numel() for n in gep.pair.fwd.nbr)
+        t_bytes = (8.0 * v * f + 4.0 * g1.e_num + 4.0 * slots) / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * g1.e_num * f / F32_FLOPS * 1e3
+        for k, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bound_ms", max(t_bytes, t_ops)), ("bytes_ms", t_bytes),
+                       ("ops_ms", t_ops)):
+            ga[k] += val
+        log(f"GAT grad_alpha f={f} f32 V={v} E={g1.e_num}: max abs err {e:.3e} against the "
+            f"plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.sparse.sampled_addmm {lib_ms:.4f} ms (max abs deviation from the kernel "
+            f"{lib_dev:.3e}), bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, f32 ops "
+            f"{t_ops:.4f})")
 
     def softmax_pass(al, ar):
         al, ar = al.detach().requires_grad_(True), ar.detach().requires_grad_(True)
@@ -1207,10 +1253,12 @@ def phase_gat(dev, epochs: int, seed: int, results, failures):
         f"step): ell_level runtime-weight calls {[(d, f) for d, f, _, _ in calls]} "
         f"{tot['ms']:.4f} ms (plain {tot['plain_ms']:.4f}, torch.sparse.mm "
         f"{tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}: bytes {tot['bytes_ms']:.4f}, "
-        f"f32 ops {tot['ops_ms']:.4f}); plain grad_alpha, both layers {grad_alpha_ms:.4f} ms; "
-        f"row softmax forward+backward, both layers {softmax_ms:.4f} ms; launches per epoch "
+        f"f32 ops {tot['ops_ms']:.4f}); grad_alpha kernel, both layers {ga['ms']:.4f} ms "
+        f"(plain {ga['plain_ms']:.4f}, torch.sparse.sampled_addmm {ga['library_ms']:.4f}, "
+        f"bound {ga['bound_ms']:.4f}); row softmax "
+        f"forward+backward, both layers {softmax_ms:.4f} ms; ell_level launches per epoch "
         f"{per_epoch}")
-    row = {
+    rows = [{
         "name": "ell_level_gat", "route": "cuda",
         "source": "neutronstarlite_torch/csrc/ell_level.cu",
         "replaces": "neutronstarlite_tpu/ops/pallas_kernels.py:91",
@@ -1218,10 +1266,18 @@ def phase_gat(dev, epochs: int, seed: int, results, failures):
         "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
         "library_ms": tot["library_ms"],
-    }
+    }, {
+        "name": "gat_grad_alpha", "route": "cuda",
+        "source": "neutronstarlite_torch/csrc/ell_gat.cu",
+        "replaces": "none (plain jnp in neutronstarlite_tpu/ops/ell_gat.py)",
+        "launches": ga_launches, "max_abs_err": ga_err, "ms": ga["ms"],
+        "plain_ms": ga["plain_ms"], "bound_ms": ga["bound_ms"],
+        "bound_by": "bytes" if ga["bytes_ms"] >= ga["ops_ms"] else "operations",
+        "library_ms": ga["library_ms"],
+    }]
     del tr, gep, calls, layers, grads
     torch.cuda.empty_cache()
-    return row
+    return rows
 
 
 def phase_gin_commnet(dev, g, epochs: int, seed: int, results, failures) -> None:
@@ -6071,8 +6127,7 @@ def main(argv=None) -> int:
     for route in ("bsp", "ell"):  # free the GCN trainers' tables
         results[route].pop("trainer")
     torch.cuda.empty_cache()
-    rows.append(timed("7", phase_gat, dev, args.epochs, args.seed, results,
-                      results["failures"]))
+    rows += timed("7", phase_gat, dev, args.epochs, args.seed, results, results["failures"])
     timed("8", phase_gin_commnet, dev, g, 2, args.seed, results, results["failures"])
     ggcn_chain = timed("9", phase_ggcn, dev, args.scale, args.seed)
     timed("10", phase_blocked_and_fused, dev, g, args.scale, args.epochs, args.seed, results,

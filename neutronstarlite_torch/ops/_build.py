@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-KERNELS = ("ell_level", "bsp_ell")
+KERNELS = ("ell_level", "bsp_ell", "ell_gat")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -56,11 +56,15 @@ _SIGNATURES = {
         "nts_bsp_ell_geometry": [VP],
         "nts_bsp_ell_occupancy": [I32, I32, VP],
     },
+    "ell_gat": {
+        "nts_ell_gat_grad_alpha": [VP, VP, I32, VP, VP, VP, I32, VP],
+    },
 }
 # the feature columns one warp (ell_level) or one CTA (bsp_ell) covers,
-# exported by each kernel so that its wrapper reads the kernel's own value
-# (each also exports the rest of its launch geometry and its occupancy,
-# read by ops/ell_kernel.py and ops/bsp_ell.py)
+# exported by each aggregation so that its wrapper reads the kernel's own
+# value (each also exports the rest of its launch geometry and its
+# occupancy, read by ops/ell_kernel.py and ops/bsp_ell.py); ell_gat takes
+# its geometry from ell_level's work list and exports none
 _COLS_FN = {"ell_level": "nts_ell_level_cols", "bsp_ell": "nts_bsp_ell_cols"}
 
 
@@ -126,9 +130,10 @@ def load(name: str) -> ctypes.CDLL:
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = I32
-    cols = getattr(lib, _COLS_FN[name])
-    cols.argtypes, cols.restype = [], I32
-    _cols[name] = cols()
+    if name in _COLS_FN:
+        cols = getattr(lib, _COLS_FN[name])
+        cols.argtypes, cols.restype = [], I32
+        _cols[name] = cols()
     _libs[name] = lib
     return lib
 

@@ -13,9 +13,13 @@ aggregation is the ELL-level kernel (``ops/ell_kernel.py``,
 with the alphas, its h-gradient over the CSR tables with the same alphas
 laid out there through ``bwd_alpha_idx`` (each backward slot's flat
 forward slot). The alphas' gradient ``grad_alpha[r, k] =
-g[row_vertex[r]] . h[nbr[r, k]]`` is plain chunked PyTorch with f32
-products (``grad_alpha_level``); the JAX package has no Pallas kernel
-for it.
+g[row_vertex[r]] . h[nbr[r, k]]`` (an SDDMM, f32 products and sums) is on a
+CUDA tensor the kernel ``csrc/ell_gat.cu`` (f32 only: GAT's trainers run
+f32): one launch per call over the forward aggregation's cached work list
+at the same width, counted by ``GatEllPair.grad_alpha_launches``. On a
+CPU tensor it is the plain version ``grad_alpha_level``, chunked PyTorch
+per level. The JAX package computes it in plain jnp: the kernel replaces
+no Pallas kernel.
 
 ``GatEllPair`` adds the two maps to an ``EllPair``; they are built on the
 host and are bitwise the JAX package's. ``GatherAlLevels`` is the
@@ -26,8 +30,8 @@ backward would add with atomics in a varying order).
 
 Profiler scopes (``utils/profiling.annotate``, open while a profiler
 records): ``nts.gat.scores``, ``nts.gat.softmax``, ``nts.gat.transpose``
-(both slot-map transposes) and ``nts.gat.grad_alpha``; the aggregation's
-own is ``nts.ell.aggregate``.
+(both slot-map transposes) and ``nts.gat.grad_alpha`` (the kernel's
+launch, or the plain pieces); the aggregation's own is ``nts.ell.aggregate``.
 """
 
 from __future__ import annotations
@@ -39,8 +43,9 @@ import numpy as np
 import torch
 
 from neutronstarlite_torch.graph.storage import CSCGraph
+from neutronstarlite_torch.ops import _build
 from neutronstarlite_torch.ops.ell import _PLAIN_CHUNK_ELEMS, EllBuckets, EllPair
-from neutronstarlite_torch.ops.ell_kernel import EllWeightedAggregate
+from neutronstarlite_torch.ops.ell_kernel import EllWeightedAggregate, work_list
 from neutronstarlite_torch.utils.profiling import annotate
 
 NEG_INF = -1e30  # masked-slot score (a finite sentinel, not inf)
@@ -86,8 +91,11 @@ class GatEllPair:
     forward row r. ``bwd_alpha_idx[l]`` [Nk_b, K_b] int32: the flat forward
     slot of each backward slot's edge (padding slots hold 0 and are masked
     by the backward table's zero weight). The rest is derived from those on
-    the device: ``fwd_real`` (the forward tables' live slots), and the
-    backward map and mask flattened over all levels."""
+    the device: ``fwd_real`` (the forward tables' live slots), the
+    backward map and mask flattened over all levels, and ``fwd_levels``
+    [n_levels, 4] int64, each forward level's (nbr pointer, rows_vertex
+    pointer, flat slot base, K): how the grad_alpha kernel finds the
+    tables. ``grad_alpha_launches`` counts the kernel's launches."""
 
     pair: EllPair
     fwd_row_vertex: torch.Tensor
@@ -95,6 +103,8 @@ class GatEllPair:
     fwd_real: List[torch.Tensor] = dataclasses.field(repr=False)
     bwd_idx_flat: torch.Tensor = dataclasses.field(repr=False)
     bwd_real_flat: torch.Tensor = dataclasses.field(repr=False)
+    fwd_levels: torch.Tensor = dataclasses.field(repr=False)
+    grad_alpha_launches: int = 0
 
     @staticmethod
     def from_host(g: CSCGraph, device="cpu") -> "GatEllPair":
@@ -104,7 +114,7 @@ class GatEllPair:
     def from_pair(pair: EllPair, g: CSCGraph) -> "GatEllPair":
         """Add the attention slot maps to a built EllPair (on its device)."""
         dev = pair.fwd.inv_perm.device
-        _, level_rows_f, level_K_f, fwd_row_vertex = _flat_slot_layout(pair.fwd)
+        bases_f, level_rows_f, level_K_f, fwd_row_vertex = _flat_slot_layout(pair.fwd)
         bases_b, level_rows_b, level_K_b, _ = _flat_slot_layout(pair.bwd)
         total_f = sum(r * k for r, k in zip(level_rows_f, level_K_f))
         total_b = sum(r * k for r, k in zip(level_rows_b, level_K_b))
@@ -134,6 +144,11 @@ class GatEllPair:
             for base, rows, k in zip(bases_b, level_rows_b, level_K_b)
         ]
         real_b = [w.reshape(-1) != 0 for w in pair.bwd.wgt]
+        fwd_levels = torch.tensor(
+            [[n.data_ptr(), rv.data_ptr(), base, n.shape[1]]
+             for n, rv, base in zip(pair.fwd.nbr, pair.fwd.rows_vertex, bases_f)],
+            dtype=torch.int64,
+        ).reshape(-1, 4).to(dev)
         return GatEllPair(
             pair=pair,
             fwd_row_vertex=torch.from_numpy(fwd_row_vertex.astype(np.int32)).to(dev),
@@ -142,6 +157,7 @@ class GatEllPair:
             bwd_idx_flat=idx_flat,
             bwd_real_flat=(torch.cat(real_b) if real_b
                            else torch.zeros(0, dtype=torch.bool, device=dev)),
+            fwd_levels=fwd_levels,
         )
 
     def row_starts(self) -> List[int]:
@@ -166,15 +182,55 @@ class GatEllPair:
 
     def grad_alphas(self, g: torch.Tensor, h: torch.Tensor) -> List[torch.Tensor]:
         """grad_alpha[r, k] = g[row_vertex[r]] . h[nbr[r, k]] per forward
-        level, 0 on padding (f32 products, cast to g's dtype)."""
+        level, 0 on padding: the kernel on f32 CUDA tensors, the plain
+        ``grad_alpha_level`` on CPU tensors (f32 products, cast to g's
+        dtype)."""
         fwd = self.pair.fwd
         with annotate("nts.gat.grad_alpha"):
-            g_rows = g[self.fwd_row_vertex]
-            starts = self.row_starts()
-            return [
-                grad_alpha_level(g_rows[starts[i]:starts[i + 1]], h, nbr, real).to(g.dtype)
-                for i, (nbr, real) in enumerate(zip(fwd.nbr, self.fwd_real))
-            ]
+            if g.device.type == "cpu":
+                return [a.to(g.dtype) for a in self.plain_grad_alphas(g, h)]
+            flat = self._grad_alpha_kernel(g, h)
+            return [part.view(n.shape) for part, n in
+                    zip(torch.split(flat, [n.numel() for n in fwd.nbr]), fwd.nbr)]
+
+    def plain_grad_alphas(self, g: torch.Tensor, h: torch.Tensor) -> List[torch.Tensor]:
+        """The plain version on any device: ``grad_alpha_level`` per forward
+        level, f32."""
+        g_rows, starts = g[self.fwd_row_vertex], self.row_starts()
+        return [grad_alpha_level(g_rows[starts[i]:starts[i + 1]], h, nbr, real)
+                for i, (nbr, real) in enumerate(zip(self.pair.fwd.nbr, self.fwd_real))]
+
+    def _grad_alpha_kernel(self, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """The flat f32 slots of every forward level from ``csrc/ell_gat.cu``:
+        one zero fill, then one launch over the forward aggregation's work
+        list at h's width."""
+        fwd = self.pair.fwd
+        if g.device.type != "cuda":
+            raise ValueError(f"grad_alphas runs on cuda or cpu tensors, got {g.device}")
+        f = h.shape[1] if h.dim() == 2 else -1
+        if g.dim() != 2 or g.shape != (fwd.v_num, f) or h.shape[0] != fwd.n_src:
+            raise ValueError(f"grad_alphas needs g [{fwd.v_num}, f] and h [{fwd.n_src}, f], "
+                             f"got {tuple(g.shape)} and {tuple(h.shape)}")
+        for t in (g, h):
+            if t.dtype != torch.float32:
+                raise TypeError(f"grad_alphas on cuda takes float32, got {t.dtype}")
+            if not t.is_contiguous() or t.device != self.fwd_levels.device:
+                raise ValueError("grad_alphas needs contiguous g and h on the tables' device")
+        out = torch.zeros(sum(n.numel() for n in fwd.nbr), dtype=torch.float32,
+                          device=g.device)
+        if f == 0:
+            return out
+        work = work_list(fwd, f)
+        if not work.n_items:
+            return out
+        err = _build.load("ell_gat").nts_ell_gat_grad_alpha(
+            self.fwd_levels.data_ptr(), work.items.data_ptr(), work.n_items,
+            g.data_ptr(), h.data_ptr(), out.data_ptr(), f,
+            torch.cuda.current_stream(g.device).cuda_stream,
+        )
+        _build.check(err, f"ell_gat grad_alpha {work.n_items} items f={f}")
+        self.grad_alpha_launches += 1
+        return out
 
 
 class GatherAlLevels(torch.autograd.Function):
@@ -243,7 +299,8 @@ def grad_alpha_level(
 ) -> torch.Tensor:
     """[Nk, K] f32 = g_lv[r] . h[nbr[r, k]] where the slot is live, else 0,
     in pieces of rows (and, for a row wider than the budget, of slots)
-    whose [rows, slots, f] gather stays within ``_PLAIN_CHUNK_ELEMS``."""
+    whose [rows, slots, f] gather stays within ``_PLAIN_CHUNK_ELEMS``: the
+    plain version of ``csrc/ell_gat.cu``."""
     n_rows, k = nbr.shape
     f = h.shape[1]
     out = torch.zeros((n_rows, k), dtype=torch.float32, device=h.device)

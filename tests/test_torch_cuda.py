@@ -281,11 +281,22 @@ def _assert_sum_close(got, want, abs_sum):
     assert np.all(np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-4 * abs_sum + 1e-30)
 
 
+def _assert_dot_close(got, want, abs_sum, f):
+    """f32 dots of length f in two orders: each side's sum is within
+    (f - 1) * 2^-24 of its terms' absolute sum (``abs_sum``) of the exact
+    one, so the two lie within twice that, plus rtol 1e-6 for the last
+    rounding."""
+    got, want, abs_sum = _np(got), _np(want), _np(abs_sum)
+    tol = 2 * max(f - 1, 1) * 2.0 ** -24 * abs_sum + 1e-6 * np.abs(want) + 1e-30
+    assert np.all(np.abs(got - want) <= tol), float(np.max(np.abs(got - want) - tol))
+
+
 @pytest.mark.parametrize("f", [41, 128])
 def test_cuda_ell_runtime_weights_match_plain(cuda_device, f):
     """Forward over the CSC tables with runtime alphas, and the paired
     backward: x's gradient over the CSR tables with the same alphas, the
-    alphas' gradient from the plain pass; f32, the hub row split."""
+    alphas' gradient from the grad_alpha kernel against the plain version;
+    f32, the hub row split."""
     gep = _gat_pair(cuda_device)
     fwd, bwd = gep.pair.fwd, gep.pair.bwd
     assert t_ellk.work_list(fwd, f).n_split > 0 and t_ellk.work_list(bwd, f).n_split > 0
@@ -305,8 +316,72 @@ def test_cuda_ell_runtime_weights_match_plain(cuda_device, f):
         want = t_ell.ell_tables_aggregate(v, tables.nbr, w)[tables.inv_perm]
         abs_sum = t_ell.ell_tables_aggregate(v.abs(), tables.nbr, w)[tables.inv_perm]
         _assert_sum_close(got, want, abs_sum)
-    for got, ref in zip(alphas, gep.grad_alphas(c, xd)):
-        assert torch.equal(got.grad, ref)  # the same plain pass
+    # the alphas' gradient from the kernel, against the plain version
+    for got, want, abs_sum in zip(alphas, gep.plain_grad_alphas(c, xd),
+                                  gep.plain_grad_alphas(c.abs(), xd.abs())):
+        _assert_dot_close(got.grad, want, abs_sum, f)
+
+
+def _grad_alpha_graph():
+    """A hub of 3000 in-edges (a K=4096 level, whose row splits into pieces
+    on the work list), random edges among the first 250 vertices and no
+    self loops: the last 50 have no in-edge (the K=0 level)."""
+    rng = np.random.default_rng(20)
+    src = rng.integers(0, 250, size=1500, dtype=np.uint32)
+    dst = rng.integers(0, 250, size=1500, dtype=np.uint32)
+    many = rng.integers(0, V, size=3000, dtype=np.uint32)
+    src = np.concatenate([src, many])
+    dst = np.concatenate([dst, np.full(3000, 5, np.uint32)])
+    return build_graph(src, dst, V, weight="ones")
+
+
+@pytest.mark.parametrize("f", [1, 7, 41, 128, 130, 602])
+def test_cuda_grad_alpha_kernel_matches_plain(cuda_device, f):
+    """The grad_alpha kernel against the plain ``grad_alpha_level`` on the
+    same f32 inputs, within the f32 dot's bound; padding slots exactly 0;
+    one launch per call; two calls back to back bitwise equal;
+    ``grad_alphas`` the flat slots per level."""
+    gep = t_ell_gat.GatEllPair.from_host(_grad_alpha_graph(), device=cuda_device)
+    fwd = gep.pair.fwd
+    assert t_ellk.work_list(fwd, f).n_split > 0
+    assert any(n.shape[1] == 0 and n.shape[0] > 0 for n in fwd.nbr)  # zero-degree rows
+    rng = np.random.default_rng(21)
+    g = torch.from_numpy(rng.standard_normal((V, f), dtype=np.float32)).to(cuda_device)
+    h = torch.from_numpy(rng.standard_normal((V, f), dtype=np.float32)).to(cuda_device)
+    before = gep.grad_alpha_launches
+    flat = gep._grad_alpha_kernel(g, h)
+    again = gep._grad_alpha_kernel(g, h)
+    levels = gep.grad_alphas(g, h)
+    torch.cuda.synchronize()
+    assert gep.grad_alpha_launches - before == 3
+    assert flat.dtype == torch.float32 and torch.equal(flat, again)
+    parts = torch.split(flat, [n.numel() for n in fwd.nbr])
+    for n, real, part, lv, want, abs_sum in zip(
+            fwd.nbr, gep.fwd_real, parts, levels, gep.plain_grad_alphas(g, h),
+            gep.plain_grad_alphas(g.abs(), h.abs())):
+        got = part.view(n.shape)
+        assert lv.dtype == torch.float32 and torch.equal(lv, got)
+        assert not got[~real].any()  # padding exactly 0
+        _assert_dot_close(got, want, abs_sum, f)
+
+
+def test_cuda_grad_alpha_raises_instead_of_falling_back(cuda_device):
+    """What the kernel does not take raises: a dtype other than f32 (bf16
+    too, for g, h or both), a strided g, a shape that is not the tables', h
+    left on the CPU."""
+    gep = t_ell_gat.GatEllPair.from_host(_grad_alpha_graph(), device=cuda_device)
+    g = torch.ones((V, 8), device=cuda_device)
+    for a, b in ((g.double(), g.double()), (g.bfloat16(), g.bfloat16()), (g, g.bfloat16()),
+                 (g.bfloat16(), g)):
+        with pytest.raises(TypeError):
+            gep.grad_alphas(a, b)
+    with pytest.raises(ValueError):
+        gep.grad_alphas(torch.ones((8, V), device=cuda_device).t(), g)
+    with pytest.raises(ValueError):
+        gep.grad_alphas(g[:-1], g)
+    with pytest.raises(ValueError):
+        gep.grad_alphas(g, g.cpu())
+    assert gep.grad_alpha_launches == 0
 
 
 def test_cuda_ell_runtime_weights_two_calls_in_a_row(cuda_device):

@@ -364,6 +364,55 @@ def test_grad_alpha_level_in_pieces_matches_dense(monkeypatch, budget):
     np.testing.assert_allclose(_np(got), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("geom", [(3072, 128, 4096), (4, 4, 8)], ids=["kernel", "small_cap"])
+@pytest.mark.parametrize("f", [41, 128])
+def test_grad_alpha_work_list_covers_the_live_forward_slots_once(f, geom):
+    """The forward aggregation's work list, which the grad_alpha kernel
+    walks, names every live forward slot once and no padding slot, read
+    through ``fwd_levels`` as the kernel reads it (flat slot base + row * K
+    + k): each output slot has one writer, so the kernel needs no atomics.
+    On the hub graph the hub's row splits; geometry (target warps, least
+    cap, largest cap) as the built ELL kernel's, and a small cap."""
+    g = _host("hub")
+    gep = t_ell_gat.GatEllPair.from_host(g)
+    fwd = gep.pair.fwd
+    levels = gep.fwd_levels.numpy()
+    starts = np.cumsum([0] + [n.numel() for n in fwd.nbr])
+    for i, (n, rv) in enumerate(zip(fwd.nbr, fwd.rows_vertex)):
+        assert tuple(levels[i]) == (n.data_ptr(), rv.data_ptr(), starts[i], n.shape[1])
+    w = t_ellk.ell_work([d.numpy() for d in fwd.deg], [r.numpy() for r in fwd.rows_vertex],
+                        f, 128, *geom)
+    assert w.n_split > 0
+    lvl, row, lo, hi, _ = w.items.T.astype(np.int64)
+    base = levels[lvl, 2] + row * levels[lvl, 3]
+    slots = np.concatenate([np.arange(b + a, b + c) for b, a, c in zip(base, lo, hi)])
+    live = np.flatnonzero(torch.cat([r.reshape(-1) for r in gep.fwd_real]).numpy())
+    assert len(np.unique(slots)) == len(slots)
+    np.testing.assert_array_equal(np.sort(slots), live)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["hub", "isolated"])
+def test_grad_alphas_on_cpu_take_the_plain_version(name, dtype):
+    """On CPU tensors ``grad_alphas`` is ``grad_alpha_level`` per level, cast
+    to g's dtype, bitwise, and launches nothing; a tensor on neither the CPU
+    nor a card is refused."""
+    g = _host(name)
+    gep = t_ell_gat.GatEllPair.from_host(g)
+    tdt = getattr(torch, dtype)
+    gr = torch.from_numpy(_r(80, g.v_num, 7)).to(tdt)
+    h = torch.from_numpy(_r(81, g.v_num, 7)).to(tdt)
+    got = gep.grad_alphas(gr, h)
+    rows, starts = gr[gep.fwd_row_vertex], gep.row_starts()
+    assert len(got) == len(gep.pair.fwd.nbr)
+    for i, (n, real, a) in enumerate(zip(gep.pair.fwd.nbr, gep.fwd_real, got)):
+        want = t_ell_gat.grad_alpha_level(rows[starts[i]:starts[i + 1]], h, n, real).to(tdt)
+        assert a.dtype == tdt and torch.equal(a, want)
+    assert gep.grad_alpha_launches == 0
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        gep.grad_alphas(gr.to("meta"), h.to("meta"))
+
+
 def test_runtime_weights_take_the_place_of_the_tables_own():
     """The wrapper on runtime weights equals the plain sum with those
     weights, and leaves the tables' own weights (and the GCN path) alone."""

@@ -12,6 +12,9 @@ card by ``tests/test_torch_cuda.py``.
 
 from __future__ import annotations
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -27,6 +30,7 @@ from neutronstarlite_tpu.ops import pallas_kernels as jax_pk
 from neutronstarlite_tpu.ops.device_graph import DeviceGraph
 
 from neutronstarlite_torch.graph import storage as t_storage
+from neutronstarlite_torch.ops import _build as t_build
 from neutronstarlite_torch.ops import aggregate as t_aggregate
 from neutronstarlite_torch.ops import bsp_ell as t_bsp
 from neutronstarlite_torch.ops import ell as t_ell
@@ -481,3 +485,45 @@ def test_bsp_pieces_combined_match_whole_and_pallas(dtype):
                                jg.edge_weight_forward, dt=dt, vt=vt, k_slots=K, r_rows=R)
     want = ref.aggregate(jnp.asarray(x, dtype=getattr(jnp, dtype)), interpret=True)
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
+
+
+# ---- the kernels' build registry ---------------------------------------------
+
+def _exported(src: str, fn: str) -> list:
+    """The parameters of the C entry point ``fn`` that ``src`` exports."""
+    m = re.search(rf'extern "C" int {fn}\(([^)]*)\)', src)
+    assert m, f"{fn} is not exported"
+    return [p for p in m.group(1).split(",") if p.strip()]
+
+
+@pytest.mark.parametrize("name", ["ell_level", "bsp_ell", "ell_gat"])
+def test_build_lists_each_kernel_with_its_entry_points(name):
+    """The build lists the kernel and has a signature for each C entry
+    point its wrapper calls, and the source exports each with as many
+    parameters as the signature passes (ctypes passes what it is told to,
+    so a count that differs would misread the call); an aggregation's cols
+    function takes none, and no other kernel names one."""
+    assert name in t_build.KERNELS
+    src = open(os.path.join(t_build.CSRC_DIR, f"{name}.cu")).read()
+    for fn, args in t_build._SIGNATURES[name].items():
+        assert len(_exported(src, fn)) == len(args), fn
+    assert set(t_build._COLS_FN) == {"ell_level", "bsp_ell"}
+    if name in t_build._COLS_FN:
+        assert _exported(src, t_build._COLS_FN[name]) == []
+
+
+def test_build_kernel_names_tell_the_sources_apart():
+    """No kernel's name holds another source's kernel name: the benchmark
+    and chip_smoke.py attribute trace time to a kernel by a part of its
+    name (the aggregation's ``ell_work_kernel`` and ``ell_split_reduce``)."""
+    names = {}
+    for name in t_build.KERNELS:
+        src = open(os.path.join(t_build.CSRC_DIR, f"{name}.cu")).read()
+        names[name] = set(re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)",
+                                     src))
+        assert names[name], name
+    assert "gat_grad_alpha_kernel" in names["ell_gat"]
+    for a in names:
+        for b in names:
+            if a != b:
+                assert not any(x in y for x in names[a] for y in names[b]), (a, b)
